@@ -1,0 +1,381 @@
+"""Chip smoke test of the PyTorch/CUDA port: build, check and drive it.
+
+  python3 chip_smoke.py
+
+Needs one CUDA card. Phases, in order (any failure exits non-zero before
+the last line):
+
+1. environment — torch/CUDA versions, the card's name and power limit;
+2. build — compiles ``src/repro_torch/csrc/*.cu`` (one nvcc per source, in
+   parallel) into ``build/repro_torch_kernels/``;
+3. kernel checks — each kernel against its plain PyTorch version on the
+   card, at the shapes of the main path (M=10 groups, K=35 devices, L=10,
+   n=32: a 3200-image superbatch through the full-width CNN), with times;
+4. main path — ``python -m repro_torch.launch.train`` at full width for
+   2 rounds of 3 iterations, with every kernel's launch count checked
+   against what the path implies; then the smoke configuration on the
+   card against the same run's plain versions on the CPU; one profiled
+   full-width round (host spans, device busy share, top kernels);
+5. one JSON line of kernel results, the ``nvidia-smi`` line, and the
+   result line ``{"ok": true, "device": {...}}``.
+
+Imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+
+def main_flags(rounds: int, iters: int, eval_every: int) -> list[str]:
+    """The CLI at the paper's traffic and full CNN width, depth cut."""
+    return ["--groups", "10", "--devices-per-group", "35", "--selected",
+            "10", "--presampled", "2", "--batch-size", "32", "--seed", "0",
+            "--rounds", str(rounds), "--iters", str(iters), "--eval-every",
+            str(eval_every)]
+
+
+SMOKE_FLAGS = ["--groups", "4", "--devices-per-group", "8", "--selected",
+               "4", "--presampled", "1", "--iters", "5", "--rounds", "3",
+               "--batch-size", "8", "--smoke-model", "--lr", "0.05",
+               "--eval-every", "2"]
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_gbp_cs(torch, dev):
+    """GBP-CS on FactoryStreams instances of the main path."""
+    from repro_torch.core import gbp_cs, prng, selection
+    from repro_torch.data import (FactoryStreams, PartitionConfig,
+                                  make_partition)
+    from repro_torch.kernels import gbp_cs as kgbp
+
+    m, k, l, l_rnd, max_iters = 10, 35, 10, 2, 64
+    part = make_partition(PartitionConfig(num_factories=m,
+                                          devices_per_factory=k, seed=0))
+    p_real = torch.as_tensor(part.p_real, device=dev)
+    key = prng.PRNGKey(0)
+    err, steps, first = 0.0, 0, None
+    for it in range(8):
+        key, sub = prng.split(key)
+        streams = FactoryStreams(part, batch_size=32, seed=it)
+        counts = torch.as_tensor(streams.next_counts(), device=dev)
+        _, _, A, y = selection.gbp_cs_instances(prng.split(sub, m), counts,
+                                                p_real, l, l_rnd)
+        x0 = gbp_cs.init_mpinv(A, y, l - l_rnd).contiguous()
+        xk, dk, ik, tk = kgbp.minimize(A, y, x0, max_iters)
+        xp, dp, ip, tp = kgbp.minimize_plain(A, y, x0, max_iters)
+        torch.cuda.synchronize()
+        if not torch.equal(xk, xp):
+            fail(f"gbp_cs: masks differ from the plain version (draw {it})")
+        if not torch.equal(ik, ip):
+            fail(f"gbp_cs: iteration counts differ: {ik.tolist()} vs "
+                 f"{ip.tolist()}")
+        err = max(err, float((dk - dp).abs().max()),
+                  float((tk - tp).abs().max()))
+        steps += int(ik.sum())
+        if first is None:
+            first = (A, y, x0, ik)
+    tol = 1e-3
+    if err > tol:
+        fail(f"gbp_cs: distance error {err} > {tol}")
+    A, y, x0, iters = first
+    g, f, kc = A.shape
+    ms = time_ms(lambda: kgbp.minimize(A, y, x0, max_iters), reps=50)
+    plain_ms = time_ms(lambda: kgbp.minimize_plain(A, y, x0, max_iters),
+                       reps=5, warmup=1)
+    s = int(iters.sum())
+    ops = g * (2 * f * kc + 3 * f) + s * (6 * f * kc + 6 * f + 3 * kc)
+    bytes_ = 4 * (g * f * kc + g * f + 2 * g * kc + 2 * g
+                  + g * (max_iters + 1))
+    b_ms, b_by = bound(bytes_, ops)
+    print(f"gbp_cs: G={g} F={f} K={kc}, {steps} steps over 8 draws, masks "
+          f"and iteration counts equal, max |d err| {err:.3g} (tol {tol})",
+          flush=True)
+    return dict(name=kgbp.NAME, route="cuda", source=kgbp.SOURCE,
+                replaces=kgbp.REPLACES, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=f"G={g} F={f} K={kc} steps={s}")
+
+
+def check_conv(torch, dev):
+    """Both conv layers of the full-width CNN over the 3200-image
+    superbatch (G=10 groups of L·n=320 images)."""
+    from repro_torch.kernels import conv_fused as kconv
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g, b = 10, 320
+    worst, rows, tol = 0.0, [], 1e-4
+    for name, h, cin, cout in (("conv1", 28, 1, 32), ("conv2", 14, 32, 64)):
+        x = torch.rand(g, b, h, h, cin, generator=gen, device=dev)
+        w = torch.randn(g, 5, 5, cin, cout, generator=gen, device=dev) \
+            / math.sqrt(25 * cin)
+        bias = 0.1 * torch.randn(g, cout, generator=gen, device=dev)
+        pat = kconv.im2col(x, (5, 5))
+        wm = w.reshape(g, 25 * cin, cout).contiguous()
+        out_k, y_k = kconv.fused(pat, wm, bias, h)
+        out_p, y_p = kconv.fused_plain(pat, wm, bias, h)
+        err = max(float((y_k - y_p).abs().max()),
+                  float((out_k - out_p).abs().max()))
+        if err > tol:
+            fail(f"conv_fused {name}: max error {err} > {tol}")
+        worst = max(worst, err)
+        r, q = pat.shape[1], pat.shape[2]
+        ms = time_ms(lambda: kconv.fused(pat, wm, bias, h), reps=10)
+        plain_ms = time_ms(lambda: kconv.fused_plain(pat, wm, bias, h),
+                           reps=10)
+        lib_ms = time_ms(lambda: torch.baddbmm(bias[:, None, :], pat, wm),
+                         reps=10)
+        bytes_ = 4 * (g * r * q + g * q * cout + g * cout + g * r * cout
+                      + g * r * cout // 4)
+        ops = 2 * g * r * q * cout + 2 * g * r * cout
+        b_ms, b_by = bound(bytes_, ops)
+        rows.append(dict(layer=name, G=g, R=r, Q=q, C=cout, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err,
+                         tflops=ops / ms / 1e9))
+        print(f"conv_fused {name}: G={g} R={r} Q={q} C={cout} max err "
+              f"{err:.3g} (tol {tol}); {ms:.3f} ms kernel, {plain_ms:.3f} ms "
+              f"plain, {lib_ms:.3f} ms baddbmm, bound {b_ms:.3f} ms "
+              f"({b_by}), {ops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    tot = lambda key: sum(row[key] for row in rows)
+    return dict(name=kconv.NAME, route="cuda", source=kconv.SOURCE,
+                replaces=kconv.REPLACES, max_abs_err=worst, tol=tol,
+                ms=tot("ms"), plain_ms=tot("plain_ms"),
+                bound_ms=tot("bound_ms"),
+                bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=tot("library_ms"),
+                shape="conv1 + conv2 forward, G=10, 3200 images",
+                layers=rows)
+
+
+def check_agg(torch, dev):
+    """Eq. 5 over the M=10 stacked full-width models."""
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.kernels import agg_weighted as kagg
+    from repro_torch.models import cnn
+
+    m = 10
+    params = cnn.init_cnn(torch.Generator().manual_seed(0),
+                          femnist_cnn.CONFIG, dev)
+    n_par = sum(v.numel() for layer in params.values()
+                for v in layer.values())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stacked = {name: {k: v[None] + 0.01 * torch.randn(
+        (m,) + tuple(v.shape), generator=gen, device=dev)
+        for k, v in layer.items()} for name, layer in params.items()}
+    flat = kagg.flatten(stacked, m)
+    w = torch.full((m,), 1.0 / m, device=dev)
+    out_k = kagg.agg(flat, w)
+    out_p = kagg.agg_plain(flat, w)
+    err, tol = float((out_k - out_p).abs().max()), 1e-6
+    if err > tol:
+        fail(f"agg_weighted: max error {err} > {tol}")
+    k, p = flat.shape
+    ms = time_ms(lambda: kagg.agg(flat, w), reps=50)
+    plain_ms = time_ms(lambda: kagg.agg_plain(flat, w), reps=20)
+    lib_ms = time_ms(lambda: torch.matmul(w[None], flat), reps=50)
+    b_ms, b_by = bound(4 * (k * p + k + p), 2 * k * p)
+    print(f"agg_weighted: K={k} P={p} (|θ|={n_par}) max err {err:.3g} "
+          f"(tol {tol}); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+          f"{lib_ms:.4f} ms matmul, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    return dict(name=kagg.NAME, route="cuda", source=kagg.SOURCE,
+                replaces=kagg.REPLACES, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"K={k} P={p}")
+
+
+class _Stamps(io.TextIOBase):
+    """stdout tee that stamps every 'round' line with the host clock."""
+
+    def __init__(self, out):
+        self.out, self.stamps, self.lines = out, [], []
+
+    def write(self, s):
+        for line in s.splitlines():
+            if line.startswith("round"):
+                self.stamps.append(time.perf_counter())
+                self.lines.append(line)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(argv):
+    from repro_torch.launch import train
+    tee = _Stamps(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        logs = train.main(argv)
+    return logs, tee, t0
+
+
+def profile_main(torch) -> None:
+    """One traced round of the full-width main path: the host loop's spans
+    (``fedgs.*``, device synchronised at each span's ends), device busy
+    time and the top kernels by device time (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import fedgs
+
+    iters = 3
+    torch.cuda.synchronize()
+    fedgs.SPANS = {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, t0 = run_cli(main_flags(1, iters, 1))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        spans = {k: 1e3 * v for k, v in fedgs.SPANS.items()}
+    finally:
+        fedgs.SPANS = None
+    loop_ms = sum(spans.values())
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels)
+    share = f"{100 * busy / loop_ms:.1f}%" if busy > 0 and loop_ms > 0 \
+        else "not measured"
+    print(f"profile: 1 round x {iters} iterations + eval at full width, "
+          f"wall {wall_ms:.1f} ms with set-up, loop spans {loop_ms:.1f} ms; "
+          f"device busy {busy:.1f} ms = {share} of the loop", flush=True)
+    print("profile host spans (ms, summed over the round): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(spans.items())), flush=True)
+    for ms, count, name in kernels[:12]:
+        print(f"profile device: {ms:9.3f} ms  x{count:<5d} {name[:90]}",
+              flush=True)
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line()
+    print(f"environment: python {sys.version.split()[0]}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, {card}", flush=True)
+
+    t0 = time.perf_counter()
+    build.library()
+    print(f"build: {len(build.sources())} sources -> {build.BUILD_DIR} in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc {build.BUILD_SECONDS:.1f} "
+          "s)", flush=True)
+
+    kernels = [check_gbp_cs(torch, dev), check_conv(torch, dev),
+               check_agg(torch, dev)]
+    torch.cuda.synchronize()
+
+    # main path at full width; only its launches count
+    rounds, iters, every = 2, 3, 2
+    dispatch.reset_launch_counts()
+    logs, tee, t_start = run_cli(main_flags(rounds, iters, every))
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    expect = {"gbp_cs": rounds * iters,
+              "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
+              "agg_weighted": rounds}
+    if counts != expect:
+        fail(f"launch counts {counts} != the path's {expect}")
+    for rec in logs:
+        vals = [rec["loss"], rec["divergence"], rec["group_discrepancy"]]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"non-finite round record {rec}")
+    acc = logs[-1]["test_accuracy"]
+    if acc is None or not 0.0 <= acc <= 1.0:
+        fail(f"no valid test accuracy in the last round: {acc}")
+    round_s = [b - a for a, b in zip([t_start] + tee.stamps, tee.stamps)]
+    ms_iter = 1e3 * round_s[-1] / iters
+    print(f"main path: {rounds} rounds x {iters} iterations at full width, "
+          f"launches {counts}; round wall times {[round(s, 3) for s in round_s]}"
+          f" s; {ms_iter:.1f} ms per internal iteration in the last round "
+          "(incl. its eval)", flush=True)
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+
+    profile_main(torch)
+
+    # the smoke configuration: kernels on the card vs plain versions on CPU
+    _, tee_gpu, _ = run_cli(SMOKE_FLAGS + ["--device", "cuda"])
+    _, tee_cpu, _ = run_cli(SMOKE_FLAGS + ["--device", "cpu"])
+    worst = 0.0
+    for lg, lc in zip(tee_gpu.lines, tee_cpu.lines):
+        fg = [float(t) for t in lg.replace("|", " ").split()
+              if t.replace(".", "", 1).isdigit()]
+        fc = [float(t) for t in lc.replace("|", " ").split()
+              if t.replace(".", "", 1).isdigit()]
+        if len(fg) != len(fc):
+            fail(f"smoke lines differ in shape:\n{lg}\n{lc}")
+        worst = max([worst] + [abs(a - b) for a, b in zip(fg, fc)])
+    if len(tee_gpu.lines) != 3 or worst > 2e-3:
+        fail(f"smoke run on the card differs from the CPU run by {worst}")
+    print(f"smoke config: card vs CPU round lines agree to {worst:.2g}",
+          flush=True)
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(gpu_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,3 @@
+from . import femnist, partition, streaming  # noqa: F401
+from .partition import Partition, PartitionConfig, make_partition  # noqa: F401
+from .streaming import FactoryStreams  # noqa: F401
