@@ -9,14 +9,18 @@ the last line):
 2. build — compiles ``src/repro_torch/csrc/*.cu`` (one nvcc per source, in
    parallel) into ``build/repro_torch_kernels/``;
 3. kernel checks — each kernel against its plain PyTorch version on the
-   card, at the shapes of the main path (M=10 groups, K=35 devices, L=10,
-   n=32: a 3200-image superbatch through the full-width CNN), with times;
+   card, at the shapes of the paths (M=10 groups, K=35 devices, L=10,
+   n=32: a 3200-image superbatch through the full-width CNN; the robust
+   path's (M, L, |θ|) member-gradient stack), with times;
 4. main path — ``python -m repro_torch.launch.train`` at full width for
    2 rounds of 3 iterations, with every kernel's launch count checked
-   against what the path implies; then the smoke configuration on the
-   card against the same run's plain versions on the CPU; one profiled
-   full-width round (host spans, device busy share, top kernels);
-5. one JSON line of kernel results, the ``nvidia-smi`` line, and the
+   against what the path implies; one profiled full-width round (host
+   spans, device busy share, top kernels); then the smoke configuration on
+   the card against the same run's plain versions on the CPU;
+5. robust path (DESIGN.md §15) — the same CLI with ``--corrupt
+   scale+nan_burst+gauss_noise --robust-agg trimmed_mean``, driven, counted
+   and profiled the same way, and its smoke configuration card vs CPU;
+6. one JSON line of kernel results, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of the JAX package.
@@ -52,6 +56,11 @@ SMOKE_FLAGS = ["--groups", "4", "--devices-per-group", "8", "--selected",
                "4", "--presampled", "1", "--iters", "5", "--rounds", "3",
                "--batch-size", "8", "--smoke-model", "--lr", "0.05",
                "--eval-every", "2"]
+ROBUST_FLAGS = ["--corrupt", "scale+nan_burst+gauss_noise", "--robust-agg",
+                "trimmed_mean"]
+ROBUST_SMOKE_FLAGS = ["--corrupt", "scale+nan_burst", "--corrupt-frac",
+                      "0.25", "--quarantine-limit", "2", "--robust-agg",
+                      "trimmed_mean"]
 
 
 def fail(msg: str) -> None:
@@ -234,6 +243,69 @@ def check_agg(torch, dev):
                 library_ms=lib_ms, shape=f"K={k} P={p}")
 
 
+def check_robust_agg(torch, dev, p: int = 6_603_712):
+    """The order statistics of the robust Eq. 4 over the robust path's
+    member-gradient stack, (M, L, P4) = (10, 10, 6,603,712): both methods,
+    trim in {0, 1, 4}, with exact ties between rows, inactive members and a
+    group with none active. Timed on the path's common case: every member
+    active, trimmed_mean, trim 1."""
+    from repro_torch.kernels import robust_agg as krob
+
+    m, k = 10, 10
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(m, k, p, generator=gen, device=dev)
+    x[:, 5] = x[:, 0]                       # whole rows tie
+    x[:, 7, ::2] = x[:, 3, ::2]             # every other coordinate ties
+    active = torch.ones(m, k, device=dev)
+    active[torch.arange(m), torch.arange(m)] = 0.0   # one member out
+    active[8, :5] = 0.0                     # four members left
+    active[9] = 0.0                         # none left: the result is 0
+    # trimmed sums run in ascending order in both versions, but the plain
+    # version's reduction may group them otherwise: |values| <= 6 here,
+    # <= 10 terms, a few ulps of their sum; medians must be equal
+    tol = 5e-6
+    err = {}
+    for method in krob.METHODS:
+        for trim in (0, 1, 4):
+            out_k = krob.aggregate(x, active, method, trim)
+            out_p = krob.aggregate_plain(x, active, method, trim)
+            e = float((out_k - out_p).abs().max())
+            if method == "coord_median" and not torch.equal(out_k, out_p):
+                fail(f"robust_agg coord_median trim={trim}: differs from the "
+                     f"plain version by {e}")
+            if e > tol:
+                fail(f"robust_agg {method} trim={trim}: max error {e} > {tol}")
+            err[(method, trim)] = e
+            del out_k, out_p
+    active.fill_(1.0)
+    ms = time_ms(lambda: krob.aggregate(x, active, "trimmed_mean", 1),
+                 reps=20)
+    med_ms = time_ms(lambda: krob.aggregate(x, active, "coord_median", 1),
+                     reps=20)
+    plain_ms = time_ms(
+        lambda: krob.aggregate_plain(x, active, "trimmed_mean", 1), reps=3,
+        warmup=1)
+    sort_ms = time_ms(lambda: torch.sort(x, dim=1), reps=3, warmup=1)
+    # every member active: each value read once, one result per coordinate;
+    # the reference's K(K-1)/2 pairwise compares and K adds per coordinate
+    b_ms, b_by = bound(4 * (m * k * p + m * k + m * p),
+                       m * p * (k * (k - 1) // 2 + k))
+    worst = max(err.values())
+    print(f"robust_agg: M={m} K={k} P={p} max err trimmed_mean "
+          f"{max(e for (me, _), e in err.items() if me == 'trimmed_mean'):.3g}"
+          f" (tol {tol}), coord_median 0; {ms:.4f} ms kernel (trimmed_mean, "
+          f"trim 1), {med_ms:.4f} ms coord_median, {plain_ms:.4f} ms plain, "
+          f"{sort_ms:.4f} ms torch.sort(dim=1) alone, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return dict(name=krob.NAME, route="cuda", source=krob.SOURCE,
+                replaces=krob.REPLACES, max_abs_err=worst, tol=tol, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, median_ms=med_ms, sort_ms=sort_ms,
+                shape=f"M={m} K={k} P={p}")
+
+
 class _Stamps(io.TextIOBase):
     """stdout tee that stamps every 'round' line with the host clock."""
 
@@ -260,10 +332,42 @@ def run_cli(argv):
     return logs, tee, t0
 
 
-def profile_main(torch) -> None:
-    """One traced round of the full-width main path: the host loop's spans
-    (``fedgs.*``, device synchronised at each span's ends), device busy
-    time and the top kernels by device time (``torch.profiler``)."""
+def drive(label, flags, expect, torch):
+    """Run the CLI at full width with every launch count set to 0 just
+    before and read just after; fail unless they equal ``expect`` and the
+    round records are sane. Returns (records, counts, ms per internal
+    iteration of the last round)."""
+    from repro_torch.core import dispatch
+
+    iters = int(flags[flags.index("--iters") + 1])
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    logs, tee, t_start = run_cli(flags)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    if counts != expect:
+        fail(f"{label}: launch counts {counts} != the path's {expect}")
+    for rec in logs:
+        vals = [rec["loss"], rec["divergence"], rec["group_discrepancy"]]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"{label}: non-finite round record {rec}")
+    acc = logs[-1]["test_accuracy"]
+    if acc is None or not 0.0 <= acc <= 1.0:
+        fail(f"{label}: no valid test accuracy in the last round: {acc}")
+    round_s = [b - a for a, b in zip([t_start] + tee.stamps, tee.stamps)]
+    ms_iter = 1e3 * round_s[-1] / iters
+    print(f"{label}: {len(logs)} rounds x {iters} iterations at full width, "
+          f"launches {counts}; round wall times "
+          f"{[round(s, 3) for s in round_s]} s; {ms_iter:.1f} ms per internal "
+          "iteration in the last round (incl. its eval)", flush=True)
+    return logs, counts, ms_iter
+
+
+def profile_round(label, flags, torch) -> None:
+    """One traced round at full width: the host loop's spans (``fedgs.*``,
+    device synchronised at each span's ends; ``fedgs.train.*`` split the
+    robust train step), device busy time and the top kernels by device
+    time (``torch.profiler``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -275,13 +379,14 @@ def profile_main(torch) -> None:
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, _, t0 = run_cli(main_flags(1, iters, 1))
+            _, _, t0 = run_cli(main_flags(1, iters, 1) + flags)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         spans = {k: 1e3 * v for k, v in fedgs.SPANS.items()}
     finally:
         fedgs.SPANS = None
-    loop_ms = sum(spans.values())
+    # top-level spans tile the loop; fedgs.train.* nest inside fedgs.train
+    loop_ms = sum(v for k, v in spans.items() if k.count(".") == 1)
     kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
@@ -289,21 +394,52 @@ def profile_main(torch) -> None:
     busy = sum(k[0] for k in kernels)
     share = f"{100 * busy / loop_ms:.1f}%" if busy > 0 and loop_ms > 0 \
         else "not measured"
-    print(f"profile: 1 round x {iters} iterations + eval at full width, "
-          f"wall {wall_ms:.1f} ms with set-up, loop spans {loop_ms:.1f} ms; "
-          f"device busy {busy:.1f} ms = {share} of the loop", flush=True)
-    print("profile host spans (ms, summed over the round): " + ", ".join(
-        f"{k} {v:.1f}" for k, v in sorted(spans.items())), flush=True)
+    print(f"{label} profile: 1 round x {iters} iterations + eval at full "
+          f"width, wall {wall_ms:.1f} ms with set-up, loop spans "
+          f"{loop_ms:.1f} ms; device busy {busy:.1f} ms = {share} of the "
+          "loop", flush=True)
+    print(f"{label} profile host spans (ms, summed over the round): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(spans.items())),
+          flush=True)
     for ms, count, name in kernels[:12]:
-        print(f"profile device: {ms:9.3f} ms  x{count:<5d} {name[:90]}",
-              flush=True)
+        print(f"{label} profile device: {ms:9.3f} ms  x{count:<5d} "
+              f"{name[:90]}", flush=True)
+
+
+COUNTED = ("resel", "corr", "rb")     # integers that must be equal
+
+
+def smoke_card_vs_cpu(label, flags) -> None:
+    """The smoke configuration: kernels on the card vs plain versions on
+    the CPU, round lines to 2e-3 with the counted fields equal."""
+    _, tee_gpu, _ = run_cli(SMOKE_FLAGS + flags + ["--device", "cuda"])
+    _, tee_cpu, _ = run_cli(SMOKE_FLAGS + flags + ["--device", "cpu"])
+    worst = 0.0
+    for lg, lc in zip(tee_gpu.lines, tee_cpu.lines):
+        fg = [t for t in lg.replace("|", " ").split()
+              if t.replace(".", "", 1).isdigit()]
+        fc = [t for t in lc.replace("|", " ").split()
+              if t.replace(".", "", 1).isdigit()]
+        if len(fg) != len(fc):
+            fail(f"{label} smoke lines differ in shape:\n{lg}\n{lc}")
+        worst = max([worst] + [abs(float(a) - float(b))
+                               for a, b in zip(fg, fc)])
+        tg, tc = lg.split(), lc.split()
+        for name in COUNTED:
+            if name in tg and tg[tg.index(name) + 1] != \
+                    tc[tc.index(name) + 1]:
+                fail(f"{label} smoke: {name} differs card vs CPU:\n{lg}\n{lc}")
+    if len(tee_gpu.lines) != 3 or worst > 2e-3:
+        fail(f"{label} smoke run on the card differs from the CPU run by "
+             f"{worst}")
+    print(f"{label} smoke config: card vs CPU round lines agree to "
+          f"{worst:.2g}, {'/'.join(COUNTED)} equal", flush=True)
 
 
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
-    from repro_torch.core import dispatch
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
@@ -321,54 +457,40 @@ def main() -> None:
           "s)", flush=True)
 
     kernels = [check_gbp_cs(torch, dev), check_conv(torch, dev),
-               check_agg(torch, dev)]
+               check_agg(torch, dev), check_robust_agg(torch, dev)]
     torch.cuda.synchronize()
 
-    # main path at full width; only its launches count
-    rounds, iters, every = 2, 3, 2
-    dispatch.reset_launch_counts()
-    logs, tee, t_start = run_cli(main_flags(rounds, iters, every))
-    torch.cuda.synchronize()
-    counts = dispatch.launch_counts()
-    expect = {"gbp_cs": rounds * iters,
-              "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
-              "agg_weighted": rounds}
-    if counts != expect:
-        fail(f"launch counts {counts} != the path's {expect}")
-    for rec in logs:
-        vals = [rec["loss"], rec["divergence"], rec["group_discrepancy"]]
-        if not all(math.isfinite(v) for v in vals):
-            fail(f"non-finite round record {rec}")
-    acc = logs[-1]["test_accuracy"]
-    if acc is None or not 0.0 <= acc <= 1.0:
-        fail(f"no valid test accuracy in the last round: {acc}")
-    round_s = [b - a for a, b in zip([t_start] + tee.stamps, tee.stamps)]
-    ms_iter = 1e3 * round_s[-1] / iters
-    print(f"main path: {rounds} rounds x {iters} iterations at full width, "
-          f"launches {counts}; round wall times {[round(s, 3) for s in round_s]}"
-          f" s; {ms_iter:.1f} ms per internal iteration in the last round "
-          "(incl. its eval)", flush=True)
+    # each path at full width: R rounds of T iterations, eval every E
+    rounds, iters, every, m = 2, 3, 2, 10
+    flags = main_flags(rounds, iters, every)
+    main_expect = {"gbp_cs": rounds * iters,
+                   "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
+                   "agg_weighted": rounds, "robust_agg": 0}
+    _, main_counts, _ = drive("main path", flags, main_expect, torch)
+    profile_round("main path", [], torch)
+    smoke_card_vs_cpu("main path", [])
+
+    # robust path (DESIGN.md §15): per-member backward (the same conv
+    # launches, at G = M·L), one order-statistics launch per iteration, and
+    # the residual's finite-masked mean, one agg_weighted launch per group
+    robust_expect = dict(main_expect, robust_agg=rounds * iters,
+                         agg_weighted=rounds + m * rounds * iters)
+    logs, robust_counts, _ = drive("robust path", flags + ROBUST_FLAGS,
+                                   robust_expect, torch)
+    if sum(rec["corrupted_selected"] for rec in logs) <= 0:
+        fail("robust path: no corrupted member was seated in the run")
+    print("robust path telemetry: " + "; ".join(
+        f"round {rec['round']} corr {rec['corrupted_selected']:.0f} clip "
+        f"{rec['clipped_fraction']:.2f} rb {rec['rollbacks']:.0f} residual "
+        f"{rec['agg_residual']:.4g}" for rec in logs), flush=True)
+    profile_round("robust path", ROBUST_FLAGS, torch)
+    smoke_card_vs_cpu("robust path", ROBUST_SMOKE_FLAGS)
+
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-
-    profile_main(torch)
-
-    # the smoke configuration: kernels on the card vs plain versions on CPU
-    _, tee_gpu, _ = run_cli(SMOKE_FLAGS + ["--device", "cuda"])
-    _, tee_cpu, _ = run_cli(SMOKE_FLAGS + ["--device", "cpu"])
-    worst = 0.0
-    for lg, lc in zip(tee_gpu.lines, tee_cpu.lines):
-        fg = [float(t) for t in lg.replace("|", " ").split()
-              if t.replace(".", "", 1).isdigit()]
-        fc = [float(t) for t in lc.replace("|", " ").split()
-              if t.replace(".", "", 1).isdigit()]
-        if len(fg) != len(fc):
-            fail(f"smoke lines differ in shape:\n{lg}\n{lc}")
-        worst = max([worst] + [abs(a - b) for a, b in zip(fg, fc)])
-    if len(tee_gpu.lines) != 3 or worst > 2e-3:
-        fail(f"smoke run on the card differs from the CPU run by {worst}")
-    print(f"smoke config: card vs CPU round lines agree to {worst:.2g}",
-          flush=True)
+        by_path = {"main": main_counts[k["name"]],
+                   "robust": robust_counts[k["name"]]}
+        k["launches"] = by_path["main"] or by_path["robust"]
+        k["launches_by_path"] = by_path
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)

@@ -10,6 +10,7 @@ There is no backend switch and no fallback.
 | GBP-CS loop (Alg. 2) | ``kernels.gbp_cs.minimize`` | ``kernels.gbp_cs.minimize_plain`` |
 | conv superbatch block | ``kernels.conv_fused.fused`` | ``kernels.conv_fused.fused_plain`` |
 | weighted average (Eqs. 4/5) | ``kernels.agg_weighted.agg`` | ``kernels.agg_weighted.agg_plain`` |
+| order statistics of robust Eq. 4 | ``kernels.robust_agg.aggregate`` | ``kernels.robust_agg.aggregate_plain`` |
 
 :func:`launch_counts` reports how many times each kernel was launched since
 :func:`reset_launch_counts`; a run whose counts stay 0 did not go through
@@ -17,13 +18,29 @@ the kernels.
 """
 from __future__ import annotations
 
-from ..kernels import agg_weighted, conv_fused, gbp_cs
+import functools
 
-KERNELS = {mod.NAME: mod for mod in (gbp_cs, conv_fused, agg_weighted)}
+from ..kernels import agg_weighted, conv_fused, gbp_cs, robust_agg
+
+KERNELS = {mod.NAME: mod for mod in (gbp_cs, conv_fused, agg_weighted,
+                                     robust_agg)}
 
 gbp_cs_loop = gbp_cs.minimize
 conv_block_grouped = conv_fused.conv_block_grouped
 weighted_average_tree = agg_weighted.weighted_average_tree
+weighted_average_groups = agg_weighted.weighted_average_groups
+
+
+def robust_agg_fn(method: str, *, clip: float = 10.0, trim: int = 1):
+    """Robust Eq. 4 (DESIGN.md §15.2) over the flattened member stacks of
+    all groups: ``fn(flat (M, K, P4), weights (M, K)[, stats=]) -> (M, P4)``
+    (``stats``: ``kernels.robust_agg.member_stats(flat)``, if at hand).
+    ``mean`` and ``clip_norm`` run the ``agg_weighted`` kernel per group
+    (``mean`` unmasked, so NaN members propagate as in the JAX package);
+    ``trimmed_mean`` and ``coord_median`` run the ``robust_agg`` kernel
+    once for all groups."""
+    return functools.partial(robust_agg.aggregate_flat, method=method,
+                             clip=clip, trim=trim)
 
 
 def launch_counts() -> dict[str, int]:

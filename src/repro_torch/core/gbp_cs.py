@@ -5,7 +5,8 @@ Alg. 2), batched over a leading group axis.
 
 The core move permutes the (0,1) pair with the steepest opposite gradients
 (Eqs. 15–17) until the distance stops decreasing. The initialisers
-(:func:`init_mpinv`, :func:`init_zero`) and :func:`top_lsel` are PyTorch;
+(:func:`init_mpinv`, :func:`init_zero`, :func:`init_random`) and
+:func:`top_lsel` are PyTorch;
 the loop itself is ``kernels.gbp_cs.minimize`` — one CUDA launch for all
 groups on the card, the plain step loop on CPU.
 """
@@ -13,15 +14,17 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels.gbp_cs import (gradient, objective, permute,  # noqa: F401
                               select_swap_pair)
-from . import dispatch
+from . import dispatch, prng
 
+RANDOM = "random"
 ZERO = "zero"
 MPINV = "mpinv"
-INITIALIZERS = (ZERO, MPINV)
+INITIALIZERS = (RANDOM, ZERO, MPINV)
 
 
 class GBPCSResult(NamedTuple):
@@ -38,6 +41,15 @@ def top_lsel(scores: torch.Tensor, l_sel: int) -> torch.Tensor:
     order = torch.argsort(-scores, dim=-1, stable=True)
     return torch.zeros_like(scores, dtype=torch.float32).scatter(
         -1, order[..., :l_sel], 1.0)
+
+
+def init_random(keys: np.ndarray, A: torch.Tensor, l_sel: int
+                ) -> torch.Tensor:
+    """Random initializer: L_sel ones at the largest of one threefry
+    ``uniform`` draw per instance (``keys`` (G, 2), the selection's
+    ``key_opt``)."""
+    u = np.stack([prng.uniform(key, (A.shape[-1],)) for key in keys])
+    return top_lsel(torch.as_tensor(u, device=A.device), l_sel)
 
 
 def init_mpinv(A: torch.Tensor, y: torch.Tensor, l_sel: int) -> torch.Tensor:
@@ -70,14 +82,22 @@ _INIT_FNS = {ZERO: init_zero, MPINV: init_mpinv}
 
 
 def gbp_cs_minimize(A: torch.Tensor, y: torch.Tensor, l_sel: int, *,
-                    init: str = MPINV, max_iters: int = 64) -> GBPCSResult:
+                    init: str = MPINV, max_iters: int = 64,
+                    keys=None) -> GBPCSResult:
     """Run GBP-CS (Alg. 2 lines 2–10) on G instances: A (G, F, K) candidate
-    class counts, y (G, F) targets (Eq. 11)."""
-    if init not in _INIT_FNS:
+    class counts, y (G, F) targets (Eq. 11); ``keys`` (G, 2) feed only the
+    random initializer."""
+    if init not in INITIALIZERS:
         raise ValueError(f"unknown GBP-CS initializer {init!r} "
                          f"(expected one of {INITIALIZERS})")
     A = A.float().contiguous()
     y = y.float().contiguous()
-    x0 = _INIT_FNS[init](A, y, l_sel).contiguous()
+    if init == RANDOM:
+        if keys is None:
+            raise ValueError("the random GBP-CS initializer needs keys")
+        x0 = init_random(keys, A, l_sel)
+    else:
+        x0 = _INIT_FNS[init](A, y, l_sel)
+    x0 = x0.contiguous()
     x, d, iters, trace = dispatch.gbp_cs_loop(A, y, x0, max_iters)
     return GBPCSResult(x=x, distance=d, iterations=iters, trace=trace)

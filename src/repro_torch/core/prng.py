@@ -1,11 +1,15 @@
 """Threefry-2x32 counter-based PRNG, bit-compatible with ``jax.random``.
 
 The trainer's key chain (per-iteration ``split``, the per-group pre-sample
-``permutation``) and the CNN initialiser (``normal``) must draw the same
-bits as the JAX reference so that both CLIs print the same lines from the
-same ``--seed``. This module reproduces those calls in numpy, following the
-``jax_threefry_partitionable=True`` mode (every output element hashes its
-own 64-bit counter ``(hi, lo)`` and ``split`` is fold-like).
+``permutation``), the CNN initialiser (``normal``) and the fault trace of
+DESIGN.md §15 (``fold_in``, ``bernoulli``, ``randint``, per-member
+``normal`` noise) must draw the same bits as the JAX reference so that
+both CLIs print the same lines from the same ``--seed``. This module
+reproduces those calls in numpy (keys, bits) and PyTorch (the float
+transforms, and the ``*_t`` tensor forms, which draw on the run's
+device), following the ``jax_threefry_partitionable=True`` mode (every
+output element hashes its own 64-bit counter ``(hi, lo)`` and ``split``
+is fold-like).
 
 Keys are numpy ``uint32`` arrays of shape ``(..., 2)``.
 """
@@ -14,6 +18,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -34,12 +39,14 @@ def _rotl(v: np.ndarray, r: int) -> np.ndarray:
 
 def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray
                  ) -> tuple[np.ndarray, np.ndarray]:
-    """The Threefry-2x32 hash (20 rounds) of counter words (x0, x1)."""
-    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    """The Threefry-2x32 hash (20 rounds) of counter words (x0, x1). A
+    batch of keys (..., 2) broadcasts against the counters."""
+    key = np.asarray(key, np.uint32)
+    k0, k1 = key[..., 0], key[..., 1]
     ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
     with np.errstate(over="ignore"):
-        a = x0.astype(np.uint32) + ks[0]
-        b = x1.astype(np.uint32) + ks[1]
+        a = np.asarray(x0, np.uint32) + ks[0]
+        b = np.asarray(x1, np.uint32) + ks[1]
         for i in range(5):
             for r in _ROT[i % 2]:
                 a = a + b
@@ -57,18 +64,27 @@ def _counters(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def split(key: np.ndarray, num: int = 2) -> np.ndarray:
-    """``jax.random.split``: (num, 2) new keys."""
+    """``jax.random.split``: (..., num, 2) new keys of a key (..., 2)."""
     hi, lo = _counters(num)
-    b1, b2 = threefry2x32(key, hi, lo)
+    b1, b2 = threefry2x32(np.asarray(key)[..., None, :], hi, lo)
+    return np.stack([b1, b2], axis=-1)
+
+
+def fold_in(key: np.ndarray, data) -> np.ndarray:
+    """``jax.random.fold_in``: the hash of the counter words (0, data) under
+    ``key``. ``key`` (..., 2) and integer ``data`` broadcast."""
+    d = np.asarray(data).astype(np.int64) & _MASK
+    b1, b2 = threefry2x32(key, np.zeros_like(d), d)
     return np.stack([b1, b2], axis=-1)
 
 
 def random_bits(key: np.ndarray, shape: tuple) -> np.ndarray:
-    """32 random bits per element: ``jax.random.bits(key, shape, uint32)``."""
-    n = math.prod(shape)
-    hi, lo = _counters(n)
-    b1, b2 = threefry2x32(key, hi, lo)
-    return (b1 ^ b2).reshape(shape)
+    """32 random bits per element: ``jax.random.bits(key, shape, uint32)``;
+    a batch of keys (..., 2) gives (..., *shape)."""
+    key = np.asarray(key, np.uint32)
+    hi, lo = _counters(math.prod(shape))
+    b1, b2 = threefry2x32(key[..., None, :], hi, lo)
+    return (b1 ^ b2).reshape(key.shape[:-1] + tuple(shape))
 
 
 def permutation(key: np.ndarray, n: int) -> np.ndarray:
@@ -94,6 +110,27 @@ def uniform(key: np.ndarray, shape: tuple, minval: float = 0.0,
     return np.maximum(lo, floats * (hi - lo) + lo).astype(np.float32)
 
 
+def bernoulli(key: np.ndarray, p: float, shape: tuple = ()) -> np.ndarray:
+    """``jax.random.bernoulli``: ``uniform(key, shape) < p`` in float32."""
+    return uniform(key, shape) < np.float32(p)
+
+
+def randint(key: np.ndarray, shape: tuple, minval: int, maxval: int
+            ) -> np.ndarray:
+    """``jax.random.randint`` for int32: 64 random bits per element from two
+    split keys, reduced modulo the span in uint32 arithmetic (jax's
+    higher/lower-bits scheme, biased when the span is not a power of 2)."""
+    s = split(key)
+    higher = random_bits(s[..., 0, :], shape).astype(np.uint64)
+    lower = random_bits(s[..., 1, :], shape).astype(np.uint64)
+    span = np.uint64(maxval - minval if maxval > minval else 1)
+    mult = np.uint64(2 ** 16) % span
+    mult = (mult * mult & np.uint64(_MASK)) % span
+    off = ((higher % span) * mult & np.uint64(_MASK)) + lower % span
+    off = (off & np.uint64(_MASK)) % span
+    return (minval + off.astype(np.int64)).astype(np.int32)
+
+
 # Giles' single-precision erfinv polynomial (the one XLA evaluates), w < 5
 # and w >= 5 branches, highest degree first.
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -104,25 +141,105 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
-def erfinv(x: np.ndarray) -> np.ndarray:
+def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function, Giles' polynomial with each Horner
     step fused (one rounding), as XLA computes ``lax.erf_inv``."""
-    x = np.asarray(x, np.float32)
-    w = -np.log1p(-x * x)
-    lt = w < np.float32(5.0)
-    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0))
-    w64 = w.astype(np.float64)
-    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    x = x.float()
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w64 = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).float()
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        c = np.where(lt, np.float32(a), np.float32(b)).astype(np.float64)
-        p = (c + p.astype(np.float64) * w64).astype(np.float32)
-    out = p * x
-    return np.where(np.abs(x) == np.float32(1.0), x * np.float32(np.inf), out)
+        c = torch.where(lt, float(np.float32(a)), float(np.float32(b)))
+        p = (c.double() + p.double() * w64).float()
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+
+
+def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float
+                       ) -> torch.Tensor:
+    """:func:`uniform`'s float transform of 32-bit words held in int64:
+    23 mantissa bits under 1.0's exponent, minus 1, scaled in float32."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(u * float(hi - lo) + float(lo), float(lo))
+
+
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """√2·erfinv(u), u uniform on (nextafter(−1, 0), 1) — ``jax.random.
+    normal``."""
+    return float(np.float32(np.sqrt(2))) * erfinv(
+        _uniform_from_bits(bits, _NORMAL_LO, 1.0))
 
 
 def normal(key: np.ndarray, shape: tuple) -> np.ndarray:
-    """``jax.random.normal`` in float32: √2·erfinv(u), u uniform on
-    (nextafter(−1, 0), 1)."""
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = uniform(key, shape, lo, 1.0)
-    return (np.float32(np.sqrt(2)) * erfinv(u)).astype(np.float32)
+    """``jax.random.normal`` in float32 (host form)."""
+    bits = torch.from_numpy(random_bits(key, shape).astype(np.int64))
+    return _normal_from_bits(bits).numpy()
+
+
+def threefry2x32_t(key, x0, x1: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` on tensors: uint32 words held in int64 tensors
+    (masked to 32 bits after every add and shift), on their device. A
+    numpy batch of keys (..., 2) hashes the counters (n,) under each key:
+    (..., n); an int64 tensor of keys (..., 2) gives each counter its own
+    key, broadcasting."""
+    if not isinstance(key, torch.Tensor):
+        key = torch.as_tensor(np.asarray(key, np.int64)[..., None, :],
+                              device=x1.device)
+    k0, k1 = key[..., 0], key[..., 1]
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    a = (x0 + ks[0]) & _MASK
+    b = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            a = (a + b) & _MASK
+            b = (((b << r) & _MASK) | (b >> (32 - r))) ^ a
+        a = (a + ks[(i + 1) % 3]) & _MASK
+        b = (b + ks[(i + 2) % 3] + i + 1) & _MASK
+    return a, b
+
+
+def random_bits_t(key: np.ndarray, shape: tuple, device) -> torch.Tensor:
+    """:func:`random_bits` drawn on ``device`` (the words in int64): the
+    counters and the threefry rounds run there, so a draw of millions of
+    numbers never passes through the host. A batch of keys (..., 2) draws
+    (..., *shape) in one pass."""
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise ValueError(f"random_bits_t: {n} elements need 64-bit counters")
+    b1, b2 = threefry2x32_t(key, 0, torch.arange(n, dtype=torch.int64,
+                                                 device=device))
+    return (b1 ^ b2).reshape(np.shape(key)[:-1] + tuple(shape))
+
+
+def uniform_t(key: np.ndarray, shape: tuple, device, minval: float = 0.0,
+              maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` drawn on ``device``; same numbers as
+    :func:`uniform`."""
+    return _uniform_from_bits(random_bits_t(key, shape, device), minval,
+                              maxval)
+
+
+def normal_t(key: np.ndarray, shape: tuple, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` drawn on ``device``; same numbers
+    as :func:`normal`."""
+    return _normal_from_bits(random_bits_t(key, shape, device))
+
+
+def normal_segments_t(keys: np.ndarray, sizes: list[int], device
+                      ) -> torch.Tensor:
+    """Rows of concatenated draws in one pass on ``device``: keys (R, S, 2)
+    → (R, Σ sizes), row r being ``normal(keys[r, s], (sizes[s],))`` for
+    s = 0, 1, … side by side — one draw per (member, leaf) of a gradient
+    stack without a pass per leaf."""
+    n = torch.as_tensor(sizes, device=device)
+    seg = torch.repeat_interleave(torch.arange(len(sizes), device=device), n)
+    counters = torch.arange(seg.numel(), device=device) - \
+        (torch.cumsum(n, 0) - n)[seg]
+    key = torch.as_tensor(np.asarray(keys, np.int64), device=device)[:, seg]
+    b1, b2 = threefry2x32_t(key, 0, counters)
+    return _normal_from_bits(b1 ^ b2)

@@ -30,18 +30,35 @@ def _scatter_rows(idx: torch.Tensor, values, k: int) -> torch.Tensor:
     return out.scatter(1, idx, values)
 
 
+def _presample_perms(keys: np.ndarray, k_total: int, avail, dev):
+    """Per group, the key's ``permutation`` of the devices (M, K); with
+    ``avail`` (M, K) stably partitioned so available devices come first,
+    permutation order kept within each class (an identity at avail ≡ 1)."""
+    perm = torch.as_tensor(
+        np.stack([prng.permutation(key, k_total) for key in keys]),
+        device=dev)
+    if avail is not None:
+        order = torch.argsort(1.0 - avail.gather(1, perm), dim=1,
+                              stable=True)
+        perm = perm.gather(1, order)
+    return perm
+
+
 def gbp_cs_instances(keys: np.ndarray, counts: torch.Tensor,
-                     p_real: torch.Tensor, l: int, l_rnd: int):
+                     p_real: torch.Tensor, l: int, l_rnd: int,
+                     avail: torch.Tensor | None = None):
     """Per group: pre-sample L_rnd devices with the key's permutation and
     build the GBP-CS instance of the rest. Returns (pre-sample mask (M, K),
-    candidate indices (M, K−L_rnd), A (M, F, K−L_rnd), y (M, F))."""
+    candidate indices (M, K−L_rnd), A (M, F, K−L_rnd), y (M, F)). With
+    ``avail`` the counts are those of available devices only."""
     m, k_total, _ = counts.shape
     counts = counts.float()
+    if avail is not None:
+        counts = counts * avail[..., None]      # dark devices report nothing
     dev = counts.device
     # key_pre, key_opt = split(key); key_opt feeds only the random init
-    perm = torch.as_tensor(
-        np.stack([prng.permutation(prng.split(key)[0], k_total)
-                  for key in keys]), device=dev)
+    perm = _presample_perms(np.stack([prng.split(key)[0] for key in keys]),
+                            k_total, avail, dev)
     pre_idx, cand_idx = perm[:, :l_rnd], perm[:, l_rnd:]    # C_rnd, rest
     rows = torch.arange(m, device=dev)[:, None]
     b = counts[rows, pre_idx].sum(dim=1)                     # (M, F)  b_t^m
@@ -53,41 +70,67 @@ def gbp_cs_instances(keys: np.ndarray, counts: torch.Tensor,
 
 def select_for_groups(keys: np.ndarray, counts: torch.Tensor,
                       p_real: torch.Tensor, l: int, l_rnd: int, *,
+                      avail: torch.Tensor | None = None,
                       method: str = "gbp_cs", init: str = gbp_cs.MPINV,
                       max_iters: int = 64) -> SelectionResult:
     """keys (M, 2) threefry keys, counts (M, K, F) → one selection per
-    group."""
+    group.
+
+    With ``avail`` (M, K) 0/1, devices at 0 are never selected (DESIGN.md
+    §14.2; quarantine folds into it, §15.4): their counts are zeroed, the
+    pre-sample permutation puts available devices first, a repair step
+    swaps any unavailable GBP-CS pick for the best-ranked available
+    candidate (``top_lsel(2·avail + x)``, re-scored), and the mask is
+    intersected with ``avail``. Every step is an identity at avail ≡ 1."""
     m, k_total, _ = counts.shape
     counts = counts.float()
     p_real = p_real.float()
     dev = counts.device
+    if avail is not None:
+        avail = avail.float()
     if method == "random":
-        perm = torch.as_tensor(
-            np.stack([prng.permutation(key, k_total) for key in keys]),
-            device=dev)
+        perm = _presample_perms(keys, k_total, avail, dev)
         mask = _scatter_rows(perm[:, :l], 1.0, k_total)
+        if avail is not None:
+            counts = counts * avail[..., None]
+            mask = mask * avail
         div = mask_divergence(counts, mask, p_real)
         return SelectionResult(mask=mask, divergence=div, distance=div,
                                iterations=torch.zeros(m, dtype=torch.int32,
                                                       device=dev))
     if method != "gbp_cs":
         raise ValueError(f"unknown selection method: {method!r}")
-    pre_mask, cand_idx, A, y = gbp_cs_instances(keys, counts, p_real, l, l_rnd)
-    res = gbp_cs.gbp_cs_minimize(A, y, l - l_rnd, init=init,
-                                 max_iters=max_iters)
-    mask = pre_mask + _scatter_rows(cand_idx, res.x, k_total)  # Eq. (18)
+    pre_mask, cand_idx, A, y = gbp_cs_instances(keys, counts, p_real, l,
+                                                l_rnd, avail)
+    res = gbp_cs.gbp_cs_minimize(
+        A, y, l - l_rnd, init=init, max_iters=max_iters,
+        keys=np.stack([prng.split(key)[1] for key in keys]))
+    x, distance = res.x, res.distance
+    if avail is not None:
+        # availability dominates the solver's choice: chosen-and-up scores
+        # 3, up 2, chosen-but-dark 1; the stable top-L_sel is res.x when
+        # every chosen candidate is up
+        x = gbp_cs.top_lsel(2.0 * avail.gather(1, cand_idx) + x, l - l_rnd)
+        distance = gbp_cs.objective(A, x, y)
+    mask = pre_mask + _scatter_rows(cand_idx, x, k_total)      # Eq. (18)
+    if avail is not None:
+        counts = counts * avail[..., None]
+        mask = mask * avail
     return SelectionResult(mask=mask,
                            divergence=mask_divergence(counts, mask, p_real),
-                           distance=res.distance, iterations=res.iterations)
+                           distance=distance, iterations=res.iterations)
 
 
 def select_clients_via_gbp_cs(key: np.ndarray, counts: torch.Tensor,
                               p_real: torch.Tensor, l: int, l_rnd: int, *,
+                              avail: torch.Tensor | None = None,
                               init: str = gbp_cs.MPINV, max_iters: int = 64
                               ) -> SelectionResult:
-    """One group's client selection: counts (K, F) → mask (K,) etc."""
+    """One group's client selection: counts (K, F), avail (K,) → mask (K,)
+    etc."""
     res = select_for_groups(np.asarray(key)[None], counts[None], p_real, l,
-                            l_rnd, init=init, max_iters=max_iters)
+                            l_rnd, avail=None if avail is None
+                            else avail[None], init=init, max_iters=max_iters)
     return SelectionResult(*(t[0] for t in res))
 
 
@@ -97,6 +140,26 @@ def select_clients_random(key: np.ndarray, counts: torch.Tensor,
     res = select_for_groups(np.asarray(key)[None], counts[None], p_real, l,
                             0, method="random")
     return SelectionResult(*(t[0] for t in res))
+
+
+def quarantine_mask(quarantine: torch.Tensor, limit: int) -> torch.Tensor:
+    """Selection eligibility from per-device quarantine counters
+    (DESIGN.md §15.4): a device flagged ``limit`` or more times is barred
+    from selection like an unavailable device — callers pass the mask as
+    ``avail``. ``limit <= 0`` disables quarantine (all ones)."""
+    q = quarantine.float()
+    if limit <= 0:
+        return torch.ones_like(q)
+    return (q < limit).float()
+
+
+def reselect_trigger(do_reselect: bool, mask: torch.Tensor,
+                     avail: torch.Tensor, l: int) -> bool:
+    """Force a rebuild when a carried committee member became ineligible,
+    or a committee is under-strength (fewer than ``l`` members)."""
+    dark = torch.sum(mask * (1.0 - avail))
+    under = torch.sum(torch.clamp_min(l - mask.sum(-1), 0.0))
+    return bool(do_reselect or (dark + under) > 0)
 
 
 def reselect_predicate(t: int, reselect_every: int) -> bool:

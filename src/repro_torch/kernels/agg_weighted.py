@@ -50,6 +50,12 @@ def agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def agg_groups(flat: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Σ_k w_gk X_gk for every group g: flat (G, K, P4), weights (G, K)
+    already normalised → (G, P4), one :func:`agg` per group."""
+    return torch.stack([agg(flat[g], weights[g]) for g in range(len(flat))])
+
+
 def flatten(trees, k: int) -> torch.Tensor:
     """Leaves (K, ...) → one (K, P4) f32 buffer, P4 = P rounded up to 4."""
     parts = [leaf.reshape(k, -1).float() for leaf in tree.leaves(trees)]
@@ -59,17 +65,31 @@ def flatten(trees, k: int) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def weighted_average_tree(trees, weights: torch.Tensor):
-    """Same contract as ``core.sync.weighted_average`` (leaves (K, ...))."""
-    leaves = tree.leaves(trees)
-    k = leaves[0].shape[0]
-    w = weights.float()
-    wn = (w / torch.clamp_min(w.sum(), EPS)).contiguous()
-    out = agg(flatten(trees, k), wn)
+def unflatten(out: torch.Tensor, trees, lead: int):
+    """A reduced (..., P4) buffer → a tree shaped like ``trees`` whose
+    leaves lose their ``lead`` leading axes and take ``out``'s."""
     parts, off = [], 0
-    for leaf in leaves:
-        size = leaf[0].numel()
-        parts.append(out[off:off + size].reshape(leaf.shape[1:])
-                     .to(leaf.dtype))
+    for leaf in tree.leaves(trees):
+        shape = leaf.shape[lead:]
+        size = shape.numel()
+        parts.append(out[..., off:off + size]
+                     .reshape(out.shape[:-1] + shape).to(leaf.dtype))
         off += size
     return tree.unflatten(trees, parts)
+
+
+def weighted_average_tree(trees, weights: torch.Tensor):
+    """Same contract as ``core.sync.weighted_average`` (leaves (K, ...))."""
+    w = weights.float()
+    wn = (w / torch.clamp_min(w.sum(), EPS)).contiguous()
+    return unflatten(agg(flatten(trees, len(w)), wn), trees, 1)
+
+
+def weighted_average_groups(trees, weights: torch.Tensor):
+    """Per-group weighted average: leaves (G, K, ...), weights (G, K) →
+    leaves (G, ...); the stack is flattened once."""
+    g, k = weights.shape
+    w = weights.float()
+    wn = (w / torch.clamp_min(w.sum(-1, keepdim=True), EPS)).contiguous()
+    flat = flatten(trees, g * k).view(g, k, -1)
+    return unflatten(agg_groups(flat, wn), trees, 2)

@@ -32,6 +32,7 @@ SIGNATURES = {
     "gbp_cs_minimize_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "conv_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "agg_weighted_f32": [_P, _P, _P, _I, _L, _P],
+    "robust_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,19 +1,33 @@
 """Federated training entry point of the port: Alg. 1 on the FEMNIST CNN.
 
-Runs FEDGS (host engine, gradient-space Eq. 4, mean aggregation) end to
-end on the synthetic FEMNIST stream with the paper's hyperparameters as
-defaults (M=10, K=35, L=10, L_rnd=2, T=50, R=500, η=0.01, n=32). The flags
-are the JAX CLI's (``python -m repro.launch.train``) for this path, plus
-``--device``; from the same ``--seed`` both print the same round lines.
+Runs FEDGS (host engine) end to end on the synthetic FEMNIST stream with
+the paper's hyperparameters as defaults (M=10, K=35, L=10, L_rnd=2, T=50,
+R=500, η=0.01, n=32). The flags are the JAX CLI's (``python -m
+repro.launch.train``) for the ported paths, plus ``--device``; from the
+same ``--seed`` both print the same round lines.
 
   PYTHONPATH=src python -m repro_torch.launch.train --rounds 20 --iters 10
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --smoke-model --groups 4 --devices-per-group 8 --selected 4 \\
       --presampled 1 --iters 5 --rounds 3 --batch-size 8 --lr 0.05
 
-It runs on the GPU, where the GBP-CS loop, both conv layers and the Eq. 5
-average run as the port's CUDA kernels; ``--device cpu`` runs their plain
-PyTorch versions instead. Asking for ``cuda`` without a card is an error.
+Corruption robustness (DESIGN.md §15): ``--corrupt`` injects gradient
+faults into a deterministic faulty-device subset, ``--robust-agg`` swaps
+the Eq. 4 internal sync for a robust aggregator, and repeat offenders are
+quarantined out of GBP-CS after ``--quarantine-limit`` flags:
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --corrupt scale+nan_burst --corrupt-frac 0.2 \\
+      --robust-agg trimmed_mean --quarantine-limit 3
+
+``--train-step model_avg`` runs the paper's literal L one-step models.
+The JAX CLI's other scenario flags (engines, availability, drift,
+compression, baselines) are not ported yet and are rejected.
+
+It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
+averages and the robust order statistics run as the port's CUDA kernels;
+``--device cpu`` runs their plain PyTorch versions instead. Asking for
+``cuda`` without a card is an error.
 """
 from __future__ import annotations
 
@@ -25,8 +39,10 @@ import os
 import torch
 
 from ..configs import femnist_cnn
-from ..core import fedgs, prng
-from ..data import FactoryStreams, PartitionConfig, femnist, make_partition
+from ..core import fedgs, prng, sync
+from ..data import (CORRUPTION_MODES, CorruptionConfig, FactoryStreams,
+                    PartitionConfig, femnist, make_corruption_fn,
+                    make_partition)
 from ..models import cnn
 
 
@@ -54,7 +70,42 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--selection", choices=("gbp_cs", "random"),
                     default="gbp_cs")
-    ap.add_argument("--init", choices=("mpinv", "zero"), default="mpinv")
+    ap.add_argument("--train-step", choices=("grad_avg", "model_avg"),
+                    default="grad_avg",
+                    help="Eq. 4 in gradient space (one update per group) / "
+                         "the paper's literal L one-step models (oracle)")
+    ap.add_argument("--corrupt", default="none",
+                    help="gradient corruption mode(s), '+'-joined from "
+                         f"{CORRUPTION_MODES} (DESIGN.md §15.1; 'none' "
+                         "disables injection)")
+    ap.add_argument("--corrupt-frac", type=float, default=0.2,
+                    help="fraction of devices that are faulty")
+    ap.add_argument("--corrupt-prob", type=float, default=0.5,
+                    help="per-iteration fault firing probability of a "
+                         "faulty device")
+    ap.add_argument("--corrupt-t0", type=int, default=0,
+                    help="first internal iteration faults can fire")
+    ap.add_argument("--corrupt-scale", type=float, default=25.0,
+                    help="scale mode: gradient blow-up factor")
+    ap.add_argument("--corrupt-sigma", type=float, default=1.0,
+                    help="gauss_noise mode: additive noise stddev")
+    ap.add_argument("--robust-agg", choices=sync.ROBUST_AGGREGATORS,
+                    default="mean",
+                    help="Eq. 4 internal aggregator (DESIGN.md §15.2; "
+                         "'mean' is the exact historical path)")
+    ap.add_argument("--robust-clip", type=float, default=10.0,
+                    help="clip_norm: per-member gradient L2 norm cap (also "
+                         "the outlier-flag threshold for quarantine)")
+    ap.add_argument("--robust-trim", type=int, default=1,
+                    help="trimmed_mean: members trimmed per extreme end")
+    ap.add_argument("--quarantine-limit", type=int, default=3,
+                    help="outlier flags before a device is barred from "
+                         "selection (0 disables quarantine)")
+    ap.add_argument("--no-nan-guard", action="store_true",
+                    help="disable the per-iteration NaN/Inf rollback guard "
+                         "(DESIGN.md §15.3)")
+    ap.add_argument("--init", choices=("mpinv", "zero", "random"),
+                    default="mpinv")
     ap.add_argument("--alpha", type=float, default=0.3, help="Dirichlet skew")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-every", type=int, default=5)
@@ -74,6 +125,10 @@ def format_record(rec: fedgs.RoundRecord) -> str:
     if not math.isnan(rec.group_discrepancy):
         msg += (f" | disc {rec.group_discrepancy:.4f}"
                 f" | resel {rec.reselections:.0f}")
+    if not math.isnan(rec.clipped_fraction):
+        msg += (f" | corr {rec.corrupted_selected:.0f}"
+                f" | clip {rec.clipped_fraction:.2f}"
+                f" | rb {rec.rollbacks:.0f}")
     if rec.test_accuracy is not None:
         msg += (f" | test acc {rec.test_accuracy:.4f} "
                 f"loss {rec.test_loss:.4f}")
@@ -96,7 +151,16 @@ def main(argv: list[str] | None = None) -> list[dict]:
         num_groups=args.groups, devices_per_group=args.devices_per_group,
         num_selected=args.selected, num_presampled=args.presampled,
         iters_per_round=args.iters, rounds=args.rounds, lr=args.lr,
-        selection=args.selection, init=args.init, seed=args.seed)
+        selection=args.selection, init=args.init, seed=args.seed,
+        train_step=args.train_step, robust_agg=args.robust_agg,
+        robust_clip=args.robust_clip, robust_trim=args.robust_trim,
+        quarantine_limit=args.quarantine_limit,
+        nan_guard=not args.no_nan_guard)
+    corrupt_fn = None if args.corrupt == "none" else make_corruption_fn(
+        CorruptionConfig(
+            mode=args.corrupt, frac=args.corrupt_frac,
+            prob=args.corrupt_prob, t0=args.corrupt_t0,
+            scale=args.corrupt_scale, sigma=args.corrupt_sigma), args.seed)
     streams = FactoryStreams(part, batch_size=args.batch_size, seed=args.seed)
     logs_out = []
 
@@ -105,7 +169,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
         logs_out.append(rec.to_dict())
 
     fedgs.run_fedgs(params, streams, part.p_real, fcfg,
-                    group_loss_fn=cnn.make_group_loss_fn(), eval_fn=eval_fn,
+                    group_loss_fn=cnn.make_group_loss_fn(),
+                    corrupt_fn=corrupt_fn, eval_fn=eval_fn,
                     eval_every=args.eval_every, log_fn=log_fn)
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)

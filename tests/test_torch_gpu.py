@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from repro_torch.core import dispatch, gbp_cs as core_gbp
-from repro_torch.kernels import agg_weighted, conv_fused, gbp_cs
+from repro_torch.kernels import agg_weighted, conv_fused, gbp_cs, robust_agg
 
 pytestmark = pytest.mark.gpu
 
@@ -80,3 +80,27 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         agg_weighted.agg(torch.ones(17, device=cuda)[1:].reshape(2, 8),
                          torch.ones(2, device=cuda))
     assert dispatch.launch_counts()["agg_weighted"] == 1
+
+
+@pytest.mark.parametrize("method", robust_agg.METHODS)
+def test_robust_agg_kernel_matches_plain(cuda, method):
+    """Medians are exact; trimmed sums run in ascending order in both, but
+    the plain version's reduction may group them otherwise (a few ulps of
+    the inputs)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for m, k, p in ((1, 1, 5), (3, 7, 1000), (10, 10, 100_003), (2, 35, 517),
+                    (2, 64, 300)):
+        x = torch.randn(m, k, p, generator=gen, device=cuda)
+        x[:, k // 2] = x[:, 0]                     # exact ties between rows
+        active = (torch.rand(m, k, generator=gen, device=cuda) > 0.3).float()
+        active[0] = 0.0                            # a group with n = 0
+        for trim in (0, 1, 4, 40):
+            out = robust_agg.aggregate(x, active, method, trim)
+            ref = robust_agg.aggregate_plain(x, active, method, trim)
+            if method == "coord_median":
+                assert torch.equal(out, ref)
+            else:
+                torch.testing.assert_close(out, ref, rtol=0, atol=2e-6)
+    with pytest.raises(ValueError, match="K <= 64"):
+        robust_agg.aggregate(torch.ones(1, 65, 4, device=cuda),
+                             torch.ones(1, 65, device=cuda), method)

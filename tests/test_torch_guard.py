@@ -5,7 +5,8 @@ import pathlib
 import pytest
 import torch
 
-from repro_torch.kernels import agg_weighted, build, conv_fused, gbp_cs
+from repro_torch.kernels import (agg_weighted, build, conv_fused, gbp_cs,
+                                 robust_agg)
 from repro_torch.launch import train
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -59,6 +60,8 @@ def test_wrappers_raise_without_a_library(monkeypatch, tmp_path):
         lambda: conv_fused.fused(meta(1, 32, 25), meta(1, 25, 4),
                                  meta(1, 4), 4),
         lambda: agg_weighted.agg(meta(3, 8), meta(3)),
+        lambda: robust_agg.aggregate(meta(2, 3, 8), meta(2, 3),
+                                     "trimmed_mean", 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no nvcc"):

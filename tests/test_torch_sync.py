@@ -79,3 +79,44 @@ def test_replicate_and_global_params():
     _close(fedgs.global_params(fedgs.replicate_for_groups(p, 3)),
            jax.tree.map(np.asarray, convert.params_to_numpy(p)), rtol=1e-6,
            atol=1e-6)
+
+
+def test_local_step_and_internal_sync_match_jax():
+    """Eq. 3 (one device's SGD step) and Eq. 4 in model and gradient space
+    on a toy least-squares loss."""
+    rng = np.random.default_rng(5)
+    params = {"w": rng.normal(size=(6, 3)).astype(np.float32),
+              "b": rng.normal(size=(3,)).astype(np.float32)}
+    x = rng.normal(size=(8, 6)).astype(np.float32)
+    y = rng.normal(size=(8, 3)).astype(np.float32)
+
+    def jloss(p, batch):
+        return jnp.mean((batch[0] @ p["w"] + p["b"] - batch[1]) ** 2)
+
+    def tloss(p, batch):
+        return torch.mean((batch[0] @ p["w"] + p["b"] - batch[1]) ** 2)
+
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    jb, tb = (jnp.asarray(x), jnp.asarray(y)), (torch.from_numpy(x),
+                                               torch.from_numpy(y))
+    ref_l, ref_g = jsync.local_grads(jp, jb, jloss)
+    loss, grads = sync.local_grads(tp, tb, tloss)
+    np.testing.assert_allclose(float(loss), float(ref_l), rtol=1e-6)
+    _close({"g": grads}, {"g": ref_g}, rtol=1e-5, atol=1e-6)
+    ref_p, _ = jsync.local_step(jp, jb, jloss, 0.1)
+    new, _ = sync.local_step(tp, tb, tloss, 0.1)
+    _close({"p": new}, {"p": ref_p}, rtol=1e-5, atol=1e-6)
+    trees = _stack(6)
+    mask = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
+    sizes = np.array([3.0, 5.0, 1.0, 2.0], np.float32)
+    jt = jax.tree.map(jnp.asarray, trees)
+    tt = convert.params_from_jax(trees, "cpu")
+    for bs in (None, sizes):
+        tbs = None if bs is None else torch.from_numpy(bs)
+        jbs = None if bs is None else jnp.asarray(bs)
+        for port, ref in ((sync.internal_sync, jsync.internal_sync),
+                          (sync.grad_internal_sync,
+                           jsync.grad_internal_sync)):
+            _close(port(tt, torch.from_numpy(mask), tbs),
+                   ref(jt, jnp.asarray(mask), jbs), rtol=1e-6, atol=1e-6)
