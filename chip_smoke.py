@@ -11,7 +11,8 @@ the last line):
 3. kernel checks — each kernel against its plain PyTorch version on the
    card, at the shapes of the paths (M=10 groups, K=35 devices, L=10,
    n=32: a 3200-image superbatch through the full-width CNN; the robust
-   path's (M, L, |θ|) member-gradient stack), with times;
+   path's (M, L, |θ|) member-gradient stack; the compress path's (M, |θ|)
+   gradient rows for top-k and int8), with times;
 4. main path — ``python -m repro_torch.launch.train`` at full width for
    2 rounds of 3 iterations, with every kernel's launch count checked
    against what the path implies; one profiled full-width round (host
@@ -20,7 +21,11 @@ the last line):
 5. robust path (DESIGN.md §15) — the same CLI with ``--corrupt
    scale+nan_burst+gauss_noise --robust-agg trimmed_mean``, driven, counted
    and profiled the same way, and its smoke configuration card vs CPU;
-6. one JSON line of kernel results, the ``nvidia-smi`` line, and the
+6. compress path (DESIGN.md §18) — the same CLI with ``--compress-int
+   topk:0.01+int8 --compress-ext int8``, driven, counted and profiled the
+   same way; three compressed smoke configurations card vs CPU, their
+   ``--log-json`` byte ledgers equal;
+7. one JSON line of kernel results, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of the JAX package.
@@ -39,9 +44,16 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W); the int32
+# rate is the Hopper white paper's 64 INT32 lanes per SM x 132 SMs x the
+# 1.98 GHz boost clock that the FP32 peak assumes.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+INT32_OPS = 132 * 64 * 1.98e9
+# 32-bit integer operations of one threefry draw in csrc/int8_quant.cu:
+# counter add 1, 20 x (add, rotate, xor), 5 x 2 key-injection adds, the
+# output xor, the uniform's shift and or
+THREEFRY_INT_OPS = 1 + 20 * 3 + 5 * 2 + 1 + 2
 
 
 def main_flags(rounds: int, iters: int, eval_every: int) -> list[str]:
@@ -61,6 +73,13 @@ ROBUST_FLAGS = ["--corrupt", "scale+nan_burst+gauss_noise", "--robust-agg",
 ROBUST_SMOKE_FLAGS = ["--corrupt", "scale+nan_burst", "--corrupt-frac",
                       "0.25", "--quarantine-limit", "2", "--robust-agg",
                       "trimmed_mean"]
+COMPRESS_FLAGS = ["--compress-int", "topk:0.01+int8", "--compress-ext",
+                  "int8"]
+COMPRESS_SMOKE_FLAGS = [
+    COMPRESS_FLAGS,
+    ["--compress-int", "int8", "--compress-ext", "topk:0.01"],
+    ROBUST_SMOKE_FLAGS + ["--compress-int", "topk:0.1+int8"],
+]
 
 
 def fail(msg: str) -> None:
@@ -94,8 +113,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS
+def bound(bytes_: float, ops: float, rate: float = FP32_FLOPS
+          ) -> tuple[float, str]:
+    """Least time in ms: bytes over HBM's rate or ops over ``rate``."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -306,6 +327,108 @@ def check_robust_agg(torch, dev, p: int = 6_603_712):
                 shape=f"M={m} K={k} P={p}")
 
 
+# the compress path's (M, P4) gradient rows: |θ| = 6,603,710 padded to 4
+CNN_PARAMS, CNN_P4 = 6_603_710, 6_603_712
+
+
+def gradient_rows(torch, dev, seed: int):
+    """(10, P4) gradient-like rows (per-row scales 1e-4..1e-1, heavy-tailed
+    by a cube), the two pad columns zero."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(10, CNN_P4, generator=gen, device=dev) ** 3
+    x *= torch.logspace(-4, -1, 10, device=dev)[:, None]
+    x[:, CNN_PARAMS:] = 0.0
+    return x
+
+
+def check_topk_compress(torch, dev):
+    """Top-k of the compress path, k from |θ| at 1%: rows with a run of
+    exact ties at each row's threshold (k lands inside it, the ties spread
+    over every block of the row), zeros and -0.0; one more row holding
+    NaN and ±inf. Every finite row must equal the plain version exactly."""
+    from repro_torch.core import compress
+    from repro_torch.kernels import topk_compress as ktop
+
+    m, p, n = 10, CNN_P4, CNN_PARAMS
+    k = compress.topk_count(n, 0.01)
+    x = gradient_rows(torch, dev, 3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tau = torch.kthvalue(-x.abs(), k, dim=1).values.neg()      # (M,)
+    ties = torch.randint(0, n, (m, 4000), generator=gen, device=dev)
+    sign = torch.where(torch.rand(m, 4000, generator=gen, device=dev) < 0.5,
+                       -1.0, 1.0)
+    x.scatter_(1, ties, sign * tau[:, None])
+    x[:, 1:n:97] = 0.0
+    x[:, 5:n:101] = -0.0
+    x[m - 1, 17] = float("nan")
+    x[m - 1, n // 3] = float("inf")
+    x[m - 1, 2 * n // 3] = -float("inf")
+    out_k = ktop.select(x, k)
+    out_p = ktop.select_plain(x, k)
+    torch.cuda.synchronize()
+    fin = list(range(m - 1))
+    if not torch.equal(out_k[fin], out_p[fin]):
+        bad = (out_k[fin] != out_p[fin]).sum().item()
+        fail(f"topk_compress: {bad} coordinates differ from the plain "
+             "version on the finite rows")
+    kept = (out_k != 0).sum(1)
+    if int(kept[m - 1]) > k:
+        fail(f"topk_compress: the non-finite row kept {int(kept[m - 1])} "
+             f"> k = {k}")
+    nties = int((x[fin].abs() == tau[fin, None]).sum())
+    ms = time_ms(lambda: ktop.select(x, k), reps=20)
+    plain_ms = time_ms(lambda: ktop.select_plain(x, k), reps=3, warmup=1)
+    lib_ms = time_ms(lambda: torch.topk(x.abs(), k, dim=1, sorted=False),
+                     reps=10)
+    # one read and one write of the rows; one compare per coordinate
+    b_ms, b_by = bound(8 * m * p, m * p)
+    print(f"topk_compress: M={m} P4={p} n={n} k={k}, {nties} exact ties at "
+          f"the thresholds, finite rows equal to the plain version, the "
+          f"NaN/inf row kept {int(kept[m - 1])}; {ms:.4f} ms kernel, "
+          f"{plain_ms:.4f} ms plain (stable sort), {lib_ms:.4f} ms "
+          f"torch.topk (not tie-stable), bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    del x, out_k, out_p
+    torch.cuda.empty_cache()
+    return dict(name=ktop.NAME, route="cuda", source=ktop.SOURCE,
+                replaces=ktop.REPLACES, max_abs_err=0.0, tol=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"M={m} P4={p} k={k}")
+
+
+def check_int8(torch, dev):
+    """Stochastic int8 of the compress path's rows, a different key per
+    row: bit-equal to the plain version (threefry in PyTorch int64 ops)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import int8_quant as kq
+
+    m, p = 10, CNN_P4
+    x = gradient_rows(torch, dev, 5)
+    x[3, ::2] = 0.0
+    keys = prng.split(prng.PRNGKey(7), m)
+    out_k = kq.quantize(x, keys)
+    out_p = kq.quantize_plain(x, keys)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k.view(torch.int32), out_p.view(torch.int32)):
+        bad = (out_k != out_p).sum().item()
+        fail(f"int8_quant: {bad} coordinates differ from the plain version")
+    del out_p
+    ms = time_ms(lambda: kq.quantize(x, keys), reps=20)
+    plain_ms = time_ms(lambda: kq.quantize_plain(x, keys), reps=3,
+                       warmup=1)
+    b_ms, b_by = bound(8 * m * p, THREEFRY_INT_OPS * m * p, INT32_OPS)
+    print(f"int8_quant: M={m} P4={p}, bit-equal to the plain version; "
+          f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {b_ms:.4f} "
+          f"ms ({b_by}: {THREEFRY_INT_OPS} int32 ops per coordinate at "
+          f"{INT32_OPS / 1e12:.1f} Tops/s)", flush=True)
+    del x, out_k
+    torch.cuda.empty_cache()
+    return dict(name=kq.NAME, route="cuda", source=kq.SOURCE,
+                replaces=kq.REPLACES, max_abs_err=0.0, tol=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=f"M={m} P4={p}")
+
+
 class _Stamps(io.TextIOBase):
     """stdout tee that stamps every 'round' line with the host clock."""
 
@@ -366,8 +489,9 @@ def drive(label, flags, expect, torch):
 def profile_round(label, flags, torch) -> None:
     """One traced round at full width: the host loop's spans (``fedgs.*``,
     device synchronised at each span's ends; ``fedgs.train.*`` split the
-    robust train step), device busy time and the top kernels by device
-    time (``torch.profiler``)."""
+    robust train step and time the compression of the Eq. 4 gradient,
+    ``fedgs.external_sync.compress`` that of the Eq. 5 delta), device busy
+    time and the top kernels by device time (``torch.profiler``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -385,7 +509,7 @@ def profile_round(label, flags, torch) -> None:
         spans = {k: 1e3 * v for k, v in fedgs.SPANS.items()}
     finally:
         fedgs.SPANS = None
-    # top-level spans tile the loop; fedgs.train.* nest inside fedgs.train
+    # top-level spans tile the loop; fedgs.X.* nest inside fedgs.X
     loop_ms = sum(v for k, v in spans.items() if k.count(".") == 1)
     kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                       for e in prof.key_averages()
@@ -411,9 +535,28 @@ COUNTED = ("resel", "corr", "rb")     # integers that must be equal
 
 def smoke_card_vs_cpu(label, flags) -> None:
     """The smoke configuration: kernels on the card vs plain versions on
-    the CPU, round lines to 2e-3 with the counted fields equal."""
-    _, tee_gpu, _ = run_cli(SMOKE_FLAGS + flags + ["--device", "cuda"])
-    _, tee_cpu, _ = run_cli(SMOKE_FLAGS + flags + ["--device", "cpu"])
+    the CPU, round lines to 2e-3 with the counted fields equal; the
+    ``--log-json`` byte ledgers equal and ``compress_error`` to 1e-2
+    relative (stochastic int8 turns the two devices' last-bit differences
+    in the gradients into whole-quantum ones, which later iterations carry
+    on; tests/test_torch_compress.py measures the same drift between the
+    JAX package and the port on the CPU)."""
+    logs_gpu, tee_gpu, _ = run_cli(SMOKE_FLAGS + flags + ["--device", "cuda"])
+    logs_cpu, tee_cpu, _ = run_cli(SMOKE_FLAGS + flags + ["--device", "cpu"])
+    ce_worst = 0.0
+    for rg, rc in zip(logs_gpu, logs_cpu):
+        for name in ("bytes_int", "bytes_ext"):
+            if rg[name] != rc[name]:
+                fail(f"{label} smoke: {name} differs card vs CPU: "
+                     f"{rg[name]} vs {rc[name]}")
+        cg, cc = rg["compress_error"], rc["compress_error"]
+        if (cg is None) != (cc is None):
+            fail(f"{label} smoke: compress_error {cg} vs {cc}")
+        if cg is not None:
+            ce_worst = max(ce_worst, abs(cg - cc) / max(abs(cc), 1e-30))
+    if ce_worst > 1e-2:
+        fail(f"{label} smoke: compress_error differs card vs CPU by "
+             f"{ce_worst} relative")
     worst = 0.0
     for lg, lc in zip(tee_gpu.lines, tee_cpu.lines):
         fg = [t for t in lg.replace("|", " ").split()
@@ -433,7 +576,8 @@ def smoke_card_vs_cpu(label, flags) -> None:
         fail(f"{label} smoke run on the card differs from the CPU run by "
              f"{worst}")
     print(f"{label} smoke config: card vs CPU round lines agree to "
-          f"{worst:.2g}, {'/'.join(COUNTED)} equal", flush=True)
+          f"{worst:.2g}, {'/'.join(COUNTED)} and the byte ledger equal, "
+          f"compress_error to {ce_worst:.2g} relative", flush=True)
 
 
 def main() -> None:
@@ -457,7 +601,8 @@ def main() -> None:
           "s)", flush=True)
 
     kernels = [check_gbp_cs(torch, dev), check_conv(torch, dev),
-               check_agg(torch, dev), check_robust_agg(torch, dev)]
+               check_agg(torch, dev), check_robust_agg(torch, dev),
+               check_topk_compress(torch, dev), check_int8(torch, dev)]
     torch.cuda.synchronize()
 
     # each path at full width: R rounds of T iterations, eval every E
@@ -465,7 +610,8 @@ def main() -> None:
     flags = main_flags(rounds, iters, every)
     main_expect = {"gbp_cs": rounds * iters,
                    "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
-                   "agg_weighted": rounds, "robust_agg": 0}
+                   "agg_weighted": rounds, "robust_agg": 0,
+                   "topk_compress": 0, "int8_quant": 0}
     _, main_counts, _ = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
     smoke_card_vs_cpu("main path", [])
@@ -486,10 +632,38 @@ def main() -> None:
     profile_round("robust path", ROBUST_FLAGS, torch)
     smoke_card_vs_cpu("robust path", ROBUST_SMOKE_FLAGS)
 
+    # compress path (DESIGN.md §18): one top-k and one int8 call per
+    # internal iteration (all M rows each), one int8 call per round for
+    # the external delta; the rest as on the main path
+    compress_expect = dict(main_expect, topk_compress=rounds * iters,
+                           int8_quant=rounds * iters + rounds)
+    logs, compress_counts, _ = drive("compress path", flags + COMPRESS_FLAGS,
+                                     compress_expect, torch)
+    # the analytic ledger (DESIGN.md §18.3): M·L uploads per iteration
+    from repro_torch.core import compress
+    pay = lambda spec: compress.payload_bytes(
+        CNN_PARAMS, compress.parse_compress(spec))
+    ledger = (2 * pay(COMPRESS_FLAGS[1]) * iters * m * 10,
+              2 * pay(COMPRESS_FLAGS[3]) * m)
+    for rec in logs:
+        ce = rec["compress_error"]
+        if (rec["bytes_int"], rec["bytes_ext"]) != ledger or ce is None \
+                or not math.isfinite(ce) or ce <= 0:
+            fail(f"compress path: ledger {rec} against the formula's "
+                 f"{ledger}")
+    print("compress path ledger: " + "; ".join(
+        f"round {rec['round']} bytes_int {rec['bytes_int']:.0f} bytes_ext "
+        f"{rec['bytes_ext']:.0f} compress_error {rec['compress_error']:.6g}"
+        for rec in logs), flush=True)
+    profile_round("compress path", COMPRESS_FLAGS, torch)
+    for i, smoke in enumerate(COMPRESS_SMOKE_FLAGS):
+        smoke_card_vs_cpu(f"compress path {i + 1}", smoke)
+
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
-                   "robust": robust_counts[k["name"]]}
-        k["launches"] = by_path["main"] or by_path["robust"]
+                   "robust": robust_counts[k["name"]],
+                   "compress": compress_counts[k["name"]]}
+        k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,9 +17,11 @@ class RoundRecord(NamedTuple):
     objective ``d`` of the last rebuild, ``reselections`` the number of
     GBP-CS rebuilds this round, ``bytes_int`` the round's device↔BS bytes
     (Eq. 4, download + upload per seated contributor over all T
-    iterations) and ``bytes_ext`` the BS↔cloud bytes (Eq. 5, 2·payload·M).
-    The availability, robustness and compression fields stay NaN on the
-    port's path.
+    iterations) and ``bytes_ext`` the BS↔cloud bytes (Eq. 5, 2·payload·M),
+    the payload being 4|θ| dense and smaller under §18 compression;
+    ``compress_error`` is the mean EF residual norm of a compressed run.
+    The availability fields stay NaN on the port's path; the robustness
+    fields are set on the robust path.
     """
     round: int
     loss: float

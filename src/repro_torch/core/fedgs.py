@@ -15,8 +15,14 @@ the JAX package's ``run_fedgs`` host-engine arms for ``train_step=
 and for the corruption-robust layer of DESIGN.md §15: per-member gradients
 from one backward at G = M·L, fault injection, a robust Eq. 4
 (``dispatch.robust_agg_fn``), the NaN-guard rollback and selection
-quarantine. Availability (§14), compression (§18), drift (§13) and the
-fused/sharded engines are not part of the port yet.
+quarantine; and the §18 compressed sync (DESIGN.md §18.1): with
+``compress_int`` each group's aggregated gradient, and with
+``compress_ext`` each group's round delta, is top-k sparsified and/or
+stochastically int8-quantized under a per-group error-feedback residual
+(``core.compress.ef_compress_rows`` over the flat (M, P4) rows, the
+``topk_compress`` and ``int8_quant`` kernels on the card), with the
+analytic byte ledger in every round record. Availability (§14), drift
+(§13) and the fused/sharded engines are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import torch
 
 from .. import tree
 from ..kernels import agg_weighted, robust_agg
-from . import dispatch, distributions, engine, gbp_cs, prng, selection, sync
+from . import (compress, dispatch, distributions, engine, gbp_cs, prng,
+               selection, sync)
 
 RoundRecord = engine.RoundRecord
 
@@ -81,6 +88,12 @@ class FedGSConfig:
     #                               from selection (§15.4); 0 = off
     nan_guard: bool = True        # isfinite audit + rollback of poisoned
     #                               groups when corruption is injected
+    compress_int: str = "none"    # Eq. 4 compression (DESIGN.md §18):
+    #                               'none' | 'topk:FRAC' | 'int8' |
+    #                               'topk:FRAC+int8' of each group's
+    #                               aggregated gradient, per-group EF
+    compress_ext: str = "none"    # Eq. 5 compression (same grammar) of
+    #                               each group's round delta, per-group EF
 
     def __post_init__(self):
         if self.selection not in ("gbp_cs", "random"):
@@ -107,6 +120,13 @@ class FedGSConfig:
         if self.quarantine_limit < 0:
             raise ValueError("quarantine_limit must be >= 0 (0 = off), got "
                              f"{self.quarantine_limit}")
+        ci = compress.parse_compress(self.compress_int)  # raises on bad spec
+        compress.parse_compress(self.compress_ext)
+        if ci is not None and self.train_step != "grad_avg":
+            raise ValueError(
+                "compress_int compresses the per-group aggregated gradient "
+                "and requires train_step='grad_avg' (model_avg averages "
+                "models, not gradients)")
 
     @property
     def l_sel(self) -> int:
@@ -123,20 +143,45 @@ def global_params(group_params):
     return sync.external_sync(group_params)
 
 
-def _train_all_groups(gp, batches, group_loss_fn, cfg: FedGSConfig):
+class Compressor(NamedTuple):
+    """The Eq. 4 link's §18 compression for one train step: the parsed
+    spec, the (M, P4) EF residual before the step, the iteration's (M, 2)
+    keys and |θ|."""
+    spec: compress.CompressSpec
+    e: torch.Tensor
+    keys: np.ndarray
+    n: int
+
+    def __call__(self, g: torch.Tensor):
+        """EF-compress the (M, P4) rows g → (y, e', (M,) ‖e'‖₂)."""
+        with span("fedgs.train.compress"):
+            return compress.ef_compress_rows(g, self.e, self.n, self.spec,
+                                             self.keys)
+
+
+def _train_all_groups(gp, batches, group_loss_fn, cfg: FedGSConfig,
+                      tx: Compressor | None = None):
     """All-groups superbatch ``grad_avg`` step: ONE backward over the loss
     summed across every group. Group g's loss terms depend only on gp[g],
     so the gradient of the summed (1/L-weighted) loss w.r.t. the stacked
     params IS the stack of per-group Eq. (4) gradients. Returns
-    (gp', (M,) mean loss)."""
+    (gp', (M,) mean loss); with ``tx`` the gradients are flattened once,
+    EF-compressed, and the step applies the transmitted y, returning
+    (gp', loss, e', (M,) err)."""
     leaves = [leaf.detach().requires_grad_(True) for leaf in tree.leaves(gp)]
     params = tree.unflatten(gp, leaves)
     losses = group_loss_fn(params, batches)               # (M, L)
     wn = 1.0 / cfg.num_selected
     grads = torch.autograd.grad(torch.sum(losses * wn), leaves)
     with torch.no_grad():
-        new = sync.apply_sgd(params, tree.unflatten(gp, list(grads)), cfg.lr)
-    return new, losses.detach().mean(dim=-1)
+        g = tree.unflatten(gp, list(grads))
+        if tx is None:
+            return (sync.apply_sgd(params, g, cfg.lr),
+                    losses.detach().mean(dim=-1))
+        y, e, err = tx(agg_weighted.flatten(g, len(losses)))
+        new = sync.apply_sgd(params, agg_weighted.unflatten(y, gp, 1),
+                             cfg.lr)
+    return new, losses.detach().mean(dim=-1), e, err
 
 
 def member_grads(gp, batches, group_loss_fn):
@@ -182,13 +227,16 @@ class RobustStep(NamedTuple):
 
 
 def _train_robust(gp, batches, fresh_w, t: int, dev_ids, group_loss_fn,
-                  cfg: FedGSConfig, corrupt_fn, agg_fn):
+                  cfg: FedGSConfig, corrupt_fn, agg_fn,
+                  tx: Compressor | None = None):
     """Corruption-exposed Eq. (4) for all groups (DESIGN.md §15): the
     per-member gradients are materialised (fault injection and the order
     statistics need the stack), corrupted, flattened ONCE into an
     (M, L, P4) buffer, aggregated by ``agg_fn`` at the ``fresh_w`` weights,
     and applied. The member stacks are freed before the step returns.
-    Returns (gp', (M,) mean loss, RobustStep)."""
+    Returns (gp', (M,) mean loss, RobustStep); with ``tx`` the (M, P4)
+    aggregate is EF-compressed after robust aggregation (the compressor
+    never sees raw corrupted members) and (e', (M,) err) are appended."""
     with span("fedgs.train.member_backward"):
         losses, grads = member_grads(gp, batches, group_loss_fn)
     m, l = losses.shape
@@ -214,9 +262,13 @@ def _train_robust(gp, batches, fresh_w, t: int, dev_ids, group_loss_fn,
                                                 sync.EPS))
                 residual = torch.sqrt(torch.sum((g - gm) ** 2, dim=-1))
             del flat, clean, stats
+        if tx is not None:
+            g, e, err = tx(g)
         new = sync.apply_sgd(gp, agg_weighted.unflatten(g, gp, 1), cfg.lr)
-    return new, losses.mean(dim=-1), RobustStep(hit.reshape(m, l), flags,
-                                                residual)
+    step = RobustStep(hit.reshape(m, l), flags, residual)
+    if tx is None:
+        return new, losses.mean(dim=-1), step
+    return new, losses.mean(dim=-1), step, e, err
 
 
 def _group_finite(group_tree) -> torch.Tensor:
@@ -276,7 +328,15 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
     order, per-member gradients, robust Eq. 4 at weights ``fresh_w`` (the
     mask values at the seats: 0 where quarantine left a group fewer than L
     eligible devices), the NaN-guard rollback of non-finite groups, and
-    quarantine counters folded into selection. Returns (global params,
+    quarantine counters folded into selection.
+
+    ``cfg.compress_int`` / ``compress_ext`` (DESIGN.md §18.1) compress the
+    Eq. 4 gradient (after robust aggregation on the robust path) and the
+    Eq. 5 round delta ω_t^m − ω_{t−1}, each with a per-group (M, P4) EF
+    residual. The int keys fold 909 off the iteration key and leave the
+    key chain alone; the external keys take one ``split`` of it per
+    round. The NaN guard also rolls back a non-finite internal residual.
+    With both specs ``'none'`` none of this runs. Returns (global params,
     [RoundRecord]).
     """
     dev = tree.leaves(params)[0].device
@@ -299,17 +359,28 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
     dist_c = torch.zeros(m, dtype=torch.float32, device=dev)
     quar = torch.zeros(m, k, dtype=torch.int32, device=dev)
     gids = np.arange(m)[:, None]
-    # Eq. 4/5 byte ledger: dense f32 payload of |θ| parameters
-    payload = 4.0 * sum(leaf.numel() for leaf in tree.leaves(params))
+    # §18 compression: parsed specs, EF residuals, the Eq. 4/5 byte ledger
+    # (one-direction payload of |θ| parameters, 4|θ| when dense)
+    spec_int = compress.parse_compress(cfg.compress_int)
+    spec_ext = compress.parse_compress(cfg.compress_ext)
+    n_par = sum(leaf.numel() for leaf in tree.leaves(params))
+    payload_int = compress.payload_bytes(n_par, spec_int)
+    payload_ext = compress.payload_bytes(n_par, spec_ext)
+    e_int = compress.zero_residual(gp) if spec_int is not None else None
+    e_ext = compress.zero_residual(gp) if spec_ext is not None else None
     logs: list[RoundRecord] = []
     t = 0
     for r in range(cfg.rounds):
-        stats, rstats, resel, uploads = [], [], 0, 0.0
+        stats, rstats, cerrs, resel, uploads = [], [], [], 0, 0.0
+        gp_round0 = gp          # round-entry broadcast model (Eq. 5 Δ base)
         for _ in range(cfg.iters_per_round):
             with span("fedgs.select"):
                 key, sub = prng.split(key)
                 counts = torch.as_tensor(streams.next_counts(), device=dev)
                 keys = prng.split(sub, m)
+                tx = None if spec_int is None else Compressor(
+                    spec_int, e_int, prng.split(prng.fold_in(
+                        sub, compress.FOLD_COMPRESS), m), n_par)
                 disc = distributions.group_discrepancy(counts, p_real).mean()
                 avail = selection.quarantine_mask(
                     quar, cfg.quarantine_limit) if quarantined else None
@@ -340,12 +411,19 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                     vals = np.take_along_axis(host_mask, idx, axis=1)
                     fresh_w = torch.as_tensor(vals, device=dev)
                     gp_old = gp
-                    gp, loss, rs = _train_robust(
+                    out = _train_robust(
                         gp, batches, fresh_w, t, gids * k + idx,
-                        group_loss_fn, cfg, corrupt_fn, agg_fn)
+                        group_loss_fn, cfg, corrupt_fn, agg_fn, tx)
+                    gp, loss, rs = out[:3]
+                    if tx is not None:
+                        e_int, errs = out[3:]
                     rb = torch.zeros((), device=dev)
                     if guard:
                         finite_m = _group_finite(gp)
+                        if tx is not None:
+                            finite_m &= torch.isfinite(e_int).all(dim=1)
+                            e_int = torch.where(finite_m[:, None], e_int,
+                                                tx.e)
                         gp = _where_groups(finite_m, gp, gp_old)
                         rb = torch.sum(~finite_m).float()
                     if quarantined:
@@ -358,13 +436,29 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                         torch.sum(rs.flags * fresh_w) / seated, rb,
                         rs.residual.mean()]))
                     uploads += float((vals > 0).sum())
+                elif tx is not None:
+                    gp, loss, e_int, errs = _train_all_groups(
+                        gp, batches, group_loss_fn, cfg, tx)
+                    uploads += float(m * l)
                 else:
                     gp, loss = train_step(gp, batches)
                     uploads += float(m * l)
+                if tx is not None:
+                    cerrs.append(errs.mean())
             stats.append(torch.stack([loss.mean(), div.mean(), disc,
                                       dist_c.mean()]))
             t += 1
         with span("fedgs.external_sync"):
+            if spec_ext is not None:
+                with span("fedgs.external_sync.compress"):
+                    key, esub = prng.split(key)
+                    base = agg_weighted.flatten(gp_round0, m)
+                    y, e_ext, err = compress.ef_compress_rows(
+                        agg_weighted.flatten(gp, m) - base, e_ext, n_par,
+                        spec_ext, prng.split(esub, m))
+                    gp = agg_weighted.unflatten(base + y, gp, 1)
+                    cerrs.append(err.mean())
+                    del base, y
             gp = external_sync_and_broadcast(gp)
         tl = ta = None
         if eval_fn is not None and (r + 1) % eval_every == 0:
@@ -372,21 +466,25 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                 tl, ta = (float(v) for v in eval_fn(global_params(gp)))
         loss, div, disc, dist = np.mean(
             torch.stack(stats).cpu().numpy().astype(np.float64), axis=0)
-        robust_fields = {}
+        fields = {}
         if rstats:
             rs_np = torch.stack(rstats).cpu().numpy().astype(np.float64)
-            robust_fields = dict(
+            fields = dict(
                 corrupted_selected=float(np.sum(rs_np[:, 0])),
                 clipped_fraction=float(np.mean(rs_np[:, 1])),
                 rollbacks=float(np.sum(rs_np[:, 2])),
                 agg_residual=float(np.mean(rs_np[:, 3])))
+        if cerrs:
+            fields["compress_error"] = float(np.sum(
+                torch.stack(cerrs).cpu().numpy().astype(np.float64))
+                / len(cerrs))
         log = RoundRecord(
             round=r, loss=float(loss), divergence=float(div),
             test_loss=tl, test_accuracy=ta, strategy="fedgs",
             group_discrepancy=float(disc), selection_distance=float(dist),
             reselections=float(resel),
-            bytes_int=2.0 * payload * uploads,
-            bytes_ext=2.0 * payload * m, **robust_fields)
+            bytes_int=2.0 * payload_int * uploads,
+            bytes_ext=2.0 * payload_ext * m, **fields)
         logs.append(log)
         if log_fn is not None:
             log_fn(log)

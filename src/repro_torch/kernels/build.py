@@ -33,6 +33,8 @@ SIGNATURES = {
     "conv_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "agg_weighted_f32": [_P, _P, _P, _I, _L, _P],
     "robust_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
+    "topk_compress_f32": [_P, _P, _P, _I, _L, _L, _I, _P],
+    "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -20,12 +20,23 @@ quarantined out of GBP-CS after ``--quarantine-limit`` flags:
       --corrupt scale+nan_burst --corrupt-frac 0.2 \\
       --robust-agg trimmed_mean --quarantine-limit 3
 
+Communication-efficient sync (DESIGN.md §18): ``--compress-int`` /
+``--compress-ext`` compress the Eq. 4 (device↔BS) and Eq. 5 (BS↔cloud)
+payloads independently — top-k sparsification and/or stochastic int8
+quantization, each with per-group error feedback (DESIGN.md §18.1); every
+round's ``bytes_int`` / ``bytes_ext`` ledger and ``compress_error`` go to
+``--log-json`` (the round lines do not change):
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --compress-int topk:0.01+int8 --compress-ext int8
+
 ``--train-step model_avg`` runs the paper's literal L one-step models.
 The JAX CLI's other scenario flags (engines, availability, drift,
-compression, baselines) are not ported yet and are rejected.
+populations, baselines) are not ported yet and are rejected.
 
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
-averages and the robust order statistics run as the port's CUDA kernels;
+averages, the robust order statistics, the top-k selection (DESIGN.md
+§18.2) and the stochastic int8 quantizer run as the port's CUDA kernels;
 ``--device cpu`` runs their plain PyTorch versions instead. Asking for
 ``cuda`` without a card is an error.
 """
@@ -101,6 +112,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quarantine-limit", type=int, default=3,
                     help="outlier flags before a device is barred from "
                          "selection (0 disables quarantine)")
+    ap.add_argument("--compress-int", default="none",
+                    help="Eq. 4 device->BS gradient compression "
+                         "(DESIGN.md §18): 'none', 'topk:FRAC', 'int8' or "
+                         "'topk:FRAC+int8' — top-k sparsification and/or "
+                         "stochastic int8, with per-group error feedback")
+    ap.add_argument("--compress-ext", default="none",
+                    help="Eq. 5 BS->cloud round-delta compression, same "
+                         "grammar as --compress-int")
     ap.add_argument("--no-nan-guard", action="store_true",
                     help="disable the per-iteration NaN/Inf rollback guard "
                          "(DESIGN.md §15.3)")
@@ -155,7 +174,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
         train_step=args.train_step, robust_agg=args.robust_agg,
         robust_clip=args.robust_clip, robust_trim=args.robust_trim,
         quarantine_limit=args.quarantine_limit,
-        nan_guard=not args.no_nan_guard)
+        nan_guard=not args.no_nan_guard, compress_int=args.compress_int,
+        compress_ext=args.compress_ext)
     corrupt_fn = None if args.corrupt == "none" else make_corruption_fn(
         CorruptionConfig(
             mode=args.corrupt, frac=args.corrupt_frac,

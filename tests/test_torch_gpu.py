@@ -104,3 +104,86 @@ def test_robust_agg_kernel_matches_plain(cuda, method):
     with pytest.raises(ValueError, match="K <= 64"):
         robust_agg.aggregate(torch.ones(1, 65, 4, device=cuda),
                              torch.ones(1, 65, device=cuda), method)
+
+
+def _tied_rows(gen, m, p, dev):
+    """Gradient-like rows rounded to one decimal (long runs of exact ties,
+    across every block boundary), with zeros and −0.0."""
+    x = torch.round(torch.randn(m, p, generator=gen, device=dev) * 20) / 10
+    x[:, ::7] = 0.0
+    x[:, 3::11] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("m,p", [(1, 4), (3, 1000), (10, 100_004),
+                                 (2, 1_048_576)])
+def test_topk_kernel_matches_plain(cuda, m, p):
+    """The exact kept set: k at 1, inside a run of ties, mid-vector, P − 1
+    and P; a row of equal magnitudes (every coordinate a tie)."""
+    from repro_torch.kernels import topk_compress
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = _tied_rows(gen, m, p, cuda)
+    x[-1] = torch.where(torch.arange(p, device=cuda) % 2 == 0, 1.5, -1.5)
+    for k in sorted({1, 2, max(1, p // 100), p // 2, p - 1, p}):
+        out = topk_compress.select(x, k)
+        ref = topk_compress.select_plain(x, k)
+        assert torch.equal(out, ref), k
+        assert torch.equal(torch.signbit(out), torch.signbit(ref))
+
+
+def test_topk_kernel_nonfinite_row_leaves_others_exact(cuda):
+    from repro_torch.kernels import topk_compress
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _tied_rows(gen, 4, 40_000, cuda)
+    x[1, 7] = float("nan")
+    x[1, 99] = float("inf")
+    x[1, 1000] = -float("inf")
+    out = topk_compress.select(x, 400)
+    ref = topk_compress.select_plain(x, 400)
+    rows = [0, 2, 3]
+    assert torch.equal(out[rows], ref[rows])
+    assert int((out[1] != 0).sum()) <= 400
+
+
+def test_int8_kernel_bit_equal_plain(cuda):
+    """Every row under its own key, bit for bit; a zero row, a row of
+    tiny values, and a NaN row (NaN everywhere, as in the plain form)."""
+    import numpy as np
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import int8_quant
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for m, p in ((1, 4), (5, 1000), (10, 400_000)):
+        x = torch.randn(m, p, generator=gen, device=cuda)
+        x[0, ::3] = 0.0
+        if m > 2:
+            x[1] = 0.0
+            x[2] *= 1e-20
+        keys = prng.split(prng.PRNGKey(m), m)
+        out = int8_quant.quantize(x, keys)
+        ref = int8_quant.quantize_plain(x, keys)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        x[-1, p // 2] = float("nan")
+        out = int8_quant.quantize(x, keys)
+        assert torch.isnan(out[-1]).all()
+        assert torch.equal(out[:-1], int8_quant.quantize_plain(x[:-1],
+                                                               keys[:-1]))
+    with pytest.raises(ValueError):
+        int8_quant.quantize(torch.ones(2, 6, device=cuda),
+                            np.zeros((2, 2), np.uint32))
+
+
+def test_compress_wrappers_count_launches(cuda):
+    """One EF event on three rows: one call of each kernel; e' = x − y."""
+    import numpy as np
+
+    from repro_torch.core import compress
+    dispatch.reset_launch_counts()
+    spec = compress.parse_compress("topk:0.1+int8")
+    g = torch.randn(3, 1000, device=cuda)
+    keys = np.arange(6, dtype=np.uint32).reshape(3, 2)
+    y, e, _ = compress.ef_compress_rows(g, torch.zeros_like(g), 999, spec,
+                                          keys)
+    assert torch.equal(e, g - y)
+    counts = dispatch.launch_counts()
+    assert counts["topk_compress"] == 1 and counts["int8_quant"] == 1

@@ -24,11 +24,13 @@ def _rounds(text):
     return [FIELD.findall(ln) for ln in lines]
 
 
-def assert_cli_matches(capsys, monkeypatch, flags, log=None):
+def assert_cli_matches(capsys, monkeypatch, flags, log=None, ref_log=None):
     """Both CLIs in-process on the smoke command plus ``flags``: the same
     round lines, numbers to 1e-4 and the counted fields equal. Returns the
-    port's round records."""
-    monkeypatch.setattr(sys, "argv", ["train"] + SMOKE + flags)
+    port's round records; ``log``/``ref_log`` take the port's/the JAX
+    CLI's ``--log-json``."""
+    monkeypatch.setattr(sys, "argv", ["train"] + SMOKE + flags + (
+        ["--log-json", str(ref_log)] if ref_log else []))
     jtrain.main()
     ref = _rounds(capsys.readouterr().out)
     recs = train.main(SMOKE + flags + ["--device", "cpu"]
@@ -72,7 +74,7 @@ def test_scenario_cli_matches_reference(flags, capsys, monkeypatch):
 
 def test_cli_rejects_flags_outside_the_port():
     for flags in (["--engine", "fused"], ["--avail", "markov"],
-                  ["--compress-int", "int8"], ["--drift", "rotate"]):
+                  ["--population-per-group", "64"], ["--drift", "rotate"]):
         with pytest.raises(SystemExit):
             train.build_parser().parse_args(flags)
 
