@@ -25,7 +25,17 @@ the last line):
    topk:0.01+int8 --compress-ext int8``, driven, counted and profiled the
    same way; three compressed smoke configurations card vs CPU, their
    ``--log-json`` byte ledgers equal;
-7. one JSON line of kernel results, the ``nvidia-smi`` line, and the
+7. LM path (the dense-LM serving slice, ``granite-3-2b`` at full width
+   and depth) — ``flash_attention`` against its plain version at the
+   prefill shape (2, 4096, 32/8 heads, 64) in f32 (causal, causal with
+   window 1024, non-causal; kernel, plain and SDPA times) and on the JAX
+   package's sweep in f32 and bf16; one full-width prefill forward
+   (``attn_impl="pallas"``, tokens (2, 4096) from ``MarkovLMStream``) with
+   exactly 40 kernel launches, timed and profiled; ``serve()`` at the JAX
+   CLI's defaults (batch 4, prompt 32, gen 32; no kernel launch);
+   decode against prefill at full width, plain and ring buffer; then the
+   smoke config card vs CPU (serve token ids, prefill logits);
+8. one JSON line of kernel results, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of the JAX package.
@@ -580,6 +590,304 @@ def smoke_card_vs_cpu(label, flags) -> None:
           f"compress_error to {ce_worst:.2g} relative", flush=True)
 
 
+LM_ARCH = "granite-3-2b"
+PREFILL_BATCH, PREFILL_LEN = 2, 4096     # granite's published context
+FLASH_SWEEP = [(1, 4, 4, 256, 64), (2, 8, 2, 128, 32), (1, 4, 1, 256, 128)]
+FLASH_MASKS = [(True, None), (True, 96), (False, None)]
+
+
+def attended_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs a mask leaves unmasked in an (s, s) attention."""
+    if not causal:
+        return s * s if window is None else sum(
+            s - max(0, i - window + 1) for i in range(s))
+    return sum(min(i + 1, window or s) for i in range(s))
+
+
+def check_flash_attention(torch, dev):
+    """``flash_attention`` against ``attention_plain`` on the card: the
+    JAX package's sweep (f32 to 2e-5, bf16 to 2e-2, three masks), then the
+    full-width prefill shape in f32 with kernel, plain and SDPA times and
+    the bound of each mask (the FLOP of the unmasked pairs only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    worst = {dt: 0.0 for dt in tols}
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def plain(q, k, v, causal, window):
+        return kfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window).transpose(1, 2)
+
+    for b, h, kv, s, d in FLASH_SWEEP:
+        for dtype, tol in tols.items():
+            q, k, v = rand(b, s, h, d, dtype=dtype), \
+                rand(b, s, kv, d, dtype=dtype), rand(b, s, kv, d, dtype=dtype)
+            for causal, window in FLASH_MASKS:
+                out = kfa.flash_attention(q, k, v, causal=causal,
+                                          window=window, block_q=min(128, s),
+                                          block_k=min(128, s))
+                err = float((out.float() - plain(q, k, v, causal, window)
+                             .float()).abs().max())
+                if not err <= tol:
+                    fail(f"flash_attention sweep {(b, h, kv, s, d)} {dtype} "
+                         f"causal={causal} window={window}: max error {err} "
+                         f"> {tol}")
+                worst[dtype] = max(worst[dtype], err)
+    print(f"flash_attention sweep {FLASH_SWEEP} x f32/bf16 x {FLASH_MASKS}: "
+          f"max err f32 {worst[torch.float32]:.3g} (tol 2e-5), bf16 "
+          f"{worst[torch.bfloat16]:.3g} (tol 2e-2)", flush=True)
+
+    b, s, h, kv, d = PREFILL_BATCH, PREFILL_LEN, 32, 8, 64
+    q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows = []
+    for causal, window in ((True, None), (True, 1024), (False, None)):
+        out = kfa.flash_attention(q, k, v, causal=causal, window=window)
+        err = float((out - plain(q, k, v, causal, window)).abs().max())
+        if not err <= tols[torch.float32]:
+            fail(f"flash_attention prefill causal={causal} window={window}: "
+                 f"max error {err} > 2e-5")
+        worst[torch.float32] = max(worst[torch.float32], err)
+        run = lambda: kfa.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+        ms = time_ms(run, reps=10)
+        plain_ms = time_ms(lambda: plain(q, k, v, causal, window), reps=3,
+                           warmup=1)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        else:
+            i = torch.arange(s, device=dev)
+            allowed = (i[None, :] <= i[:, None]) & \
+                (i[None, :] > i[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=allowed, enable_gqa=True)
+        lib_ms = time_ms(lib, reps=5)
+        ops = 4 * d * b * h * attended_pairs(s, causal, window)
+        bytes_ = 4 * (2 * b * s * h * d + 2 * b * s * kv * d)
+        b_ms, b_by = bound(bytes_, ops)
+        rows.append(dict(causal=causal, window=window, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, tflops=ops / ms / 1e9))
+        print(f"flash_attention prefill (B, S, H, KV, D) = {(b, s, h, kv, d)} "
+              f"f32 causal={causal} window={window}: max err {err:.3g} (tol "
+              f"2e-5); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"{lib_ms:.4f} ms SDPA, bound {b_ms:.4f} ms ({b_by}), "
+              f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        torch.cuda.empty_cache()
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    main_row = rows[0]
+    return dict(name=kfa.NAME, route="cuda", source=kfa.SOURCE,
+                replaces=kfa.REPLACES, max_abs_err=worst[torch.float32],
+                tol=2e-5, max_abs_err_bf16=worst[torch.bfloat16],
+                tol_bf16=2e-2, ms=main_row["ms"],
+                plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+                bound_by=main_row["bound_by"],
+                library_ms=main_row["library_ms"],
+                shape=f"B={b} S={s} H={h} KV={kv} D={d} f32 causal",
+                cases=rows)
+
+
+def lm_profile(torch, run, label) -> None:
+    """Device time of one ``run()`` by kernel class: the flash kernel, the
+    GEMMs and the rest, against the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    kern = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(k[0] for k in kern)
+    flash = sum(k[0] for k in kern if "flash_fwd" in k[2])
+    gemm = sum(k[0] for k in kern if "flash_fwd" not in k[2] and any(
+        w in k[2].lower() for w in ("gemm", "cutlass", "sm90_xmma")))
+    if busy <= 0:
+        print(f"{label} profile: device time not measured (no CUDA events "
+              "in the trace)", flush=True)
+        return
+    print(f"{label} profile: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%): flash_attention {flash:.1f} ms "
+          f"({100 * flash / busy:.1f}%), GEMMs {gemm:.1f} ms "
+          f"({100 * gemm / busy:.1f}%), other {busy - flash - gemm:.1f} ms",
+          flush=True)
+    for ms, count, name in sorted(kern, reverse=True)[:8]:
+        print(f"{label} profile device: {ms:9.3f} ms  x{count:<5d} "
+              f"{name[:90]}", flush=True)
+
+
+def lm_path(torch, dev):
+    """The dense-LM serving slice at full width and depth: prefill with the
+    kernel (counted, timed, profiled), serve(), decode against prefill.
+    Returns the prefill run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.core import dispatch
+    from repro_torch.data import MarkovLMStream
+    from repro_torch.launch import serve
+    from repro_torch.models import build, layers, transformer
+
+    cfg = configs.get_config(LM_ARCH)
+    fns = build(cfg)
+    t0 = time.perf_counter()
+    stream = MarkovLMStream(cfg.vocab_size, seed=0)
+    toks = torch.as_tensor(stream.sample(PREFILL_BATCH, PREFILL_LEN),
+                           device=dev)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = layers.num_params(params)
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model   # not in param_count
+    if n_par != cfg.param_count() + norms:
+        fail(f"lm: {n_par} parameters, the config counts "
+             f"{cfg.param_count()} + {norms} norm scales")
+    print(f"lm: {LM_ARCH} at full width and depth ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}), "
+          f"{n_par:,} f32 parameters from a CUDA torch.Generator in "
+          f"{init_s:.1f} s; MarkovLMStream tokens {tuple(toks.shape)} in "
+          f"{data_s:.1f} s", flush=True)
+
+    # prefill: the counted run, then timed runs
+    forward = lambda: fns.forward(params, {"tokens": toks},
+                                  attn_impl="pallas")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    logits = forward()
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    expect = {name: 0 for name in counts}
+    expect["flash_attention"] = cfg.num_layers
+    if counts != expect:
+        fail(f"lm prefill: launch counts {counts} != {expect}")
+    shape = (PREFILL_BATCH, PREFILL_LEN, cfg.padded_vocab)
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
+        fail(f"lm prefill: logits {tuple(logits.shape)} (want {shape}) or "
+             "not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del logits
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    n_tok = PREFILL_BATCH * PREFILL_LEN
+    print(f"lm prefill: (B, S) = {(PREFILL_BATCH, PREFILL_LEN)}, launches "
+          f"{counts['flash_attention']} flash_attention (one per layer), "
+          f"logits finite; {[round(w, 1) for w in walls]} ms per prefill "
+          f"(host clock, synchronised), {n_tok / min(walls) * 1e3:.0f} "
+          f"tokens/s at the best; peak device memory {peak_gb:.2f} GB",
+          flush=True)
+    lm_profile(torch, forward, "lm prefill")
+
+    # decode against prefill at full width (the JAX package's tests)
+    dec_toks = torch.as_tensor(stream.sample(1, 128), device=dev)
+    del stream
+    for window in (None, 64):
+        c = cfg if window is None else cfg.with_(sliding_window=window)
+        full, _ = transformer.forward(c, params, dec_toks, window=window,
+                                      attn_impl="pallas")
+        cache = transformer.init_decode_cache(c, 1, 128,
+                                              windowed=window is not None,
+                                              device=dev)
+        outs = []
+        for i in range(128):
+            lg, cache = transformer.decode_step(c, params, cache,
+                                                dec_toks[:, i:i + 1], i,
+                                                windowed=window is not None)
+            outs.append(lg)
+        err = float((torch.cat(outs, 1) - full).abs().max())
+        scale = float(full.abs().max())
+        tol = 1e-4 * scale
+        if not err <= tol:
+            fail(f"lm decode vs prefill (window {window}): max error {err} > "
+                 f"{tol:.3g} (1e-4 of max |logit| {scale:.3g})")
+        print(f"lm decode vs prefill at full width, (1, 128) tokens, "
+              f"{'window 64, ring cache of 64' if window else 'plain cache'}:"
+              f" 128 decode steps against the kernel's prefill, max |diff| "
+              f"{err:.3g} (tol {tol:.3g} = 1e-4 of max |logit| {scale:.3g})",
+              flush=True)
+        del full, cache, outs
+    del params
+    torch.cuda.empty_cache()
+
+    # serve() at the JAX CLI's defaults: decode only, no kernel launch
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    res = serve.serve(cfg, batch=4, prompt_len=32, gen=32, windowed=False,
+                      seed=0, device=dev)
+    serve_counts = dispatch.launch_counts()
+    if any(serve_counts.values()):
+        fail(f"lm serve: kernel launches {serve_counts}, want none")
+    if res["tokens"].shape != (4, 32) or res["tokens"].min() < 0 or \
+            res["tokens"].max() >= cfg.vocab_size:
+        fail(f"lm serve: token ids out of range: {res['tokens']}")
+    print(f"lm serve: {LM_ARCH} full width, batch 4, prompt 32, gen 32 "
+          f"(threefry init, prefill by repeated decode): "
+          f"{res['ms_per_step']:.2f} ms/step, {res['tok_per_s']:.1f} tok/s, "
+          f"{res['steps']} steps, no kernel launch; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lm_smoke_card_vs_cpu(torch, dev) -> None:
+    """The smoke config: the serve CLI's token ids on the card equal the
+    CPU run's (plain and ring cache, the ring wrapping), and the prefill
+    logits through the kernel agree with the CPU's plain version."""
+    from repro_torch import configs, convert
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    for flags in (["--arch", LM_ARCH],
+                  ["--arch", LM_ARCH, "--windowed", "--prompt-len", "40",
+                   "--gen", "40"]):
+        ids = {}
+        for device in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = serve.main(flags + ["--device", device])
+            ids[device] = res["tokens"]
+        if not (ids["cuda"] == ids["cpu"]).all():
+            fail(f"lm smoke serve {flags}: token ids differ card vs CPU:\n"
+                 f"{ids['cuda'][0].tolist()}\n{ids['cpu'][0].tolist()}")
+        print(f"lm smoke serve {' '.join(flags)}: all {ids['cpu'].size} token "
+              f"ids equal card vs CPU; row 0 starts "
+              f"{ids['cpu'][0, :16].tolist()}", flush=True)
+    cfg = configs.get_smoke_config(LM_ARCH)
+    params = transformer.init_lm(cfg, prng.PRNGKey(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 256),
+                         generator=torch.Generator().manual_seed(0))
+    ref, _ = transformer.forward(cfg, params, toks, attn_impl="pallas")
+    gp = convert.params_from_jax(convert.params_to_numpy(params), dev)
+    out, _ = transformer.forward(cfg, gp, toks.to(dev), attn_impl="pallas")
+    err = float((out.cpu() - ref).abs().max())
+    if not err <= 1e-4:
+        fail(f"lm smoke prefill: card vs CPU logits differ by {err} > 1e-4")
+    print(f"lm smoke prefill (2, 256), attn_impl='pallas': card (kernel) vs "
+          f"CPU (plain) logits max |diff| {err:.3g} (tol 1e-4)", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -611,7 +919,7 @@ def main() -> None:
     main_expect = {"gbp_cs": rounds * iters,
                    "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
                    "agg_weighted": rounds, "robust_agg": 0,
-                   "topk_compress": 0, "int8_quant": 0}
+                   "topk_compress": 0, "int8_quant": 0, "flash_attention": 0}
     _, main_counts, _ = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
     smoke_card_vs_cpu("main path", [])
@@ -659,10 +967,18 @@ def main() -> None:
     for i, smoke in enumerate(COMPRESS_SMOKE_FLAGS):
         smoke_card_vs_cpu(f"compress path {i + 1}", smoke)
 
+    # LM path (the dense-LM serving slice): the kernel at the prefill
+    # shape, then the full-width prefill, decode and serve, then the smoke
+    # config card vs CPU
+    kernels.append(check_flash_attention(torch, dev))
+    lm_counts = lm_path(torch, dev)
+    lm_smoke_card_vs_cpu(torch, dev)
+
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
                    "robust": robust_counts[k["name"]],
-                   "compress": compress_counts[k["name"]]}
+                   "compress": compress_counts[k["name"]],
+                   "lm": lm_counts[k["name"]]}
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
 

@@ -27,6 +27,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaError_t as int)
 SIGNATURES = {
     "gbp_cs_minimize_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -35,6 +36,8 @@ SIGNATURES = {
     "robust_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "topk_compress_f32": [_P, _P, _P, _I, _L, _L, _I, _P],
     "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9
+    + [_I, _I, _F, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,0 +1,1 @@
+from .factory import ModelFns, build  # noqa: F401

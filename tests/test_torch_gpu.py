@@ -187,3 +187,48 @@ def test_compress_wrappers_count_launches(cuda):
     assert torch.equal(e, g - y)
     counts = dispatch.launch_counts()
     assert counts["topk_compress"] == 1 and counts["int8_quant"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d", [(1, 4, 4, 256, 64), (2, 8, 2, 128, 32),
+                                        (1, 4, 1, 256, 128),
+                                        (1, 8, 2, 1024, 64)])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype):
+    """The JAX package's sweep (and a longer sequence, whose window skips
+    whole kv tiles), causal / window 96 / non-causal, at the sweep's
+    tolerances; q read through a transposed view (strides, no copy)."""
+    from repro_torch.kernels import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(b * 100 + h)
+    q = torch.randn(b, h, s, d, generator=gen, device=cuda).to(dtype)
+    q = q.transpose(1, 2)                       # (B, S, H, D), not contiguous
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for causal, window in ((True, None), (True, 96), (False, None)):
+        out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+        ref = flash_attention.attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+        assert out.dtype == dtype and out.shape == q.shape
+        err = float((out.float() - ref.float()).abs().max())
+        assert err < tol, (causal, window, err)
+
+
+def test_flash_attention_launches_once_per_layer(cuda):
+    """One kernel launch per layer per forward, none per decode step."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    cfg = configs.get_config("granite-3-2b").with_(num_layers=2)
+    fns = build(cfg)
+    params = fns.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), device=cuda)
+    dispatch.reset_launch_counts()
+    logits = fns.forward(params, {"tokens": toks}, attn_impl="pallas")
+    assert dispatch.launch_counts()["flash_attention"] == cfg.num_layers
+    assert torch.isfinite(logits).all()
+    cache = fns.init_decode_cache(1, 8, device=cuda)
+    fns.decode_step(params, cache, toks[:, :1], 0)
+    assert dispatch.launch_counts()["flash_attention"] == cfg.num_layers
+    with pytest.raises(ValueError, match="multiples"):
+        fns.forward(params, {"tokens": toks[:, :100]}, attn_impl="pallas")
