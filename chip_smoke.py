@@ -28,14 +28,26 @@ the last line):
 7. LM path (the dense-LM serving slice, ``granite-3-2b`` at full width
    and depth) — ``flash_attention`` against its plain version at the
    prefill shape (2, 4096, 32/8 heads, 64) in f32 (causal, causal with
-   window 1024, non-causal; kernel, plain and SDPA times) and on the JAX
-   package's sweep in f32 and bf16; one full-width prefill forward
-   (``attn_impl="pallas"``, tokens (2, 4096) from ``MarkovLMStream``) with
-   exactly 40 kernel launches, timed and profiled; ``serve()`` at the JAX
-   CLI's defaults (batch 4, prompt 32, gen 32; no kernel launch);
-   decode against prefill at full width, plain and ring buffer; then the
-   smoke config card vs CPU (serve token ids, prefill logits);
-8. one JSON line of kernel results, the ``nvidia-smi`` line, and the
+   window 1024, non-causal; kernel, plain and SDPA times), at zamba2-7b's
+   shape (1, 4096, 32/32 heads, 112) and on the JAX package's sweep in f32
+   and bf16; one full-width prefill forward (``attn_impl="pallas"``,
+   tokens (2, 4096) from ``MarkovLMStream``) with exactly 40 kernel
+   launches, timed and profiled; ``serve()`` at the JAX CLI's defaults
+   (batch 4, prompt 32, gen 32; no kernel launch); decode against prefill
+   at full width, plain and ring buffer; then the smoke config card vs CPU
+   (serve token ids, prefill logits);
+8. SSM and hybrid paths (the Mamba2 serving slice) — ``ssd_scan`` against
+   its plain version on a sweep (chunk 64/128, N 16–128, P 32/64, one
+   chunk, chunks shorter than the kernel's tile) and at both full-width
+   prefill shapes, with kernel and plain times; ``mamba2-780m`` at full
+   width and depth: prefill (4, 2048) from ``MarkovLMStream`` with exactly
+   48 ``ssd_scan`` launches, timed and profiled, decode against prefill,
+   ``serve()`` at batch 4, prompt 32, gen 32; ``zamba2-7b`` at full width
+   and depth: prefill (1, 4096) with exactly 81 ``ssd_scan`` and 14
+   ``flash_attention`` (D = 112) launches, timed and profiled, decode
+   against prefill (its full-width ``serve()`` is left out for time); both
+   smoke configs card vs CPU (serve token ids, prefill logits);
+9. one JSON line of kernel results, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of the JAX package.
@@ -684,6 +696,33 @@ def check_flash_attention(torch, dev):
         torch.cuda.empty_cache()
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+
+    # zamba2-7b's shared attention: 32/32 heads of 3584 / 32 = 112
+    b, s, h, kv, d = HYBRID_PREFILL + (32, 32, 112)
+    q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    out = kfa.flash_attention(q, k, v)
+    err = float((out - plain(q, k, v, True, None)).abs().max())
+    if not err <= tols[torch.float32]:
+        fail(f"flash_attention D=112 (zamba2-7b): max error {err} > 2e-5")
+    worst[torch.float32] = max(worst[torch.float32], err)
+    ms = time_ms(lambda: kfa.flash_attention(q, k, v), reps=10)
+    plain_ms = time_ms(lambda: plain(q, k, v, True, None), reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=5)
+    ops = 4 * d * b * h * attended_pairs(s, True, None)
+    b_ms, b_by = bound(4 * (2 * b * s * h * d + 2 * b * s * kv * d), ops)
+    rows.append(dict(causal=True, window=None, D=d, shape=(b, s, h, kv, d),
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                     tflops=ops / ms / 1e9))
+    print(f"flash_attention zamba2-7b shape (B, S, H, KV, D) = "
+          f"{(b, s, h, kv, d)} f32 causal: max err {err:.3g} (tol 2e-5); "
+          f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
+          f"SDPA, bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} "
+          "TFLOP/s", flush=True)
+    del q, k, v, qt, kt, vt, out
+    torch.cuda.empty_cache()
     main_row = rows[0]
     return dict(name=kfa.NAME, route="cuda", source=kfa.SOURCE,
                 replaces=kfa.REPLACES, max_abs_err=worst[torch.float32],
@@ -692,13 +731,14 @@ def check_flash_attention(torch, dev):
                 plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
                 bound_by=main_row["bound_by"],
                 library_ms=main_row["library_ms"],
-                shape=f"B={b} S={s} H={h} KV={kv} D={d} f32 causal",
+                shape=(f"B={PREFILL_BATCH} S={PREFILL_LEN} H=32 KV=8 D=64 "
+                       "f32 causal"),
                 cases=rows)
 
 
 def lm_profile(torch, run, label) -> None:
-    """Device time of one ``run()`` by kernel class: the flash kernel, the
-    GEMMs and the rest, against the host clock."""
+    """Device time of one ``run()`` by kernel class: the port's flash and
+    SSD kernels, the GEMMs and the rest, against the host clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -714,57 +754,60 @@ def lm_profile(torch, run, label) -> None:
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(k[0] for k in kern)
-    flash = sum(k[0] for k in kern if "flash_fwd" in k[2])
-    gemm = sum(k[0] for k in kern if "flash_fwd" not in k[2] and any(
+    tags = {"flash_attention": ("flash_fwd",),
+            "ssd_scan": ("ssd_scan_fwd", "ssd_gram")}
+    mine = lambda key: any(t in key for ts in tags.values() for t in ts)
+    ours = {name: sum(k[0] for k in kern if any(t in k[2] for t in ts))
+            for name, ts in tags.items()}
+    gemm = sum(k[0] for k in kern if not mine(k[2]) and any(
         w in k[2].lower() for w in ("gemm", "cutlass", "sm90_xmma")))
     if busy <= 0:
         print(f"{label} profile: device time not measured (no CUDA events "
               "in the trace)", flush=True)
         return
+    other = busy - gemm - sum(ours.values())
     print(f"{label} profile: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall:.1f}%): flash_attention {flash:.1f} ms "
-          f"({100 * flash / busy:.1f}%), GEMMs {gemm:.1f} ms "
-          f"({100 * gemm / busy:.1f}%), other {busy - flash - gemm:.1f} ms",
-          flush=True)
+          f"({100 * busy / wall:.1f}%): " + "".join(
+              f"{name} {ms:.1f} ms ({100 * ms / busy:.1f}%), "
+              for name, ms in ours.items() if ms > 0)
+          + f"GEMMs {gemm:.1f} ms ({100 * gemm / busy:.1f}%), other "
+          f"{other:.1f} ms", flush=True)
     for ms, count, name in sorted(kern, reverse=True)[:8]:
         print(f"{label} profile device: {ms:9.3f} ms  x{count:<5d} "
               f"{name[:90]}", flush=True)
 
 
-def lm_path(torch, dev):
-    """The dense-LM serving slice at full width and depth: prefill with the
-    kernel (counted, timed, profiled), serve(), decode against prefill.
-    Returns the prefill run's launch counts."""
-    from repro_torch import configs
-    from repro_torch.core import dispatch
-    from repro_torch.data import MarkovLMStream
-    from repro_torch.launch import serve
-    from repro_torch.models import build, layers, transformer
+def uncounted_params(cfg) -> int:
+    """Parameters that ``ArchConfig.param_count`` leaves out: the norm
+    scales, and per Mamba2 block the depthwise conv, its bias, the dt bias,
+    A_log, D and the gated norm."""
+    d = cfg.d_model
+    if cfg.arch_type == "dense":
+        return (2 * cfg.num_layers + 1) * d
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    per_layer = (d + cfg.ssm_conv_width * conv_ch + conv_ch
+                 + 3 * cfg.ssm_heads + cfg.d_inner)
+    shared = 2 * d if cfg.arch_type == "hybrid" else 0
+    return cfg.num_layers * per_layer + d + shared
 
-    cfg = configs.get_config(LM_ARCH)
-    fns = build(cfg)
-    t0 = time.perf_counter()
-    stream = MarkovLMStream(cfg.vocab_size, seed=0)
-    toks = torch.as_tensor(stream.sample(PREFILL_BATCH, PREFILL_LEN),
-                           device=dev)
-    data_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+
+def check_param_count(label, cfg, params) -> int:
+    from repro_torch.models import layers
     n_par = layers.num_params(params)
-    norms = (2 * cfg.num_layers + 1) * cfg.d_model   # not in param_count
-    if n_par != cfg.param_count() + norms:
-        fail(f"lm: {n_par} parameters, the config counts "
-             f"{cfg.param_count()} + {norms} norm scales")
-    print(f"lm: {LM_ARCH} at full width and depth ({cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.head_dim}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}), "
-          f"{n_par:,} f32 parameters from a CUDA torch.Generator in "
-          f"{init_s:.1f} s; MarkovLMStream tokens {tuple(toks.shape)} in "
-          f"{data_s:.1f} s", flush=True)
+    extra = uncounted_params(cfg)
+    if n_par != cfg.param_count() + extra:
+        fail(f"{label}: {n_par} parameters, the config counts "
+             f"{cfg.param_count()} + {extra} outside param_count")
+    return n_par
 
-    # prefill: the counted run, then timed runs
+
+def prefill(torch, label, cfg, fns, params, toks, launches: dict) -> dict:
+    """One full-width prefill forward (``attn_impl="pallas"``) with every
+    launch count set to 0 just before and read just after: it must equal
+    ``launches`` (the other kernels 0). Then three timed runs (host clock,
+    synchronised), tokens/s, peak memory and one profiled run."""
+    from repro_torch.core import dispatch
+
     forward = lambda: fns.forward(params, {"tokens": toks},
                                   attn_impl="pallas")
     torch.cuda.synchronize()
@@ -773,14 +816,13 @@ def lm_path(torch, dev):
     logits = forward()
     torch.cuda.synchronize()
     counts = dispatch.launch_counts()
-    expect = {name: 0 for name in counts}
-    expect["flash_attention"] = cfg.num_layers
+    expect = dict({name: 0 for name in counts}, **launches)
     if counts != expect:
-        fail(f"lm prefill: launch counts {counts} != {expect}")
-    shape = (PREFILL_BATCH, PREFILL_LEN, cfg.padded_vocab)
+        fail(f"{label} prefill: launch counts {counts} != {expect}")
+    shape = tuple(toks.shape) + (cfg.padded_vocab,)
     if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
-        fail(f"lm prefill: logits {tuple(logits.shape)} (want {shape}) or "
-             "not finite")
+        fail(f"{label} prefill: logits {tuple(logits.shape)} (want {shape}) "
+             "or not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del logits
     walls = []
@@ -790,78 +832,148 @@ def lm_path(torch, dev):
         forward()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    n_tok = PREFILL_BATCH * PREFILL_LEN
-    print(f"lm prefill: (B, S) = {(PREFILL_BATCH, PREFILL_LEN)}, launches "
-          f"{counts['flash_attention']} flash_attention (one per layer), "
-          f"logits finite; {[round(w, 1) for w in walls]} ms per prefill "
-          f"(host clock, synchronised), {n_tok / min(walls) * 1e3:.0f} "
-          f"tokens/s at the best; peak device memory {peak_gb:.2f} GB",
-          flush=True)
-    lm_profile(torch, forward, "lm prefill")
+    n_tok = toks.numel()
+    print(f"{label} prefill: (B, S) = {tuple(toks.shape)}, launches "
+          + ", ".join(f"{n} {name}" for name, n in launches.items())
+          + f", logits finite; {[round(w, 1) for w in walls]} ms per "
+          f"prefill (host clock, synchronised), "
+          f"{n_tok / min(walls) * 1e3:.0f} tokens/s at the best; peak "
+          f"device memory {peak_gb:.2f} GB", flush=True)
+    lm_profile(torch, forward, f"{label} prefill")
+    return counts
 
-    # decode against prefill at full width (the JAX package's tests)
-    dec_toks = torch.as_tensor(stream.sample(1, 128), device=dev)
-    del stream
-    for window in (None, 64):
-        c = cfg if window is None else cfg.with_(sliding_window=window)
-        full, _ = transformer.forward(c, params, dec_toks, window=window,
-                                      attn_impl="pallas")
-        cache = transformer.init_decode_cache(c, 1, 128,
-                                              windowed=window is not None,
-                                              device=dev)
-        outs = []
-        for i in range(128):
-            lg, cache = transformer.decode_step(c, params, cache,
-                                                dec_toks[:, i:i + 1], i,
-                                                windowed=window is not None)
-            outs.append(lg)
-        err = float((torch.cat(outs, 1) - full).abs().max())
-        scale = float(full.abs().max())
-        tol = 1e-4 * scale
-        if not err <= tol:
-            fail(f"lm decode vs prefill (window {window}): max error {err} > "
-                 f"{tol:.3g} (1e-4 of max |logit| {scale:.3g})")
-        print(f"lm decode vs prefill at full width, (1, 128) tokens, "
-              f"{'window 64, ring cache of 64' if window else 'plain cache'}:"
-              f" 128 decode steps against the kernel's prefill, max |diff| "
-              f"{err:.3g} (tol {tol:.3g} = 1e-4 of max |logit| {scale:.3g})",
-              flush=True)
-        del full, cache, outs
-    del params
-    torch.cuda.empty_cache()
 
-    # serve() at the JAX CLI's defaults: decode only, no kernel launch
+def decode_vs_prefill(torch, label, cfg, params, toks, window=None) -> None:
+    """Decode step by step against the kernels' prefill of the same
+    tokens, to 1e-4 of the largest logit (windowed: a ring cache of
+    ``window`` slots)."""
+    from repro_torch.models import transformer
+
+    c = cfg if window is None else cfg.with_(sliding_window=window)
+    s = toks.shape[1]
+    full, _ = transformer.forward(c, params, toks, window=window,
+                                  attn_impl="pallas")
+    cache = transformer.init_decode_cache(c, toks.shape[0], s,
+                                          windowed=window is not None,
+                                          device=toks.device)
+    outs = []
+    for i in range(s):
+        lg, cache = transformer.decode_step(c, params, cache,
+                                            toks[:, i:i + 1], i,
+                                            windowed=window is not None)
+        outs.append(lg)
+    err = float((torch.cat(outs, 1) - full).abs().max())
+    scale = float(full.abs().max())
+    tol = 1e-4 * scale
+    if not err <= tol:
+        fail(f"{label} decode vs prefill (window {window}): max error {err} "
+             f"> {tol:.3g} (1e-4 of max |logit| {scale:.3g})")
+    what = f"window {window}, ring cache of {window}" if window else \
+        "plain cache"
+    print(f"{label} decode vs prefill at full width, {tuple(toks.shape)} "
+          f"tokens, {what}: {s} decode steps against the kernels' prefill, "
+          f"max |diff| {err:.3g} (tol {tol:.3g} = 1e-4 of max |logit| "
+          f"{scale:.3g})", flush=True)
+    del full, cache, outs
+
+
+def serve_phase(torch, label, cfg, dev) -> None:
+    """``serve()`` at the JAX CLI's defaults (batch 4, prompt 32, gen 32):
+    threefry init, prefill by repeated decode, no kernel launch."""
+    from repro_torch.core import dispatch
+    from repro_torch.launch import serve
+
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
     res = serve.serve(cfg, batch=4, prompt_len=32, gen=32, windowed=False,
                       seed=0, device=dev)
     serve_counts = dispatch.launch_counts()
     if any(serve_counts.values()):
-        fail(f"lm serve: kernel launches {serve_counts}, want none")
+        fail(f"{label} serve: kernel launches {serve_counts}, want none")
     if res["tokens"].shape != (4, 32) or res["tokens"].min() < 0 or \
             res["tokens"].max() >= cfg.vocab_size:
-        fail(f"lm serve: token ids out of range: {res['tokens']}")
-    print(f"lm serve: {LM_ARCH} full width, batch 4, prompt 32, gen 32 "
+        fail(f"{label} serve: token ids out of range: {res['tokens']}")
+    print(f"{label} serve: {cfg.name} full width, batch 4, prompt 32, gen 32 "
           f"(threefry init, prefill by repeated decode): "
           f"{res['ms_per_step']:.2f} ms/step, {res['tok_per_s']:.1f} tok/s, "
           f"{res['steps']} steps, no kernel launch; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     torch.cuda.empty_cache()
+
+
+def markov_tokens(torch, dev, vocab, shape):
+    """Prefill tokens of ``shape`` and 128 decode tokens from
+    ``MarkovLMStream(vocab, seed=0)``, as the JAX package's LM data."""
+    from repro_torch.data import MarkovLMStream
+    stream = MarkovLMStream(vocab, seed=0)
+    return (torch.as_tensor(stream.sample(*shape), device=dev),
+            torch.as_tensor(stream.sample(1, 128), device=dev),
+            "MarkovLMStream")
+
+
+def random_tokens(torch, dev, vocab, shape):
+    """The same tokens' shapes drawn on the card: the model does the same
+    work for any ids, and a vocab² Markov table costs a minute of host
+    time at zamba2's 32,000."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return (torch.randint(0, vocab, shape, generator=gen, device=dev),
+            torch.randint(0, vocab, (1, 128), generator=gen, device=dev),
+            "torch.randint")
+
+
+def lm_path(torch, dev):
+    """The dense-LM serving slice at full width and depth: prefill with the
+    kernel (counted, timed, profiled), serve(), decode against prefill.
+    Returns the prefill run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    cfg = configs.get_config(LM_ARCH)
+    fns = build(cfg)
+    t0 = time.perf_counter()
+    toks, dec_toks, _ = markov_tokens(torch, dev, cfg.vocab_size,
+                                      (PREFILL_BATCH, PREFILL_LEN))
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = check_param_count("lm", cfg, params)
+    print(f"lm: {LM_ARCH} at full width and depth ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}), "
+          f"{n_par:,} f32 parameters from a CUDA torch.Generator in "
+          f"{init_s:.1f} s; MarkovLMStream tokens {tuple(toks.shape)} in "
+          f"{data_s:.1f} s", flush=True)
+
+    counts = prefill(torch, "lm", cfg, fns, params, toks,
+                     {"flash_attention": cfg.num_layers})
+
+    # decode against prefill at full width (the JAX package's tests)
+    for window in (None, 64):
+        decode_vs_prefill(torch, "lm", cfg, params, dec_toks, window)
+    del params
+    torch.cuda.empty_cache()
+    serve_phase(torch, "lm", cfg, dev)
     return counts
 
 
-def lm_smoke_card_vs_cpu(torch, dev) -> None:
-    """The smoke config: the serve CLI's token ids on the card equal the
-    CPU run's (plain and ring cache, the ring wrapping), and the prefill
-    logits through the kernel agree with the CPU's plain version."""
+def lm_smoke_card_vs_cpu(torch, dev, arch=LM_ARCH, prefix="lm") -> None:
+    """The smoke config of ``arch``: the serve CLI's token ids on the card
+    equal the CPU run's (plain and ring cache, the ring wrapping, for archs
+    with attention), and the prefill logits through the kernels agree with
+    the CPU's plain versions."""
     from repro_torch import configs, convert
     from repro_torch.core import prng
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
-    for flags in (["--arch", LM_ARCH],
-                  ["--arch", LM_ARCH, "--windowed", "--prompt-len", "40",
-                   "--gen", "40"]):
+    cfg = configs.get_smoke_config(arch)
+    runs = [["--arch", arch]]
+    if cfg.has_attention:
+        runs.append(["--arch", arch, "--windowed", "--prompt-len", "40",
+                     "--gen", "40"])
+    for flags in runs:
         ids = {}
         for device in ("cuda", "cpu"):
             buf = io.StringIO()
@@ -869,12 +981,11 @@ def lm_smoke_card_vs_cpu(torch, dev) -> None:
                 res = serve.main(flags + ["--device", device])
             ids[device] = res["tokens"]
         if not (ids["cuda"] == ids["cpu"]).all():
-            fail(f"lm smoke serve {flags}: token ids differ card vs CPU:\n"
-                 f"{ids['cuda'][0].tolist()}\n{ids['cpu'][0].tolist()}")
-        print(f"lm smoke serve {' '.join(flags)}: all {ids['cpu'].size} token "
-              f"ids equal card vs CPU; row 0 starts "
+            fail(f"{prefix} smoke serve {flags}: token ids differ card vs "
+                 f"CPU:\n{ids['cuda'][0].tolist()}\n{ids['cpu'][0].tolist()}")
+        print(f"{prefix} smoke serve {' '.join(flags)}: all "
+              f"{ids['cpu'].size} token ids equal card vs CPU; row 0 starts "
               f"{ids['cpu'][0, :16].tolist()}", flush=True)
-    cfg = configs.get_smoke_config(LM_ARCH)
     params = transformer.init_lm(cfg, prng.PRNGKey(0), "cpu")
     toks = torch.randint(0, cfg.vocab_size, (2, 256),
                          generator=torch.Generator().manual_seed(0))
@@ -883,9 +994,128 @@ def lm_smoke_card_vs_cpu(torch, dev) -> None:
     out, _ = transformer.forward(cfg, gp, toks.to(dev), attn_impl="pallas")
     err = float((out.cpu() - ref).abs().max())
     if not err <= 1e-4:
-        fail(f"lm smoke prefill: card vs CPU logits differ by {err} > 1e-4")
-    print(f"lm smoke prefill (2, 256), attn_impl='pallas': card (kernel) vs "
-          f"CPU (plain) logits max |diff| {err:.3g} (tol 1e-4)", flush=True)
+        fail(f"{prefix} smoke prefill: card vs CPU logits differ by {err} > "
+             "1e-4")
+    print(f"{prefix} smoke prefill (2, 256), attn_impl='pallas': card "
+          f"(kernels) vs CPU (plain) logits max |diff| {err:.3g} (tol 1e-4)",
+          flush=True)
+
+
+SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "zamba2-7b"
+SSM_PREFILL = (4, 2048)          # Mamba2's training context, 8192 tokens
+HYBRID_PREFILL = (1, 4096)
+
+
+def ssd_work(bt, s, h, p, n) -> tuple[int, int]:
+    """(bytes, FLOP) the scan needs at the least: each input read and y
+    written once; per (token, head) C·S and the state update, 2NP each. A
+    chunked form that walks blocks of T steps adds the causal triangles
+    (the masked product with x·dt per head, C·Bᵀ per batch), which grow
+    with T and vanish at T = 1, where the recurrent form is left; so the
+    floor is 4NP per (token, head), whatever blocking a kernel picks."""
+    flop = 4 * bt * s * h * n * p
+    bytes_ = 4 * (2 * bt * s * h * p + bt * s * h + h + 2 * bt * s * n)
+    return bytes_, flop
+
+
+def check_ssd_scan(torch, dev):
+    """``ssd_scan`` against ``ssd_scan_plain`` on the card, to 1e-4 ·
+    max(1, max |y|): the sweep, then both full-width prefill shapes
+    (mamba2-780m (4, 2048, 48, 64, 128), zamba2-7b (1, 4096, 112, 64, 64),
+    chunk 128) with kernel and plain times and the FLOP bound."""
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as kssd
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+
+    def compare(case, chunk):
+        nonlocal worst
+        args = kssd.example_inputs(gen, *case)
+        y = kssd.ssd_scan(*args, chunk=chunk)
+        ref = kssd.ssd_scan_plain(*args, chunk=chunk)
+        err = float((y - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        if not err <= 1e-4 * scale:
+            fail(f"ssd_scan {case} chunk={chunk}: max error {err} > 1e-4 * "
+                 f"{scale:.3g}")
+        worst = max(worst, err / scale)
+        return args, err, scale
+
+    for bt, s, h, p, n, chunk in kssd.SWEEP:
+        compare((bt, s, h, p, n), chunk)
+    print(f"ssd_scan sweep {kssd.SWEEP}: max err {worst:.3g} of max(1, "
+          "max |y|) (tol 1e-4)", flush=True)
+
+    rows = []
+    for arch, (bt, s) in ((SSM_ARCH, SSM_PREFILL),
+                          (HYBRID_ARCH, HYBRID_PREFILL)):
+        cfg = configs.get_config(arch)
+        h, p, n, q = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+        args, err, scale = compare((bt, s, h, p, n), q)
+        ms = time_ms(lambda: kssd.ssd_scan(*args, chunk=q), reps=10)
+        plain_ms = time_ms(lambda: kssd.ssd_scan_plain(*args, chunk=q),
+                           reps=3, warmup=1)
+        bytes_, flop = ssd_work(bt, s, h, p, n)
+        b_ms, b_by = bound(bytes_, flop)
+        rows.append(dict(arch=arch, shape=(bt, s, h, p, n, q),
+                         max_abs_err=err, scale=scale, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         gflop=flop / 1e9, tflops=flop / ms / 1e9))
+        print(f"ssd_scan {arch} prefill (Bt, S, H, P, N, Q) = "
+              f"{(bt, s, h, p, n, q)}: max err {err:.3g} (tol 1e-4 * "
+              f"{scale:.3g}); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {b_ms:.4f} ms ({b_by}: {flop / 1e9:.2f} GFLOP), "
+              f"{flop / ms / 1e9:.1f} TFLOP/s; no single PyTorch call "
+              "computes the scan", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    main_row = rows[0]
+    return dict(name=kssd.NAME, route="cuda", source=kssd.SOURCE,
+                replaces=kssd.REPLACES, max_abs_err=main_row["max_abs_err"],
+                tol="1e-4 * max(1, max |y|)", max_rel_err_all=worst,
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+                library_ms=None,
+                shape="Bt=4 S=2048 H=48 P=64 N=128 Q=128 f32 (mamba2-780m)",
+                cases=rows)
+
+
+def ssm_path(torch, dev, arch, tokens, launches):
+    """The SSM or hybrid serving slice of ``arch`` at full width and depth:
+    weights from a CUDA ``torch.Generator``, parameter count, the counted,
+    timed and profiled prefill of ``tokens`` (prefill ids, decode ids,
+    their source), decode against prefill. Returns the prefill's launch
+    counts."""
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    cfg = configs.get_config(arch)
+    fns = build(cfg)
+    toks, dec_toks, source = tokens
+    t0 = time.perf_counter()
+    params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = check_param_count(arch, cfg, params)
+    heads = f", shared attention {cfg.n_heads}/{cfg.n_kv_heads} heads of " \
+        f"{cfg.head_dim} every {cfg.attn_every} layers" \
+        if cfg.has_attention else ""
+    print(f"{arch}: full width and depth ({cfg.num_layers} Mamba2 layers, "
+          f"d_model {cfg.d_model}, {cfg.ssm_heads} SSM heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}{heads}, vocab "
+          f"{cfg.vocab_size} -> {cfg.padded_vocab}), {n_par:,} f32 "
+          f"parameters ({cfg.param_count():,} by param_count) from a CUDA "
+          f"torch.Generator in {init_s:.1f} s; {source} tokens "
+          f"{tuple(toks.shape)}", flush=True)
+    counts = prefill(torch, arch, cfg, fns, params, toks, launches)
+    del toks
+    torch.cuda.empty_cache()
+    decode_vs_prefill(torch, arch, cfg, params, dec_toks)
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> None:
@@ -919,7 +1149,8 @@ def main() -> None:
     main_expect = {"gbp_cs": rounds * iters,
                    "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
                    "agg_weighted": rounds, "robust_agg": 0,
-                   "topk_compress": 0, "int8_quant": 0, "flash_attention": 0}
+                   "topk_compress": 0, "int8_quant": 0, "flash_attention": 0,
+                   "ssd_scan": 0}
     _, main_counts, _ = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
     smoke_card_vs_cpu("main path", [])
@@ -974,11 +1205,35 @@ def main() -> None:
     lm_counts = lm_path(torch, dev)
     lm_smoke_card_vs_cpu(torch, dev)
 
+    # SSM and hybrid paths (the Mamba2 serving slice): the scan kernel at
+    # both prefill shapes, then mamba2-780m (one scan per layer) and
+    # zamba2-7b (one scan per layer, one flash launch per segment of
+    # attn_every layers) at full width and depth, mamba2's serve(), and
+    # both smoke configs card vs CPU
+    from repro_torch import configs
+    kernels.append(check_ssd_scan(torch, dev))
+    ssm_cfg, hyb_cfg = configs.get_config(SSM_ARCH), \
+        configs.get_config(HYBRID_ARCH)
+    ssm_counts = ssm_path(
+        torch, dev, SSM_ARCH,
+        markov_tokens(torch, dev, ssm_cfg.vocab_size, SSM_PREFILL),
+        {"ssd_scan": ssm_cfg.num_layers})
+    serve_phase(torch, SSM_ARCH, ssm_cfg, dev)
+    n_seg = -(-hyb_cfg.num_layers // hyb_cfg.attn_every)
+    hybrid_counts = ssm_path(
+        torch, dev, HYBRID_ARCH,
+        random_tokens(torch, dev, hyb_cfg.vocab_size, HYBRID_PREFILL),
+        {"ssd_scan": hyb_cfg.num_layers, "flash_attention": n_seg})
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        lm_smoke_card_vs_cpu(torch, dev, arch, arch)
+
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
                    "robust": robust_counts[k["name"]],
                    "compress": compress_counts[k["name"]],
-                   "lm": lm_counts[k["name"]]}
+                   "lm": lm_counts[k["name"]],
+                   "ssm": ssm_counts[k["name"]],
+                   "hybrid": hybrid_counts[k["name"]]}
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
 

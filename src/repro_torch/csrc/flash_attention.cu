@@ -30,8 +30,10 @@
 // max and sum are reduced over the 8 lanes of a row group by shuffles;
 // m, l and the thread's D/8 output columns of acc stay in registers. The
 // row strides D + 4 (Q, K, V) and 72 (P) keep the shared loads and the P
-// stores free of bank conflicts. CTAs take the q tiles in reverse order so
-// that the longest causal rows start first.
+// stores free of bank conflicts (for D in {32, 64, 112, 128}: the eight
+// rows an 8-lane phase reads start on distinct 4-bank groups). CTAs take
+// the q tiles in reverse order so that the longest causal rows start
+// first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -116,7 +118,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           long long vss, long long vsh, int causal, int window,
           float sm_scale) {
   constexpr int LD = D + 4;
-  constexpr int NC = D / 32;        // float4 output columns per thread
+  constexpr int NC = (D + 31) / 32; // float4 output columns per thread
+  // a thread owns the float4 columns cg * 4 + 32 c of the output; when 32
+  // does not divide D (D = 112) the last c is live only for cg * 4 < D % 32
+  auto live = [](int c, int cg) {
+    return D % 32 == 0 || cg * 4 + 32 * c < D;
+  };
   extern __shared__ float4 smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Ks = Qs + kBQ * LD;
@@ -211,6 +218,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
+          if (!live(c, cg)) continue;
           const float4 vv = load4(Vs + (j + e) * LD + cg * 4 + 32 * c);
 #pragma unroll
           for (int i = 0; i < 4; ++i) fma4(acc[i][c], at(pa[i], e), vv);
@@ -226,9 +234,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
             (long long)h * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      store4(op + cg * 4 + 32 * c,
-             make_float4(acc[i][c].x / li, acc[i][c].y / li,
-                         acc[i][c].z / li, acc[i][c].w / li));
+      if (live(c, cg))
+        store4(op + cg * 4 + 32 * c,
+               make_float4(acc[i][c].x / li, acc[i][c].y / li,
+                           acc[i][c].z / li, acc[i][c].w / li));
   }
 }
 
@@ -260,6 +269,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64, T>(q, k, v, o, B, H, KV, Sq, Sk, st, causal, window,
                            sm_scale, s);
+    case 112:
+      return launch<112, T>(q, k, v, o, B, H, KV, Sq, Sk, st, causal, window,
+                            sm_scale, s);
     case 128:
       return launch<128, T>(q, k, v, o, B, H, KV, Sq, Sk, st, causal, window,
                             sm_scale, s);

@@ -38,6 +38,7 @@ SIGNATURES = {
     "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9
     + [_I, _I, _F, _P],
+    "ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None

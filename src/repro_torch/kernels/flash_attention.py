@@ -26,7 +26,7 @@ LAUNCHES = 0
 
 NEG_INF = -1e30
 TILE = 64                       # the kernel's q and kv tile (rows)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

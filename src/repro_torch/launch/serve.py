@@ -7,11 +7,14 @@ The flags are the JAX CLI's (``python -m repro.launch.serve``) plus
 ``--device``; the CLI runs the smoke config of ``--arch``, and from the
 same ``--seed`` both CLIs print the same token ids. The prompt is fed one
 token at a time through the decode step (prefill by repeated decode, as
-the JAX CLI does), then ``--gen`` tokens are generated greedily. On the
-card the model's GEMMs run in strict f32 (TF32 off) and the KV-cache
-attention is the plain PyTorch decode; ``--device cpu`` runs it on the
-CPU. Asking for ``cuda`` without a card is an error. :func:`serve` is the
-body, for any config (``chip_smoke.py`` drives it at full width).
+the JAX CLI does), then ``--gen`` tokens are generated greedily. The
+dense, SSM (``mamba2-780m``) and hybrid (``zamba2-7b``) archs run; the
+others raise ``NotImplementedError``. On the card the model's GEMMs run in
+strict f32 (TF32 off), and the KV-cache attention and the Mamba2 state
+update are plain PyTorch (decode launches none of the port's kernels);
+``--device cpu`` runs it on the CPU. Asking for ``cuda`` without a card is
+an error. :func:`serve` is the body, for any config (``chip_smoke.py``
+drives it at full width).
 """
 from __future__ import annotations
 

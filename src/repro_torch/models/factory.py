@@ -1,8 +1,9 @@
 """Model factory: ArchConfig -> (init, loss, forward, decode) functions.
 
 The port of the JAX package's ``models/factory.py`` for the arch types the
-port runs: dense decoder-only LMs with GQA attention. The others raise
-``NotImplementedError`` naming their ROADMAP item.
+port runs: dense decoder-only LMs with GQA attention, Mamba2 SSMs and the
+Zamba2 hybrid. The others raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,11 +23,11 @@ class ModelFns(NamedTuple):
 def _not_ported(cfg) -> str | None:
     if cfg.is_encoder_decoder or cfg.arch_type == "audio":
         return "encoder-decoder (audio) models"
-    if cfg.arch_type in ("moe", "ssm", "hybrid", "vlm"):
+    if cfg.arch_type in ("moe", "vlm"):
         return f"{cfg.arch_type} models"
     if cfg.kv_lora_rank > 0:
         return "MLA attention (kv_lora_rank > 0)"
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in transformer.ARCH_TYPES:
         return f"arch_type {cfg.arch_type!r}"
     return None
 

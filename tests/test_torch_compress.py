@@ -26,6 +26,18 @@ from repro_torch.kernels import agg_weighted, int8_quant, topk_compress
 from repro_torch.models import cnn
 from test_torch_train import assert_cli_matches
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these tests run thousands of small CPU ops, and
+    under parallel test workers the default thread pool per worker
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPECS = ["none", "topk:0.01", "int8", "topk:0.5+int8", "int8+topk:0.5",
          " topk:1.0 ", "topk", "topk:", "topk:0", "topk:1.5", "topk:-0.1",
          "gzip", "int8+int8", "topk:0.1+topk:0.2", "topk:abc"]

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 from repro_torch.core import dispatch, gbp_cs as core_gbp
-from repro_torch.kernels import agg_weighted, conv_fused, gbp_cs, robust_agg
+from repro_torch.kernels import (agg_weighted, conv_fused, gbp_cs, robust_agg,
+                                 ssd_scan)
 
 pytestmark = pytest.mark.gpu
 
@@ -192,7 +193,8 @@ def test_compress_wrappers_count_launches(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kv,s,d", [(1, 4, 4, 256, 64), (2, 8, 2, 128, 32),
                                         (1, 4, 1, 256, 128),
-                                        (1, 8, 2, 1024, 64)])
+                                        (1, 8, 2, 1024, 64),
+                                        (1, 4, 4, 256, 112)])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype):
     """The JAX package's sweep (and a longer sequence, whose window skips
     whole kv tiles), causal / window 96 / non-causal, at the sweep's
@@ -232,3 +234,75 @@ def test_flash_attention_launches_once_per_layer(cuda):
     assert dispatch.launch_counts()["flash_attention"] == cfg.num_layers
     with pytest.raises(ValueError, match="multiples"):
         fns.forward(params, {"tokens": toks[:, :100]}, attn_impl="pallas")
+
+
+def _ssd_inputs(gen, bt, s, h, p, n):
+    """The kernel module's inputs, with decays A = -exp(0.3 z) that are not
+    the model's integers."""
+    A = -torch.exp(0.3 * torch.randn(h, generator=gen, device=gen.device))
+    return ssd_scan.example_inputs(gen, bt, s, h, p, n, A)
+
+
+@pytest.mark.parametrize("bt,s,h,p,n,chunk", ssd_scan.SWEEP)
+def test_ssd_scan_kernel_matches_plain(cuda, bt, s, h, p, n, chunk):
+    """To 1e-4 · max(1, max |y|), the tolerance of chip_smoke.py."""
+    gen = torch.Generator(device=cuda).manual_seed(s + h + n)
+    x, dt, A, B, C = _ssd_inputs(gen, bt, s, h, p, n)
+    dispatch.reset_launch_counts()
+    y = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    assert dispatch.launch_counts()["ssd_scan"] == 1
+    ref = ssd_scan.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    assert y.shape == ref.shape and torch.isfinite(y).all()
+    err = float((y - ref).abs().max())
+    assert err <= 1e-4 * max(1.0, float(ref.abs().max())), err
+
+
+def test_ssd_scan_wrapper_checks_its_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, A, B, C = _ssd_inputs(gen, 1, 192, 2, 32, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_scan.ssd_scan(x, dt, A, B, C, chunk=128)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_scan.ssd_scan(x, dt, A, B, C, chunk=192)
+    x2, dt2, A2, B2, C2 = _ssd_inputs(gen, 1, 128, 2, 16, 16)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd_scan.ssd_scan(x2, dt2, A2, B2, C2)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan.ssd_scan(x[:, :128].double(), dt[:, :128], A, B[:, :128],
+                          C[:, :128])
+
+
+def test_mamba_forward_launches_the_scan_once(cuda):
+    """One launch per Mamba2 block without a state; none with one."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    cfg = configs.get_smoke_config("mamba2-780m")
+    p = ssm.init_mamba_block(torch.Generator(device=cuda).manual_seed(0),
+                             cfg, cuda)
+    x = torch.randn(2, 256, cfg.d_model, device=cuda)
+    dispatch.reset_launch_counts()
+    out = ssm.mamba_forward(p, x, cfg)
+    assert dispatch.launch_counts()["ssd_scan"] == 1
+    ref, _ = ssm.mamba_forward(p, x, cfg, return_state=True)
+    assert dispatch.launch_counts()["ssd_scan"] == 1
+    err = float((out - ref).abs().max())
+    assert err <= 1e-4 * max(1.0, float(ref.abs().max())), err
+
+
+def test_hybrid_forward_launch_counts(cuda):
+    """zamba2 at width 256: one scan per layer, one flash launch per
+    segment (ceil(L / attn_every)); decode launches neither."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    cfg = configs.get_smoke_config("zamba2-7b").with_(num_layers=5)
+    fns = build(cfg)
+    params = fns.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), device=cuda)
+    dispatch.reset_launch_counts()
+    logits = fns.forward(params, {"tokens": toks}, attn_impl="pallas")
+    counts = dispatch.launch_counts()
+    assert counts["ssd_scan"] == 5 and counts["flash_attention"] == 3
+    assert torch.isfinite(logits).all()
+    cache = fns.init_decode_cache(1, 8, device=cuda)
+    fns.decode_step(params, cache, toks[:, :1], 0)
+    assert dispatch.launch_counts() == counts

@@ -270,7 +270,6 @@ def test_attend_auto_resolves_as_reference():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b",
-                                  "mamba2-780m", "zamba2-7b",
                                   "internvl2-26b", "whisper-large-v3"])
 def test_build_refuses_unported_archs(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP item 18"):

@@ -26,6 +26,18 @@ from repro_torch.kernels import agg_weighted, robust_agg
 from repro_torch.models import cnn
 from test_torch_train import assert_cli_matches
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these tests run thousands of small CPU ops, and
+    under parallel test workers the default thread pool per worker
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPES = {"conv1": {"w": (5, 5, 1, 3), "b": (3,)},
           "fc2": {"w": (7, 5), "b": (5,)}}          # P = 75+3+35+5 = 118
 
