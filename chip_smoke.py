@@ -7,10 +7,12 @@ the last line):
 
 1. environment — torch/CUDA versions, the card's name and power limit;
 2. build — compiles ``src/repro_torch/csrc/*.cu`` (one nvcc per source, in
-   parallel) into ``build/repro_torch_kernels/``;
+   parallel) into ``build/repro_torch_kernels/`` and prints each kernel
+   instance's registers and spills from ``-Xptxas -v``;
 3. kernel checks — each kernel against its plain PyTorch version on the
    card, at the shapes of the paths (M=10 groups, K=35 devices, L=10,
-   n=32: a 3200-image superbatch through the full-width CNN; the robust
+   n=32: a 3200-image superbatch through the full-width CNN, and conv2's
+   shape in the conv kernel's ``pool=False`` form; the robust
    path's (M, L, |θ|) member-gradient stack; the compress path's (M, |θ|)
    gradient rows for top-k and int8), with times;
 4. main path — ``python -m repro_torch.launch.train`` at full width for
@@ -28,7 +30,9 @@ the last line):
 7. LM path (the dense-LM serving slice, ``granite-3-2b`` at full width
    and depth) — ``flash_attention`` against its plain version at the
    prefill shape (2, 4096, 32/8 heads, 64) in f32 (causal, causal with
-   window 1024, non-causal; kernel, plain and SDPA times), at zamba2-7b's
+   window 1024, non-causal; kernel, plain and SDPA times, SDPA both as the
+   GQA call and on K/V expanded to 32 heads; TFLOP/s and share of the
+   bound), at zamba2-7b's
    shape (1, 4096, 32/32 heads, 112) and on the JAX package's sweep in f32
    and bf16; one full-width prefill forward (``attn_impl="pallas"``,
    tokens (2, 4096) from ``MarkovLMStream``) with exactly 40 kernel
@@ -119,6 +123,24 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """One line per compiled kernel instance of ``nvcc -Xptxas -v``'s log:
+    source, entry (mangled), registers, spill stores and loads."""
+    out, src, entry, spill = [], "", "", ""
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out.append(f"ptxas {src} {entry}: {regs}; {spill}")
+            entry = ""
+    return out
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls (CUDA events)."""
     import torch
@@ -200,50 +222,60 @@ def check_gbp_cs(torch, dev):
 
 def check_conv(torch, dev):
     """Both conv layers of the full-width CNN over the 3200-image
-    superbatch (G=10 groups of L·n=320 images)."""
+    superbatch (G=10 groups of L·n=320 images), and conv2's shape in the
+    kernel's ``pool=False`` form (no path runs it: checked and timed, not
+    counted in the entry's totals)."""
     from repro_torch.kernels import conv_fused as kconv
 
     gen = torch.Generator(device=dev).manual_seed(0)
     g, b = 10, 320
     worst, rows, tol = 0.0, [], 1e-4
-    for name, h, cin, cout in (("conv1", 28, 1, 32), ("conv2", 14, 32, 64)):
+    for name, h, cin, cout, pool in (("conv1", 28, 1, 32, True),
+                                     ("conv2", 14, 32, 64, True),
+                                     ("conv2 pool=False", 14, 32, 64, False)):
         x = torch.rand(g, b, h, h, cin, generator=gen, device=dev)
         w = torch.randn(g, 5, 5, cin, cout, generator=gen, device=dev) \
             / math.sqrt(25 * cin)
         bias = 0.1 * torch.randn(g, cout, generator=gen, device=dev)
         pat = kconv.im2col(x, (5, 5))
         wm = w.reshape(g, 25 * cin, cout).contiguous()
-        out_k, y_k = kconv.fused(pat, wm, bias, h)
-        out_p, y_p = kconv.fused_plain(pat, wm, bias, h)
+        out_k, y_k = kconv.fused(pat, wm, bias, h, pool=pool)
+        out_p, y_p = kconv.fused_plain(pat, wm, bias, h, pool=pool)
         err = max(float((y_k - y_p).abs().max()),
                   float((out_k - out_p).abs().max()))
         if err > tol:
             fail(f"conv_fused {name}: max error {err} > {tol}")
         worst = max(worst, err)
         r, q = pat.shape[1], pat.shape[2]
-        ms = time_ms(lambda: kconv.fused(pat, wm, bias, h), reps=10)
-        plain_ms = time_ms(lambda: kconv.fused_plain(pat, wm, bias, h),
-                           reps=10)
+        ms = time_ms(lambda: kconv.fused(pat, wm, bias, h, pool=pool),
+                     reps=10)
+        plain_ms = time_ms(
+            lambda: kconv.fused_plain(pat, wm, bias, h, pool=pool), reps=10)
         lib_ms = time_ms(lambda: torch.baddbmm(bias[:, None, :], pat, wm),
                          reps=10)
+        out_rows = g * r * cout // 4 if pool else g * r * cout
         bytes_ = 4 * (g * r * q + g * q * cout + g * cout + g * r * cout
-                      + g * r * cout // 4)
+                      + out_rows)
         ops = 2 * g * r * q * cout + 2 * g * r * cout
         b_ms, b_by = bound(bytes_, ops)
-        rows.append(dict(layer=name, G=g, R=r, Q=q, C=cout, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err,
-                         tflops=ops / ms / 1e9))
+        rows.append(dict(layer=name, G=g, R=r, Q=q, C=cout, pool=pool,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         tflops=ops / ms / 1e9, share_of_bound=b_ms / ms))
         print(f"conv_fused {name}: G={g} R={r} Q={q} C={cout} max err "
-              f"{err:.3g} (tol {tol}); {ms:.3f} ms kernel, {plain_ms:.3f} ms "
-              f"plain, {lib_ms:.3f} ms baddbmm, bound {b_ms:.3f} ms "
-              f"({b_by}), {ops / ms / 1e9:.1f} TFLOP/s", flush=True)
-    tot = lambda key: sum(row[key] for row in rows)
+              f"{err:.3g} (tol {tol}); {ms:.4f} ms kernel, {plain_ms:.4f} "
+              f"ms plain, {lib_ms:.4f} ms baddbmm, bound {b_ms:.4f} ms "
+              f"({b_by}), {ops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.0%} of "
+              "the bound", flush=True)
+        del x, pat, out_k, y_k, out_p, y_p
+        torch.cuda.empty_cache()
+    path = [row for row in rows if row["pool"]]
+    tot = lambda key: sum(row[key] for row in path)
     return dict(name=kconv.NAME, route="cuda", source=kconv.SOURCE,
                 replaces=kconv.REPLACES, max_abs_err=worst, tol=tol,
                 ms=tot("ms"), plain_ms=tot("plain_ms"),
                 bound_ms=tot("bound_ms"),
-                bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+                bound_by=max(path, key=lambda r: r["bound_ms"])["bound_by"],
                 library_ms=tot("library_ms"),
                 shape="conv1 + conv2 forward, G=10, 3200 images",
                 layers=rows)
@@ -619,8 +651,10 @@ def attended_pairs(s: int, causal: bool, window) -> int:
 def check_flash_attention(torch, dev):
     """``flash_attention`` against ``attention_plain`` on the card: the
     JAX package's sweep (f32 to 2e-5, bf16 to 2e-2, three masks), then the
-    full-width prefill shape in f32 with kernel, plain and SDPA times and
-    the bound of each mask (the FLOP of the unmasked pairs only)."""
+    full-width prefill shape in f32 with kernel, plain and SDPA times (the
+    GQA call, and the MHA call on K/V expanded to H heads outside the timed
+    region) and the bound of each mask (the FLOP of the unmasked pairs
+    only), then zamba2-7b's D = 112 shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -672,27 +706,35 @@ def check_flash_attention(torch, dev):
         ms = time_ms(run, reps=10)
         plain_ms = time_ms(lambda: plain(q, k, v, causal, window), reps=3,
                            warmup=1)
-        if window is None:
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-        else:
+        # SDPA's yardsticks: the GQA call, and (MHA) the same call on K/V
+        # expanded to H heads before the timed region
+        mask = {}
+        if window is not None:
             i = torch.arange(s, device=dev)
-            allowed = (i[None, :] <= i[:, None]) & \
-                (i[None, :] > i[:, None] - window)
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=allowed, enable_gqa=True)
-        lib_ms = time_ms(lib, reps=5)
+            mask = dict(attn_mask=(i[None, :] <= i[:, None])
+                        & (i[None, :] > i[:, None] - window))
+        else:
+            mask = dict(is_causal=causal)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **mask), reps=5)
+        ke, ve = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+        mha_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, **mask), reps=5)
+        del ke, ve, mask
         ops = 4 * d * b * h * attended_pairs(s, causal, window)
         bytes_ = 4 * (2 * b * s * h * d + 2 * b * s * kv * d)
         b_ms, b_by = bound(bytes_, ops)
         rows.append(dict(causal=causal, window=window, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by, tflops=ops / ms / 1e9))
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         library_mha_ms=mha_ms, bound_ms=b_ms, bound_by=b_by,
+                         tflops=ops / ms / 1e9, share_of_bound=b_ms / ms))
         print(f"flash_attention prefill (B, S, H, KV, D) = {(b, s, h, kv, d)} "
               f"f32 causal={causal} window={window}: max err {err:.3g} (tol "
               f"2e-5); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-              f"{lib_ms:.4f} ms SDPA, bound {b_ms:.4f} ms ({b_by}), "
-              f"{ops / ms / 1e9:.1f} TFLOP/s", flush=True)
+              f"{lib_ms:.4f} ms SDPA (GQA), {mha_ms:.4f} ms SDPA on K/V "
+              f"expanded to {h} heads (MHA), bound {b_ms:.4f} ms ({b_by}), "
+              f"{ops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.0%} of the bound",
+              flush=True)
         torch.cuda.empty_cache()
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -715,12 +757,12 @@ def check_flash_attention(torch, dev):
     rows.append(dict(causal=True, window=None, D=d, shape=(b, s, h, kv, d),
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                     tflops=ops / ms / 1e9))
+                     tflops=ops / ms / 1e9, share_of_bound=b_ms / ms))
     print(f"flash_attention zamba2-7b shape (B, S, H, KV, D) = "
           f"{(b, s, h, kv, d)} f32 causal: max err {err:.3g} (tol 2e-5); "
           f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
           f"SDPA, bound {b_ms:.4f} ms ({b_by}), {ops / ms / 1e9:.1f} "
-          "TFLOP/s", flush=True)
+          f"TFLOP/s, {b_ms / ms:.0%} of the bound", flush=True)
     del q, k, v, qt, kt, vt, out
     torch.cuda.empty_cache()
     main_row = rows[0]
@@ -1137,6 +1179,9 @@ def main() -> None:
     print(f"build: {len(build.sources())} sources -> {build.BUILD_DIR} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.BUILD_SECONDS:.1f} "
           "s)", flush=True)
+    log = build.BUILD_DIR / "ptxas.log"
+    for line in ptxas_lines(log.read_text() if log.is_file() else ""):
+        print(line, flush=True)
 
     kernels = [check_gbp_cs(torch, dev), check_conv(torch, dev),
                check_agg(torch, dev), check_robust_agg(torch, dev),

@@ -31,7 +31,7 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaError_t as int)
 SIGNATURES = {
     "gbp_cs_minimize_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "conv_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "conv_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "agg_weighted_f32": [_P, _P, _P, _I, _L, _P],
     "robust_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "topk_compress_f32": [_P, _P, _P, _I, _L, _L, _I, _P],

@@ -12,7 +12,8 @@ one launch per layer. Three pieces, as in the JAX package's
   transpose, k² slice-adds.
 * :func:`fused` — the GEMM with its bias/ReLU/pool epilogue: the CUDA
   kernel (``csrc/conv_fused.cu``) for CUDA tensors, :func:`fused_plain`
-  for CPU tensors. It writes the pooled output and the pre-activation y.
+  for CPU tensors. It writes the pooled output (``pool=False``: relu(y),
+  the Pallas kernel's other form) and the pre-activation y.
 * :class:`ConvBlock`, a ``torch.autograd.Function`` whose backward reuses
   the patches: dW = patchesᵀ·dy and dpatches = dy·wᵀ as ``torch.matmul``
   (the JAX package leaves them to XLA outside any kernel), an even split of
@@ -29,8 +30,6 @@ NAME = "conv_fused"
 SOURCE = "src/repro_torch/csrc/conv_fused.cu"
 REPLACES = "src/repro/kernels/conv_fused/kernel.py:64 (conv_fused_kernel)"
 LAUNCHES = 0
-
-BLOCK_ROWS = 224   # rows per block (csrc TR): whole image row-pairs
 
 
 def im2col(x: torch.Tensor, ksz: tuple[int, int]) -> torch.Tensor:
@@ -60,36 +59,45 @@ def col2im(dpat: torch.Tensor, ksz: tuple[int, int], shape: tuple
 
 
 def fused_plain(pat: torch.Tensor, wm: torch.Tensor, b: torch.Tensor,
-                w_img: int) -> tuple[torch.Tensor, torch.Tensor]:
+                w_img: int, pool: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: pat (G, R, Q), wm (G, Q, C), b (G, C)
-    → (out (G, R/4, C), y (G, R, C))."""
+    → (out, y (G, R, C)), out = pool2×2(relu(y)) (G, R/4, C), or relu(y)
+    (G, R, C) with ``pool=False``."""
     g, r, _ = pat.shape
     c = wm.shape[-1]
     y = torch.bmm(pat, wm) + b[:, None, :]
-    a = torch.relu(y).reshape(g, -1, 2, w_img // 2, 2, c)
+    a = torch.relu(y)
+    if not pool:
+        return a, y
+    a = a.reshape(g, -1, 2, w_img // 2, 2, c)
     return a.amax(dim=(2, 4)).reshape(g, r // 4, c), y
 
 
-def fused(pat: torch.Tensor, wm: torch.Tensor, b: torch.Tensor, w_img: int
-          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """GEMM + bias + ReLU + 2×2 pool: kernel on the card, plain on CPU."""
+def fused(pat: torch.Tensor, wm: torch.Tensor, b: torch.Tensor, w_img: int,
+          pool: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """GEMM + bias + ReLU (+ 2×2 pool): kernel on the card, plain on CPU.
+    Any C with C % 4 == 0; with ``pool``, W even and R a multiple of 2W
+    (whole image row-pairs), as the Pallas wrapper asserts."""
     if pat.device.type == "cpu":
-        return fused_plain(pat, wm, b, w_img)
+        return fused_plain(pat, wm, b, w_img, pool)
     lib = build.library()
     g, r, q = pat.shape
     c = wm.shape[-1]
-    if c % 4 or c > 128 or (BLOCK_ROWS // 2) % w_img or r % (2 * w_img):
-        raise ValueError(f"conv_fused: unsupported shape R={r}, C={c}, "
-                         f"W={w_img} (need C % 4 == 0, C <= 128, W dividing "
-                         f"{BLOCK_ROWS // 2}, whole row-pairs)")
+    if c % 4 or g > 65535 or (pool and (w_img % 2 or r % (2 * w_img))):
+        raise ValueError(f"conv_fused: unsupported shape G={g}, R={r}, "
+                         f"C={c}, W={w_img}, pool={pool} (need C % 4 == 0, "
+                         "G <= 65535 and, with the pool, W even and R a "
+                         "multiple of 2W)")
     build.require(pat, "patches", (g, r, q), torch.float32)
-    build.require(wm, "w", (g, q, c), torch.float32)
+    build.require(wm, "w", (g, q, c), torch.float32, align=16)
     build.require(b, "b", (g, c), torch.float32, align=16)
     y = torch.empty(g, r, c, dtype=torch.float32, device=pat.device)
-    out = torch.empty(g, r // 4, c, dtype=torch.float32, device=pat.device)
+    out = torch.empty(g, r // 4 if pool else r, c, dtype=torch.float32,
+                      device=pat.device)
     err = lib.conv_fused_f32(pat.data_ptr(), wm.data_ptr(), b.data_ptr(),
                              y.data_ptr(), out.data_ptr(), g, r, q, c, w_img,
-                             build.stream(pat))
+                             int(pool), build.stream(pat))
     build.check(err, NAME)
     global LAUNCHES
     LAUNCHES += 1

@@ -2,8 +2,9 @@
 
 :func:`flash_attention` takes the model layout q (B, Sq, H, D), k/v
 (B, Sk, KV, D) and returns (B, Sq, H, D) in q's dtype. For CUDA tensors it
-launches ``csrc/flash_attention.cu`` (one CTA per (64-row q tile, q head,
-batch); the kv loop runs inside the CTA over the tiles the masks reach);
+launches ``csrc/flash_attention.cu`` (one CTA per (q tile of 64 rows, or
+128 at D = 112, q head, batch); the kv loop runs inside the CTA over the
+64-key tiles the masks reach, double-buffered by cp.async);
 for CPU tensors it runs :func:`attention_plain`, the plain version of the
 JAX package's ``kernels/flash_attention/ref.py``. Query head h reads kv
 head ``h // (H / KV)``. Masked scores are ``NEG_INF = -1e30`` (not −inf),
@@ -25,7 +26,7 @@ REPLACES = ("src/repro/kernels/flash_attention/kernel.py:92 "
 LAUNCHES = 0
 
 NEG_INF = -1e30
-TILE = 64                       # the kernel's q and kv tile (rows)
+TILE = 64                       # Sq and Sk must be multiples of this
 HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -65,6 +65,28 @@ def test_pool_ties_split_evenly():
     np.testing.assert_allclose(tb.grad.numpy(), [[16.0]])
 
 
+@pytest.mark.parametrize("h,pool", [(7, False), (8, True)])
+def test_fused_plain_matches_pallas_kernel(h, pool):
+    """The kernel's plain version against the Pallas kernel (interpret
+    mode) in both forms: relu(y) at odd spatial dims, and pooled."""
+    from repro.kernels.conv_fused import kernel as jkernel
+    x, w, b, _ = _conv_inputs(3, g=2, b=2, h=h, cin=3, cout=4)
+    g, r = x.shape[0], x.shape[1] * h * h
+    pat = np.asarray(jconv.im2col(jnp.asarray(x), (5, 5)))
+    wm = w.reshape(g, -1, w.shape[-1])
+    out_j, y_j = jkernel.conv_fused_kernel(
+        jnp.asarray(pat), jnp.asarray(wm), jnp.asarray(b)[:, None, :],
+        w_img=h, block_r=r, pool=pool, interpret=True)
+    out_t, y_t = conv_fused.fused_plain(torch.tensor(pat), torch.tensor(wm),
+                                        torch.tensor(b), h, pool=pool)
+    assert out_t.shape == out_j.shape == ((g, r // 4, 4) if pool
+                                          else (g, r, 4))
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=0,
+                               atol=1e-5)
+
+
 def test_im2col_col2im_adjoint():
     rng = np.random.default_rng(2)
     x = torch.tensor(rng.normal(size=(2, 3, 6, 6, 2)), dtype=torch.float32)

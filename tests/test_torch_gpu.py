@@ -43,17 +43,30 @@ def test_gbp_cs_kernel_matches_plain(cuda):
                                             (10, 8, 14, 32, 64),
                                             (1, 40, 28, 1, 32),
                                             (4, 4, 28, 1, 8),
-                                            (4, 4, 14, 8, 16)])
+                                            (4, 4, 14, 8, 16),
+                                            (2, 8, 14, 8, 128),
+                                            (3, 8, 14, 3, 36),
+                                            (2, 3, 10, 4, 16),
+                                            (3, 4, 7, 2, 32),
+                                            (2, 3, 13, 4, 64),
+                                            (1, 2, 130, 1, 8)])
 def test_conv_kernel_matches_plain(cuda, g, b, h, cin, cout):
+    """Both forms (the pool only on even dims): conv1/conv2 widths, C = 128
+    (two column tiles), C = 36 (a part-empty one), Q not a multiple of 4
+    (4-byte copies), R not a multiple of the row tile (R = 300 at W = 10),
+    odd H = W, and 2W > 256 (a block of several row tiles)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     x = torch.rand(g, b, h, h, cin, generator=gen, device=cuda)
     w = torch.randn(g, 25 * cin, cout, generator=gen, device=cuda) / 5
     bias = torch.randn(g, cout, generator=gen, device=cuda)
     pat = conv_fused.im2col(x, (5, 5))
-    out, y = conv_fused.fused(pat, w, bias, h)
-    out_p, y_p = conv_fused.fused_plain(pat, w, bias, h)
-    torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-4)
+    for pool in (True, False) if h % 2 == 0 else (False,):
+        out, y = conv_fused.fused(pat, w, bias, h, pool=pool)
+        out_p, y_p = conv_fused.fused_plain(pat, w, bias, h, pool=pool)
+        torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="pool"):
+        conv_fused.fused(pat, w, bias, h + 1)
 
 
 def test_agg_kernel_matches_plain(cuda):
@@ -194,11 +207,15 @@ def test_compress_wrappers_count_launches(cuda):
 @pytest.mark.parametrize("b,h,kv,s,d", [(1, 4, 4, 256, 64), (2, 8, 2, 128, 32),
                                         (1, 4, 1, 256, 128),
                                         (1, 8, 2, 1024, 64),
-                                        (1, 4, 4, 256, 112)])
+                                        (1, 4, 4, 256, 112),
+                                        (1, 8, 2, 512, 112),
+                                        (1, 4, 4, 1024, 112),
+                                        (1, 2, 1, 192, 112)])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype):
-    """The JAX package's sweep (and a longer sequence, whose window skips
+    """The JAX package's sweep (and longer sequences, whose window skips
     whole kv tiles), causal / window 96 / non-causal, at the sweep's
-    tolerances; q read through a transposed view (strides, no copy)."""
+    tolerances; q read through a transposed view (strides, no copy); at
+    D = 112 (128-row q tiles) GQA, MHA and a q tile of 64 valid rows."""
     from repro_torch.kernels import flash_attention
     gen = torch.Generator(device=cuda).manual_seed(b * 100 + h)
     q = torch.randn(b, h, s, d, generator=gen, device=cuda).to(dtype)
@@ -206,9 +223,11 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype):
     k, v = (torch.randn(b, s, kv, d, generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    blk = 128 if s % 128 == 0 else 64
     for causal, window in ((True, None), (True, 96), (False, None)):
         out = flash_attention.flash_attention(q, k, v, causal=causal,
-                                              window=window)
+                                              window=window, block_q=blk,
+                                              block_k=blk)
         ref = flash_attention.attention_plain(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
