@@ -14,7 +14,8 @@ the last line):
    n=32: a 3200-image superbatch through the full-width CNN, and conv2's
    shape in the conv kernel's ``pool=False`` form; the robust
    path's (M, L, |θ|) member-gradient stack; the compress path's (M, |θ|)
-   gradient rows for top-k and int8), with times;
+   gradient rows for top-k, with each row's candidates and route, and
+   with an all-ties and an overflow row, and for int8), with times;
 4. main path — ``python -m repro_torch.launch.train`` at full width for
    2 rounds of 3 iterations, with every kernel's launch count checked
    against what the path implies; one profiled full-width round (host
@@ -41,9 +42,10 @@ the last line):
    at full width, plain and ring buffer; then the smoke config card vs CPU
    (serve token ids, prefill logits);
 8. SSM and hybrid paths (the Mamba2 serving slice) — ``ssd_scan`` against
-   its plain version on a sweep (chunk 64/128, N 16–128, P 32/64, one
-   chunk, chunks shorter than the kernel's tile) and at both full-width
-   prefill shapes, with kernel and plain times; ``mamba2-780m`` at full
+   its plain version on a sweep (chunk 64/128, N 16–256, P 32/64, one
+   chunk, chunks shorter than the kernel's 128 rows, up to 32 chunks) and
+   at both full-width prefill shapes, with kernel and plain times and each
+   of its four launches timed on its own; ``mamba2-780m`` at full
    width and depth: prefill (4, 2048) from ``MarkovLMStream`` with exactly
    48 ``ssd_scan`` launches, timed and profiled, decode against prefill,
    ``serve()`` at batch 4, prompt 32, gen 32; ``zamba2-7b`` at full width
@@ -399,7 +401,12 @@ def check_topk_compress(torch, dev):
     """Top-k of the compress path, k from |θ| at 1%: rows with a run of
     exact ties at each row's threshold (k lands inside it, the ties spread
     over every block of the row), zeros and -0.0; one more row holding
-    NaN and ±inf. Every finite row must equal the plain version exactly."""
+    NaN and ±inf. Every finite row must equal the plain version exactly;
+    each row's candidate count and route are printed. Then the same rows
+    with row 0 of one magnitude (every coordinate a tie) and row 1 of one
+    magnitude with a few larger values: both overflow the candidate
+    buffer and must take the overflow route, the others not, and every
+    finite row must still equal the plain version."""
     from repro_torch.core import compress
     from repro_torch.kernels import topk_compress as ktop
 
@@ -417,18 +424,29 @@ def check_topk_compress(torch, dev):
     x[m - 1, 17] = float("nan")
     x[m - 1, n // 3] = float("inf")
     x[m - 1, 2 * n // 3] = -float("inf")
-    out_k = ktop.select(x, k)
-    out_p = ktop.select_plain(x, k)
-    torch.cuda.synchronize()
     fin = list(range(m - 1))
-    if not torch.equal(out_k[fin], out_p[fin]):
-        bad = (out_k[fin] != out_p[fin]).sum().item()
-        fail(f"topk_compress: {bad} coordinates differ from the plain "
-             "version on the finite rows")
-    kept = (out_k != 0).sum(1)
-    if int(kept[m - 1]) > k:
-        fail(f"topk_compress: the non-finite row kept {int(kept[m - 1])} "
-             f"> k = {k}")
+
+    def exact(x, label):
+        out_k, stats = ktop.select_with_stats(x, k)
+        out_p = ktop.select_plain(x, k)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k[fin], out_p[fin]):
+            bad = (out_k[fin] != out_p[fin]).sum().item()
+            fail(f"topk_compress ({label}): {bad} coordinates differ from "
+                 "the plain version on the finite rows")
+        kept = int((out_k[m - 1] != 0).sum())
+        if kept > k:
+            fail(f"topk_compress ({label}): the non-finite row kept {kept} "
+                 f"> k = {k}")
+        cands, routes = stats[:, 2].tolist(), stats[:, 3].tolist()
+        print(f"topk_compress {label}: candidates per row {cands} (buffer "
+              f"{ktop.candidate_capacity(p)} per row), route per row "
+              f"{routes} (1 candidates, 0 overflow)", flush=True)
+        return kept, routes
+
+    kept, routes = exact(x, "gradient rows")
+    if not all(routes):
+        fail(f"topk_compress: a gradient row overflowed: routes {routes}")
     nties = int((x[fin].abs() == tau[fin, None]).sum())
     ms = time_ms(lambda: ktop.select(x, k), reps=20)
     plain_ms = time_ms(lambda: ktop.select_plain(x, k), reps=3, warmup=1)
@@ -438,11 +456,20 @@ def check_topk_compress(torch, dev):
     b_ms, b_by = bound(8 * m * p, m * p)
     print(f"topk_compress: M={m} P4={p} n={n} k={k}, {nties} exact ties at "
           f"the thresholds, finite rows equal to the plain version, the "
-          f"NaN/inf row kept {int(kept[m - 1])}; {ms:.4f} ms kernel, "
+          f"NaN/inf row kept {kept}; {ms:.4f} ms kernel, "
           f"{plain_ms:.4f} ms plain (stable sort), {lib_ms:.4f} ms "
           f"torch.topk (not tie-stable), bound {b_ms:.4f} ms ({b_by})",
           flush=True)
-    del x, out_k, out_p
+
+    x[0] = torch.where(torch.arange(p, device=dev) % 3 == 0, -0.25, 0.25)
+    x[1] = 0.5
+    x[1, 7:n:n // 20] = 2.0
+    x[1, n:] = 0.0
+    _, routes = exact(x, "with an all-ties row 0 and an overflow row 1")
+    if routes[:2] != [0, 0] or not all(routes[2:]):
+        fail(f"topk_compress: routes {routes}, want overflow on rows 0 and "
+             "1 only")
+    del x
     torch.cuda.empty_cache()
     return dict(name=ktop.NAME, route="cuda", source=ktop.SOURCE,
                 replaces=ktop.REPLACES, max_abs_err=0.0, tol=0.0, ms=ms,
@@ -797,7 +824,8 @@ def lm_profile(torch, run, label) -> None:
             and e.self_device_time_total > 0]
     busy = sum(k[0] for k in kern)
     tags = {"flash_attention": ("flash_fwd",),
-            "ssd_scan": ("ssd_scan_fwd", "ssd_gram")}
+            "ssd_scan": ("ssd_gram", "ssd_chunk_state", "ssd_state_pass",
+                         "ssd_chunk_scan")}
     mine = lambda key: any(t in key for ts in tags.values() for t in ts)
     ours = {name: sum(k[0] for k in kern if any(t in k[2] for t in ts))
             for name, ts in tags.items()}
@@ -1060,11 +1088,41 @@ def ssd_work(bt, s, h, p, n) -> tuple[int, int]:
     return bytes_, flop
 
 
+def ssd_split(kssd, args, chunk) -> dict:
+    """Each launch of ``csrc/ssd_scan.cu`` timed on its own (CUDA events,
+    on the buffers of one full run), with its CTAs and the work it does:
+    the state and scan launches' FLOP (the scan's causal triangle as the
+    kernel runs it: each 32-column slice on the rows at or below its first
+    column), the
+    pass's bytes (each state slot but the last read, each but the first
+    written)."""
+    x, dt, A, B, C = args
+    bt, s, h, p = x.shape
+    call = kssd.prepare(x, dt, A, B, C, chunk)
+    kssd.run(call)
+    lay = kssd.plan(bt, s, h, p, B.shape[-1], chunk)
+    nc, n = lay["chunks"], lay["n"]
+    tri = sum(32 * (chunk - j0) for j0 in range(0, chunk, 32))  # (i, j)
+    work = {"state": ("tflops", 2 * bt * (nc - 1) * h * n * p * chunk),
+            "pass": ("tbps", 2 * 4 * bt * (nc - 1) * h * n * p),
+            "scan": ("tflops", 2 * bt * h * p * ((nc - 1) * chunk * n
+                                                 + nc * tri))}
+    split = {}
+    for i, part in enumerate(kssd.PARTS):
+        ms = time_ms(lambda: kssd.run(call, 1 << i), reps=10)
+        split[part] = {"ms": ms, "ctas": lay["ctas"][part]}
+        if part in work:
+            key, amount = work[part]
+            split[part][key] = amount / ms / 1e9
+    return split
+
+
 def check_ssd_scan(torch, dev):
     """``ssd_scan`` against ``ssd_scan_plain`` on the card, to 1e-4 ·
     max(1, max |y|): the sweep, then both full-width prefill shapes
     (mamba2-780m (4, 2048, 48, 64, 128), zamba2-7b (1, 4096, 112, 64, 64),
-    chunk 128) with kernel and plain times and the FLOP bound."""
+    chunk 128) with kernel and plain times, the FLOP bound and each of the
+    kernel's four launches timed on its own."""
     from repro_torch import configs
     from repro_torch.kernels import ssd_scan as kssd
 
@@ -1101,16 +1159,24 @@ def check_ssd_scan(torch, dev):
                            reps=3, warmup=1)
         bytes_, flop = ssd_work(bt, s, h, p, n)
         b_ms, b_by = bound(bytes_, flop)
+        split = ssd_split(kssd, args, q)
         rows.append(dict(arch=arch, shape=(bt, s, h, p, n, q),
                          max_abs_err=err, scale=scale, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         gflop=flop / 1e9, tflops=flop / ms / 1e9))
+                         gflop=flop / 1e9, tflops=flop / ms / 1e9,
+                         split=split))
         print(f"ssd_scan {arch} prefill (Bt, S, H, P, N, Q) = "
               f"{(bt, s, h, p, n, q)}: max err {err:.3g} (tol 1e-4 * "
               f"{scale:.3g}); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {b_ms:.4f} ms ({b_by}: {flop / 1e9:.2f} GFLOP), "
               f"{flop / ms / 1e9:.1f} TFLOP/s; no single PyTorch call "
               "computes the scan", flush=True)
+        print(f"ssd_scan {arch} launches, each timed alone: " + "; ".join(
+            f"{part} {v['ms']:.4f} ms ({v['ctas']} CTAs"
+            + (f", {v['tflops']:.1f} TFLOP/s" if "tflops" in v else "")
+            + (f", {v['tbps']:.2f} TB/s" if "tbps" in v else "") + ")"
+            for part, v in split.items()) + "; sum "
+            f"{sum(v['ms'] for v in split.values()):.4f} ms", flush=True)
         del args
         torch.cuda.empty_cache()
     main_row = rows[0]

@@ -34,11 +34,11 @@ SIGNATURES = {
     "conv_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "agg_weighted_f32": [_P, _P, _P, _I, _L, _P],
     "robust_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
-    "topk_compress_f32": [_P, _P, _P, _I, _L, _L, _I, _P],
+    "topk_compress_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _L, _P],
     "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9
     + [_I, _I, _F, _P],
-    "ssd_scan_f32": [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P],
+    "ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -19,7 +19,7 @@ from repro.data import streaming as jstreaming
 from repro.kernels.topk_compress import kernel as jtopk_kernel
 from repro.models import cnn as jcnn
 from repro_torch import convert
-from repro_torch.core import compress, fedgs
+from repro_torch.core import compress, dispatch, fedgs
 from repro_torch.data import (CorruptionConfig, FactoryStreams,
                               make_corruption_fn)
 from repro_torch.kernels import agg_weighted, int8_quant, topk_compress
@@ -138,6 +138,33 @@ def test_topk_rows_never_keep_pads():
     assert not compress.topk_rows(x, 5, 0).any()
     with pytest.raises(ValueError):
         topk_compress.select(x, 9)
+
+
+@pytest.mark.parametrize("p,blocks,cap", [
+    (4, 1, 4), (1000, 1, 1000), (1025, 2, 1025), (40_000, 40, 4096),
+    (100_004, 98, 6250), (6_603_712, 256, 412_732), (10 ** 9, 256,
+                                                     62_500_000)])
+def test_topk_chunks_and_candidate_buffer(p, blocks, cap):
+    """Chunks of >= 1024 coordinates, at most 256 a row; a candidate buffer
+    of 1/16 of the row (>= 4096, <= P); the scratch words per row: the row
+    and chunk histograms, the chunks' offsets and tie counts, the
+    candidates."""
+    assert topk_compress.blocks_for(p) == blocks
+    assert topk_compress.candidate_capacity(p) == cap
+    for m in (1, 10):
+        assert topk_compress.scratch_words(m, p) == m * (
+            2048 + blocks * 2048 + blocks + 1 + blocks + cap)
+
+
+def test_topk_select_with_stats_on_cpu_is_the_plain_version():
+    x = torch.randn(3, 100)
+    dispatch.reset_launch_counts()
+    out, stats = topk_compress.select_with_stats(x, 7)
+    assert stats is None and torch.equal(out, topk_compress.select_plain(x, 7))
+    assert torch.equal(topk_compress.select(x, 7), out)
+    assert dispatch.launch_counts()["topk_compress"] == 0
+    assert topk_compress.STATS == ("tau_key", "ties_kept", "candidates",
+                                   "route")
 
 
 def test_topk_rows_equal_reference_on_padded_cnn_buffer():

@@ -145,6 +145,35 @@ def test_topk_kernel_matches_plain(cuda, m, p):
         assert torch.equal(torch.signbit(out), torch.signbit(ref))
 
 
+def test_topk_kernel_overflow_route_is_exact(cuda):
+    """Rows of one magnitude with a few larger values put nearly every
+    coordinate in τ's top bin: more than the candidate buffer holds, so
+    they take the overflow route (the kernel's per-row record says so),
+    while an ordinary row keeps the candidate route; all bit-equal."""
+    from repro_torch.kernels import topk_compress
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    m, p = 3, 200_000
+    x = _tied_rows(gen, m, p, cuda)
+    x[0] = torch.where(torch.arange(p, device=cuda) % 5 == 0, -0.75, 0.75)
+    x[0, 11::9973] = 3.0
+    x[1] = -2.5
+    x[1, 4::50_000] = 4.0
+    cap = topk_compress.candidate_capacity(p)
+    assert p > cap
+    # k <= 3: τ is a larger value (few candidates); else the common one
+    for k, route in ((3, 1), (25, 0), (1000, 0), (p - 1, 0)):
+        out, stats = topk_compress.select_with_stats(x, k)
+        assert torch.equal(out, topk_compress.select_plain(x, k)), k
+        assert torch.equal(torch.signbit(out),
+                           torch.signbit(topk_compress.select_plain(x, k)))
+        cands, routes = stats[:, 2].tolist(), stats[:, 3].tolist()
+        assert routes[:2] == [route, route], (k, cands, routes)
+        assert routes[2] == int(cands[2] <= cap), (k, cands, routes)
+    assert routes == [0, 0, 0] and cands[:2] == [p - 21, p - 4]
+    _, stats = topk_compress.select_with_stats(x, 1000)
+    assert stats[:, 3].tolist() == [0, 0, 1]
+
+
 def test_topk_kernel_nonfinite_row_leaves_others_exact(cuda):
     from repro_torch.kernels import topk_compress
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -274,6 +303,31 @@ def test_ssd_scan_kernel_matches_plain(cuda, bt, s, h, p, n, chunk):
     assert y.shape == ref.shape and torch.isfinite(y).all()
     err = float((y - ref).abs().max())
     assert err <= 1e-4 * max(1.0, float(ref.abs().max())), err
+
+
+def test_ssd_scan_kernel_slow_decay(cuda):
+    """A near 0: the states barely decay across 32 chunks, so every
+    chunk's output leans on the carried state."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    A = -1e-4 * torch.rand(3, generator=gen, device=cuda)
+    x, dt, A, B, C = ssd_scan.example_inputs(gen, 2, 4096, 3, 64, 64, A)
+    y = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=128)
+    ref = ssd_scan.ssd_scan_plain(x, dt, A, B, C, chunk=128)
+    err = float((y - ref).abs().max())
+    assert err <= 1e-4 * max(1.0, float(ref.abs().max())), err
+
+
+def test_ssd_scan_launches_compose(cuda):
+    """The four launches run one at a time, in order, give the one-call
+    result bit for bit; N = 102 is padded to 104 for the kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x, dt, A, B, C = _ssd_inputs(gen, 2, 512, 3, 32, 102)
+    call = ssd_scan.prepare(x, dt, A, B, C, 128)
+    assert call["n"] == 104 and call["B"].shape[-1] == 104
+    for i in range(len(ssd_scan.PARTS)):
+        ssd_scan.run(call, 1 << i)
+    y = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=128)
+    assert torch.equal(call["y"], y)
 
 
 def test_ssd_scan_wrapper_checks_its_inputs(cuda):

@@ -163,6 +163,67 @@ def test_ssd_wrapper_never_falls_back(monkeypatch, tmp_path):
     assert "ssd_scan_f32" in kbuild.SIGNATURES
 
 
+@pytest.mark.parametrize("shape,n4,ctas", [
+    # mamba2-780m's and zamba2-7b's prefills: 4 launches, 16 / 32 chunks
+    ((4, 2048, 48, 64, 128, 128), 128,
+     {"gram": 192, "state": 2880, "pass": 1536, "scan": 3072}),
+    ((1, 4096, 112, 64, 64, 128), 64,
+     {"gram": 96, "state": 3472, "pass": 448, "scan": 3584}),
+    # N padded to 4, 32-column P tiles, 64-row gram only at chunk <= 64
+    ((2, 512, 3, 32, 102, 64), 104,
+     {"gram": 16, "state": 42, "pass": 24, "scan": 48}),
+    # one chunk: no state or pass launch
+    ((1, 96, 2, 64, 16, 96), 16, {"gram": 3, "state": 0, "pass": 0,
+                                  "scan": 2})])
+def test_ssd_plan_scratch_and_grids(shape, n4, ctas):
+    bt, s, h, p, n, chunk = shape
+    lay = kssd.plan(bt, s, h, p, n, chunk)
+    nc = s // chunk
+    assert lay["n"] == n4 and lay["chunks"] == nc
+    assert lay["gram"] == bt * nc * 128 * 128
+    assert lay["states"] == bt * nc * h * n4 * p
+    assert lay["decay"] == bt * nc * h
+    assert lay["ctas"] == ctas
+    assert tuple(lay["ctas"]) == kssd.PARTS and kssd.ALL_PARTS == 15
+
+
+def test_ssd_check_inputs_refuses_what_the_kernel_cannot_take():
+    args = list(_t(_ssd_inputs(0, 1, 256, 2, 32, 16)))
+    kssd.check_inputs(*args, 128)
+    with pytest.raises(ValueError, match="unsupported"):
+        kssd.check_inputs(*args, 256)                     # chunk > 128
+    with pytest.raises(ValueError, match="unsupported"):
+        kssd.check_inputs(*args, 96)                      # 96 ∤ 256
+    for i, bad in ((0, args[0][..., :16]), (3, torch.zeros(1, 256, 300)),
+                   (1, args[1].double()), (1, args[1][:, :, :1]),
+                   (4, args[4][:, :128])):
+        with pytest.raises(ValueError):
+            kssd.check_inputs(*(args[:i] + [bad] + args[i + 1:]), 128)
+    strided = torch.zeros(1, 256, 16, 2)[..., 0]          # last stride 2
+    with pytest.raises(ValueError, match="unit stride"):
+        kssd.check_inputs(args[0], args[1], args[2], strided, args[4], 128)
+
+
+def test_ssd_vector_ready_pads_and_copies_only_where_needed():
+    proj = torch.randn(2, 64, 2 * 64 + 2 * 16)
+    B, C = proj[..., 128:144], proj[..., 144:]
+    assert kssd.vector_ready(B, 16) is B                  # aligned view
+    # offset 1 float: strided, and contiguous (which .contiguous() keeps)
+    for odd in (torch.randn(2, 64, 21)[..., 1:],
+                torch.randn(2 * 64 * 20 + 1)[1:].view(2, 64, 20)):
+        assert odd.data_ptr() % 16
+        ready = kssd.vector_ready(odd, 20)
+        assert ready.is_contiguous() and ready.data_ptr() % 16 == 0
+        assert torch.equal(ready, odd)
+    padded = kssd.vector_ready(torch.randn(2, 64, 13), 16)
+    assert padded.shape == (2, 64, 16) and not padded[..., 13:].any()
+    # zero columns of B and C leave the scan unchanged (plain version)
+    x, dt, A, B, C = _t(_ssd_inputs(4, 1, 128, 2, 32, 13))
+    _close(ssm.ssd_chunked(x, dt, A, kssd.vector_ready(B, 16),
+                           kssd.vector_ready(C, 16), 64)[0],
+           _np(ssm.ssd_chunked(x, dt, A, B, C, 64)[0]))
+
+
 # ---------------------------------------------------------------------------
 # the Mamba2 block
 # ---------------------------------------------------------------------------
