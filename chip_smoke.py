@@ -8,9 +8,15 @@ the last line):
 1. environment — torch/CUDA versions, the card's name and power limit;
 2. build — compiles ``src/repro_torch/csrc/*.cu`` (one nvcc per source, in
    parallel) into ``build/repro_torch_kernels/`` and prints each kernel
-   instance's registers and spills from ``-Xptxas -v``;
+   instance's registers and spills from ``-Xptxas -v``; beside it, one more
+   nvcc compiles ``csrc/probe/latency_probe.cu`` into a library of its own
+   (measurement only: no path runs it);
 3. kernel checks — each kernel against its plain PyTorch version on the
-   card, at the shapes of the paths (M=10 groups, K=35 devices, L=10,
+   card (``gbp_cs`` also timed per launch inside a CUDA graph beside an
+   empty kernel's node and its latency floor: the chain that
+   ``gbp_cs_chain`` in ``csrc/gbp_cs.cu`` counts, priced at the latencies
+   that ``csrc/probe/latency_probe.cu`` measures), at the shapes of the paths
+   (M=10 groups, K=35 devices, L=10,
    n=32: a 3200-image superbatch through the full-width CNN, and conv2's
    shape in the conv kernel's ``pool=False`` form; the robust
    path's (M, L, |θ|) member-gradient stack; the compress path's (M, |θ|)
@@ -28,6 +34,18 @@ the last line):
    topk:0.01+int8 --compress-ext int8``, driven, counted and profiled the
    same way; three compressed smoke configurations card vs CPU, their
    ``--log-json`` byte ledgers equal;
+6b. fused path (the device-resident engine, ``--engine fused``) — the
+   CLI at full width (R=2, T=3), one CUDA graph per round in segments
+   around the eager ``pinv``: the wrappers' counts (they move at the eager
+   warm-up round and at the capture, not at a replay) and, from a second
+   run of the CLI under ``torch.profiler``, each kernel's executions on
+   the card, which must be the host loop's launches plus one warm-up
+   round's; graph against eager over
+   4 rounds (states bit-equal), ``gbp_cs`` against its plain version on
+   the path's instances, ms per internal iteration eager and replayed
+   beside the host loop's, one traced replay, the device stream's share
+   of an iteration; the smoke configuration card vs CPU; all of it again
+   with the compress flags;
 7. LM path (the dense-LM serving slice, ``granite-3-2b`` at full width
    and depth) — ``flash_attention`` against its plain version at the
    prefill shape (2, 4096, 32/8 heads, 64) in f32 (causal, causal with
@@ -61,6 +79,8 @@ Imports nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import gc
 import io
 import json
 import math
@@ -167,11 +187,106 @@ def bound(bytes_: float, ops: float, rate: float = FP32_FLOPS
         "operations"
 
 
-def check_gbp_cs(torch, dev):
-    """GBP-CS on FactoryStreams instances of the main path."""
+PROBE_SRC = os.path.join(ROOT, "src", "repro_torch", "csrc", "probe",
+                         "latency_probe.cu")
+CHAIN_OPS = ("shfl", "lds", "fma", "div", "sqrt")
+
+
+def start_probe_build():
+    """One nvcc of ``csrc/probe/latency_probe.cu`` into a library of its
+    own, started beside the kernel library's build: (process, path)."""
+    from repro_torch.kernels import build
+    out = build.BUILD_DIR / "latency_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [build.find_nvcc(), build.ARCH, "-std=c++17", "-O3", "-Xcompiler",
+         "-fPIC", "-shared", PROBE_SRC, "-o", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def load_probe(proc, out) -> ctypes.CDLL:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc failed on latency_probe.cu:\n{log}")
+    lib = ctypes.CDLL(str(out))
+    lib.noop_launch.argtypes = [ctypes.c_void_p]
+    lib.latency_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p]
+    lib.noop_launch.restype = lib.latency_probe.restype = ctypes.c_int
+    return lib
+
+
+def chain_latencies(torch, probe, dev, n: int = 4096) -> dict[str, float]:
+    """Cycles per dependent operation on the card: a shuffle+add round, a
+    shared-memory load, an FMA, an IEEE division and a square root, and
+    the SM clock in GHz over the same kernel."""
+    from repro_torch.kernels import build
+    out = torch.zeros(8, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for _ in range(2):                    # the second run is the one read
+        build.check(probe.latency_probe(out.data_ptr(), n, stream),
+                    "latency_probe")
+    c = out.cpu().tolist()
+    lat = {name: c[i] / n for i, name in enumerate(CHAIN_OPS)}
+    lat["ghz"] = c[5] / c[6]
+    return lat
+
+
+def gbp_cs_chain(f: int, k: int) -> tuple[dict, dict]:
+    """The kernel's dependent chain as ``csrc/gbp_cs.cu`` counts it: (one
+    step, the set-up before the first step), operations by kind."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * 10)()
+    build.check(build.library().gbp_cs_chain(f, k, ctypes.addressof(out)),
+                "gbp_cs_chain")
+    return dict(zip(CHAIN_OPS, out[:5])), dict(zip(CHAIN_OPS, out[5:]))
+
+
+def chain_ms(chain: dict[str, int], lat: dict[str, float]) -> float:
+    """A chain of dependent operations priced in ms at ``lat``."""
+    return sum(n * lat[op] for op, n in chain.items()) / lat["ghz"] * 1e-6
+
+
+def graph_ms(torch, fn, n: int = 50, reps: int = 5) -> float:
+    """Device time per call of ``fn`` inside a CUDA graph of ``n`` calls
+    (CUDA events around each replay, the best of ``reps``): the cost of
+    the launches without the host's."""
+    from repro_torch.core import engine
+    side = engine.capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+def check_gbp_cs(torch, dev, probe):
+    """GBP-CS on FactoryStreams instances of the main path: masks and trip
+    counts equal to the plain version on 8 draws, distances to 1e-3; the
+    wrapper's time eagerly, the device time per launch in a CUDA graph of
+    50 launches, an empty kernel's time per graph node, and the latency
+    floor: the node time plus the chain of the launch (its set-up, then
+    s_max steps, the most steps of any group) priced at the latencies
+    ``csrc/probe/latency_probe.cu`` measures here."""
     from repro_torch.core import gbp_cs, prng, selection
     from repro_torch.data import (FactoryStreams, PartitionConfig,
                                   make_partition)
+    from repro_torch.kernels import build
     from repro_torch.kernels import gbp_cs as kgbp
 
     m, k, l, l_rnd, max_iters = 10, 35, 10, 2, 64
@@ -200,26 +315,59 @@ def check_gbp_cs(torch, dev):
         steps += int(ik.sum())
         if first is None:
             first = (A, y, x0, ik)
+    # one instance past the register-resident templates (K > 128): the
+    # kernel's shared-memory form
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Ab = torch.randint(0, 9, (4, 62, 200), generator=gen, device=dev).float()
+    yb = Ab.sum(-1) * (30 / 200) + torch.rand(4, 62, generator=gen,
+                                               device=dev)
+    xb = gbp_cs.init_zero(Ab, yb, 30).contiguous()
+    outb = kgbp.minimize(Ab, yb, xb, max_iters)
+    refb = kgbp.minimize_plain(Ab, yb, xb, max_iters)
+    if not (torch.equal(outb[0], refb[0]) and torch.equal(outb[2], refb[2])):
+        fail("gbp_cs: the F=62, K=200 instance differs from the plain "
+             "version")
+    err = max(err, float((outb[1] - refb[1]).abs().max()))
     tol = 1e-3
     if err > tol:
         fail(f"gbp_cs: distance error {err} > {tol}")
     A, y, x0, iters = first
     g, f, kc = A.shape
     ms = time_ms(lambda: kgbp.minimize(A, y, x0, max_iters), reps=50)
+    g_ms = graph_ms(torch, lambda: kgbp.minimize(A, y, x0, max_iters))
+    setup_ms = graph_ms(torch, lambda: kgbp.minimize(A, y, x0, 0))
+    node_ms = graph_ms(torch, lambda: build.check(probe.noop_launch(
+        torch.cuda.current_stream(dev).cuda_stream), "noop"))
     plain_ms = time_ms(lambda: kgbp.minimize_plain(A, y, x0, max_iters),
                        reps=5, warmup=1)
-    s = int(iters.sum())
-    ops = g * (2 * f * kc + 3 * f) + s * (6 * f * kc + 6 * f + 3 * kc)
+    lat = chain_latencies(torch, probe, dev)
+    step, init = gbp_cs_chain(f, kc)
+    s, s_max = int(iters.sum()), int(iters.max())
+    floor_ms = node_ms + chain_ms(init, lat) + s_max * chain_ms(step, lat)
+    # bytes and FLOP of the carried design: A, y, x0 in, the outputs out;
+    # the first product, then per step A^T r and the column update
+    ops = g * (2 * f * kc + 3 * f) + s * (2 * f * kc + 8 * f + 3 * kc)
     bytes_ = 4 * (g * f * kc + g * f + 2 * g * kc + 2 * g
                   + g * (max_iters + 1))
     b_ms, b_by = bound(bytes_, ops)
     print(f"gbp_cs: G={g} F={f} K={kc}, {steps} steps over 8 draws, masks "
-          f"and iteration counts equal, max |d err| {err:.3g} (tol {tol})",
-          flush=True)
+          f"and iteration counts equal (and at F=62 K=200, "
+          f"{int(outb[2].sum())} steps), max |d err| {err:.3g} (tol {tol}); "
+          f"first draw {s} steps, s_max {s_max}: {ms:.4f} ms eager, "
+          f"{g_ms:.5f} ms per launch in a graph ({setup_ms:.5f} at "
+          f"max_iters 0), empty node {node_ms:.5f} "
+          f"ms; latency floor {floor_ms:.5f} ms (step chain {step}, set-up "
+          f"{init}; cycles per op "
+          f"{', '.join(f'{n} {v:.1f}' for n, v in lat.items() if n != 'ghz')}"
+          f" at {lat['ghz']:.3f} GHz); bytes/FLOP bound {b_ms:.7f} ms "
+          f"({b_by})", flush=True)
     return dict(name=kgbp.NAME, route="cuda", source=kgbp.SOURCE,
                 replaces=kgbp.REPLACES, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, shape=f"G={g} F={f} K={kc} steps={s}")
+                library_ms=None, graph_ms=g_ms, setup_ms=setup_ms,
+                node_ms=node_ms,
+                floor_ms=floor_ms, latencies=lat,
+                shape=f"G={g} F={f} K={kc} steps={s} s_max={s_max}")
 
 
 def check_conv(torch, dev):
@@ -659,6 +807,232 @@ def smoke_card_vs_cpu(label, flags) -> None:
     print(f"{label} smoke config: card vs CPU round lines agree to "
           f"{worst:.2g}, {'/'.join(COUNTED)} and the byte ledger equal, "
           f"compress_error to {ce_worst:.2g} relative", flush=True)
+
+
+def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool):
+    """The fused engine at the paper's traffic and full CNN width, through
+    the library: (experiment, sampler)."""
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import fedgs, prng
+    from repro_torch.data import (DeviceStream, PartitionConfig,
+                                  make_device_sampler, make_partition)
+    from repro_torch.models import cnn
+
+    part = make_partition(PartitionConfig(num_factories=10,
+                                          devices_per_factory=35, seed=0))
+    sampler = make_device_sampler(DeviceStream.from_partition(
+        part, batch_size=32, seed=0, device=dev))
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
+    cfg = fedgs.FedGSConfig(num_groups=10, devices_per_group=35,
+                            num_selected=10, num_presampled=2,
+                            iters_per_round=3, rounds=rounds, **extra)
+    return fedgs.make_fedgs_experiment(
+        params, sampler, part.p_real, cfg,
+        group_loss_fn=cnn.make_group_loss_fn(), graph=graph), sampler
+
+
+def fused_rounds(torch, exp, rounds: int) -> tuple[list, list, list]:
+    """Run ``rounds`` rounds one by one, synchronised: (host seconds per
+    round, the records' metrics, the final state)."""
+    state, secs, mets = exp.init_state, [], []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = exp.round_fn(state, r)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+    return secs, mets, state
+
+
+# per wrapper, the one kernel that each of its calls runs once, by the
+# name the trace gives it (gbp_cs_warp also matches gbp_cs_warp_any)
+DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
+                 "agg_weighted": "agg_weighted_kernel",
+                 "robust_agg": "robust_agg_kernel",
+                 "topk_compress": "topk_hist0", "int8_quant": "int8_absmax",
+                 "flash_attention": "flash_fwd", "ssd_scan": "ssd_chunk_scan"}
+
+
+def device_launches(torch, argv) -> tuple[dict, dict]:
+    """The CLI run once under ``torch.profiler``, every launch count set to
+    0 just before and read just after: (the wrappers' counts, each
+    kernel's executions on the card as the trace names them; a kernel
+    replayed in a CUDA graph counts once per replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dispatch
+
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_cli(argv)
+        torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    execs = {name: sum(e.count for e in events if tag in e.key)
+             for name, tag in DEVICE_KERNEL.items()}
+    return counts, execs
+
+
+def fused_path(label, flags, extra, host_expect, host_ms, torch, dev):
+    """``--engine fused`` at full width (R=2, T=3). The CLI driven with the
+    counts set to 0 before and read after: the wrappers count where they
+    launch, so a replay moves no counter and the counts hold the eager
+    warm-up round, the capture and the eval launches (each round's
+    launches twice, plus eval); the capture must count one round's
+    launches. The same CLI again under ``torch.profiler``, its counts
+    reset too: each kernel's executions on the card, which must be the
+    host loop's launches plus the warm-up round's; these measured counts
+    are the path's ``launches_by_path``. Then, through the library:
+    graph against eager (states bit-equal, records equal), the kernel
+    against its plain version on the path's GBP-CS instances, ms per
+    internal iteration eager and replayed, one traced replay, and the
+    share of an iteration spent on drawing labels and images on the card
+    and on their threefry bits alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.core import dispatch, fedgs, prng
+    from repro_torch.kernels import gbp_cs as kgbp
+
+    rounds, iters, every = 2, 3, 2
+    argv = main_flags(rounds, iters, every) + ["--engine", "fused"] + flags
+    evals = {"conv_fused": 2 * (rounds // every)}
+    per_round = {k: (v - evals.get(k, 0)) // rounds
+                 for k, v in host_expect.items()}
+    calls = {k: 2 * v + evals.get(k, 0) for k, v in per_round.items()}
+    seen = []
+    make = fedgs.make_fedgs_experiment
+
+    def spy(*args, **kw):      # keep the CLI's round function in view
+        seen.append(make(*args, **kw))
+        return seen[-1]
+
+    fedgs.make_fedgs_experiment = spy
+    try:
+        logs, counts, cli_ms = drive(label, argv, calls, torch)
+    finally:
+        fedgs.make_fedgs_experiment = make
+    rf = seen[0].round_fn
+    if rf.captured != per_round or rf.replays != rounds:
+        fail(f"{label}: the capture counted {rf.captured} for "
+             f"{rf.replays} replays, one round of the host loop's being "
+             f"{per_round} for {rounds}")
+    traced_calls, run = device_launches(torch, argv)
+    expect = {k: v + per_round[k] for k, v in host_expect.items()}
+    if traced_calls != calls or run != expect:
+        fail(f"{label}: traced run: wrapper counts {traced_calls} (expected "
+             f"{calls}), kernel executions on the card {run}, expected the "
+             f"host loop's {host_expect} plus one warm-up round {per_round}")
+    print(f"{label}: one round captured in {len(rf.segments.graphs)} graph "
+          f"segments around {len(rf.segments.breaks)} eager pinv calls; "
+          f"wrapper counts (warm-up round + capture + eval) {counts}; "
+          f"kernel executions on the card, traced: {run} = the host "
+          f"loop's {host_expect} + the warm-up round", flush=True)
+
+    # graph against eager, and the kernel on the path's GBP-CS instances
+    t_rounds = 4
+    runs = {}
+    for graph in (True, False):
+        exp, sampler = fused_setup(torch, dev, extra, t_rounds, graph)
+        runs[graph] = fused_rounds(torch, exp, t_rounds) + (exp, sampler)
+    (g_secs, g_mets, g_state, g_exp, sampler), (e_secs, e_mets, e_state,
+                                               _, _) = runs[True], runs[False]
+    leaves = lambda st: tree.leaves(st[0]) + list(st[1])
+    if not all(torch.equal(a, b) for a, b in zip(leaves(g_state),
+                                                  leaves(e_state))):
+        fail(f"{label}: graph and eager states differ after {t_rounds} "
+             "rounds")
+    if g_mets != e_mets:
+        fail(f"{label}: graph and eager records differ:\n{g_mets}\n{e_mets}")
+    worst, instances = 0.0, 0
+    loop = dispatch.gbp_cs_loop
+
+    def checked(A, y, x0, max_iters):
+        nonlocal worst, instances
+        out = loop(A, y, x0, max_iters)
+        ref = kgbp.minimize_plain(A, y, x0, max_iters)
+        if not (torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])):
+            fail(f"{label}: gbp_cs differs from its plain version on a "
+                 "fused-path instance")
+        worst = max(worst, float((out[1] - ref[1]).abs().max()))
+        instances += A.shape[0]
+        return out
+
+    dispatch.gbp_cs_loop = checked
+    try:
+        fused_rounds(torch, fused_setup(torch, dev, extra, 2, False)[0], 2)
+    finally:
+        dispatch.gbp_cs_loop = loop
+    if worst > 1e-3:
+        fail(f"{label}: gbp_cs distance error {worst} on the fused path")
+    replay_ms = 1e3 * sorted(g_secs[1:])[len(g_secs[1:]) // 2] / iters
+    eager_ms = 1e3 * sorted(e_secs[1:])[len(e_secs[1:]) // 2] / iters
+    print(f"{label}: graph == eager over {t_rounds} rounds (states bit-equal,"
+          f" records equal); gbp_cs == plain on {instances} fused-path "
+          f"instances (masks, trip counts; |d err| {worst:.3g}); ms per "
+          f"internal iteration: replayed {replay_ms:.2f} (rounds "
+          f"{[round(1e3 * t / iters, 2) for t in g_secs]}), eager "
+          f"{eager_ms:.2f} (rounds {[round(1e3 * t / iters, 2) for t in e_secs]}"
+          f", no eval); the CLI's last round, eval included: fused "
+          f"{cli_ms:.1f}, host loop {host_ms:.1f} (this call), "
+          f"{host_ms / cli_ms:.2f}x", flush=True)
+
+    # one traced replay
+    rf = g_exp.round_fn
+    state = g_state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = rf(state, t_rounds)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels)
+    share = f"{100 * busy / wall:.1f}%" if busy > 0 else "not measured"
+    print(f"{label} profile: one replayed round ({iters} iterations, no "
+          f"eval) wall {wall:.1f} ms, device busy {busy:.1f} ms = {share}",
+          flush=True)
+    for ms, count, name in kernels[:12]:
+        print(f"{label} profile device: {ms:9.3f} ms  x{count:<5d} "
+              f"{name[:90]}", flush=True)
+
+    # the device stream's share of an iteration (graph-timed)
+    keys = rf.keys["data"][0]
+    gids = torch.arange(10, device=dev)
+    mask = state[1][0]
+    n, n_img = 32, 10 * 10 * 32
+
+    def datagen():
+        labels = sampler.labels(keys, gids)
+        sampler.counts(labels)
+        sampler.selected_batch(labels, keys, gids, mask, 10)
+
+    def draws():
+        prng.random_bits_t(keys[:, 0], (35, n, 1))
+        k4 = prng.split_t(keys[:, 1], 4)
+        for i, shape in enumerate(((n_img // 10,), (n_img // 10,),
+                                   (n_img // 10, 2), (n_img // 10, 28, 28))):
+            prng.random_bits_t(k4[:, i], shape)
+
+    gen_ms, thr_ms = graph_ms(torch, datagen, n=10), graph_ms(torch, draws,
+                                                             n=10)
+    print(f"{label} device stream: labels + counts + images {gen_ms:.3f} ms "
+          f"per iteration ({100 * gen_ms / replay_ms:.1f}% of the replayed "
+          f"iteration), their threefry bits alone {thr_ms:.3f} ms "
+          f"({100 * thr_ms / replay_ms:.1f}%)", flush=True)
+    del runs, g_state, e_state, state
+    torch.cuda.empty_cache()
+    return run
 
 
 LM_ARCH = "granite-3-2b"
@@ -1241,15 +1615,17 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}, {card}", flush=True)
 
     t0 = time.perf_counter()
+    probe_build = start_probe_build()
     build.library()
+    probe = load_probe(*probe_build)
     print(f"build: {len(build.sources())} sources -> {build.BUILD_DIR} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.BUILD_SECONDS:.1f} "
-          "s)", flush=True)
+          "s), and the latency probe beside them", flush=True)
     log = build.BUILD_DIR / "ptxas.log"
     for line in ptxas_lines(log.read_text() if log.is_file() else ""):
         print(line, flush=True)
 
-    kernels = [check_gbp_cs(torch, dev), check_conv(torch, dev),
+    kernels = [check_gbp_cs(torch, dev, probe), check_conv(torch, dev),
                check_agg(torch, dev), check_robust_agg(torch, dev),
                check_topk_compress(torch, dev), check_int8(torch, dev)]
     torch.cuda.synchronize()
@@ -1262,7 +1638,7 @@ def main() -> None:
                    "agg_weighted": rounds, "robust_agg": 0,
                    "topk_compress": 0, "int8_quant": 0, "flash_attention": 0,
                    "ssd_scan": 0}
-    _, main_counts, _ = drive("main path", flags, main_expect, torch)
+    _, main_counts, main_ms = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
     smoke_card_vs_cpu("main path", [])
 
@@ -1287,8 +1663,8 @@ def main() -> None:
     # the external delta; the rest as on the main path
     compress_expect = dict(main_expect, topk_compress=rounds * iters,
                            int8_quant=rounds * iters + rounds)
-    logs, compress_counts, _ = drive("compress path", flags + COMPRESS_FLAGS,
-                                     compress_expect, torch)
+    logs, compress_counts, compress_ms = drive(
+        "compress path", flags + COMPRESS_FLAGS, compress_expect, torch)
     # the analytic ledger (DESIGN.md §18.3): M·L uploads per iteration
     from repro_torch.core import compress
     pay = lambda spec: compress.payload_bytes(
@@ -1308,6 +1684,25 @@ def main() -> None:
     profile_round("compress path", COMPRESS_FLAGS, torch)
     for i, smoke in enumerate(COMPRESS_SMOKE_FLAGS):
         smoke_card_vs_cpu(f"compress path {i + 1}", smoke)
+
+    # fused path (the device-resident engine, --engine fused): one CUDA
+    # graph per round at full width, without and with compression, each
+    # beside its host loop's counts and ms/iteration; smoke card vs CPU
+    mem0 = torch.cuda.memory_allocated()
+    fused_counts = fused_path("fused path", [], {}, main_expect, main_ms,
+                              torch, dev)
+    smoke_card_vs_cpu("fused path", ["--engine", "fused"])
+    fused_c_counts = fused_path(
+        "fused compress path", COMPRESS_FLAGS,
+        dict(compress_int=COMPRESS_FLAGS[1], compress_ext=COMPRESS_FLAGS[3]),
+        compress_expect, compress_ms, torch, dev)
+    smoke_card_vs_cpu("fused compress path",
+                      ["--engine", "fused"] + COMPRESS_FLAGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fused phases: device memory allocated {mem0 / 1e9:.3f} GB "
+          f"before, {torch.cuda.memory_allocated() / 1e9:.3f} GB after",
+          flush=True)
 
     # LM path (the dense-LM serving slice): the kernel at the prefill
     # shape, then the full-width prefill, decode and serve, then the smoke
@@ -1342,6 +1737,8 @@ def main() -> None:
         by_path = {"main": main_counts[k["name"]],
                    "robust": robust_counts[k["name"]],
                    "compress": compress_counts[k["name"]],
+                   "fused": fused_counts[k["name"]],
+                   "fused_compress": fused_c_counts[k["name"]],
                    "lm": lm_counts[k["name"]],
                    "ssm": ssm_counts[k["name"]],
                    "hybrid": hybrid_counts[k["name"]]}

@@ -1,8 +1,24 @@
-"""The typed per-round log record shared by the host loop and the CLI."""
+"""The typed per-round log record shared by the host loop and the CLI, and
+the chunked multi-round driver of the device-resident engine (the JAX
+package's ``core/engine.py``, DESIGN.md §12).
+
+An :class:`Experiment` is a ``round_fn(state, r) -> (state', metrics)``
+whose metrics are tensors left on the device; :func:`run_experiment` runs
+``chunk`` rounds per host read-back, evaluating on the device every
+``eval_every`` rounds, and turns each chunk's stacked metrics into
+:class:`RoundRecord` s (:func:`records_from_metrics`).
+:class:`SegmentedGraph` captures a function as CUDA graphs, split where
+it calls an op that a graph cannot hold.
+"""
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
 
 _NAN = float("nan")
 
@@ -57,3 +73,173 @@ _OPTIONAL_METRICS = ("divergence", "group_discrepancy", "selection_distance",
                      "staleness_max", "dark_selected", "corrupted_selected",
                      "clipped_fraction", "rollbacks", "agg_residual",
                      "bytes_int", "bytes_ext", "compress_error")
+
+
+def records_from_metrics(r0: int, metrics: dict, *, strategy: str = ""
+                         ) -> list[RoundRecord]:
+    """Stacked per-chunk metrics -> per-round typed records.
+
+    ``metrics`` maps name -> (chunk,) array or tensor; recognized names:
+    ``loss``, ``test_loss``, ``test_accuracy`` (NaN = no eval that round),
+    and the telemetry names in ``_OPTIONAL_METRICS``."""
+    host = {k: np.asarray(torch.as_tensor(v).cpu(), np.float64)
+            for k, v in metrics.items()}
+    n = len(next(iter(host.values())))
+    recs = []
+    for i in range(n):
+        tl = host.get("test_loss", [_NAN] * n)[i]
+        ta = host.get("test_accuracy", [_NAN] * n)[i]
+        recs.append(RoundRecord(
+            round=r0 + i,
+            loss=float(host["loss"][i]) if "loss" in host else _NAN,
+            test_loss=None if math.isnan(tl) else float(tl),
+            test_accuracy=None if math.isnan(ta) else float(ta),
+            strategy=strategy,
+            **{k: float(host[k][i]) for k in _OPTIONAL_METRICS if k in host},
+        ))
+    return recs
+
+
+@dataclasses.dataclass(frozen=True)
+class Experiment:
+    """One federated-learning experiment, engine-agnostic.
+
+    ``round_fn(state, r) -> (state', metrics)`` runs round ``r`` on the
+    device; ``metrics`` is a dict of 0-d tensors with the same keys every
+    round, left on the device. ``params_fn(state)`` extracts the evaluable
+    global parameters; ``eval_fn(params) -> (test_loss, test_accuracy)``
+    returns 0-d tensors (``models.cnn.make_eval_fn``)."""
+    name: str
+    init_state: Any
+    round_fn: Callable[[Any, int], tuple[Any, dict]]
+    params_fn: Callable[[Any], Any]
+    eval_fn: Callable[[Any], tuple[Any, Any]] | None = None
+
+
+def default_chunk(rounds: int, eval_every: int = 0) -> int:
+    """Rounds per host read-back when the caller doesn't say: the eval
+    period when there is one, else 8."""
+    chunk = eval_every if eval_every > 0 else 8
+    return max(1, min(chunk, rounds))
+
+
+def run_experiment(
+    exp: Experiment,
+    rounds: int,
+    *,
+    eval_every: int = 0,
+    chunk: int = 0,
+    log_fn: Callable[[RoundRecord], None] | None = None,
+    on_chunk: Callable[[int, int], None] | None = None,
+) -> tuple[Any, list[RoundRecord]]:
+    """Run ``rounds`` rounds of ``exp``, reading the metrics back once per
+    chunk of ``chunk`` rounds (0 = :func:`default_chunk`); with
+    ``exp.eval_fn`` set and ``eval_every`` > 0, evaluate on the device
+    after every ``eval_every``-th round. ``on_chunk(r0, n)`` fires after
+    each read-back. Returns (final state, one :class:`RoundRecord` per
+    round)."""
+    eval_on = eval_every if exp.eval_fn is not None else 0
+    chunk = chunk or default_chunk(rounds, eval_on)
+    chunk = max(1, min(chunk, rounds))
+    state = exp.init_state
+    logs: list[RoundRecord] = []
+    r0 = 0
+    while r0 < rounds:
+        n = min(chunk, rounds - r0)
+        mets: list[dict] = []
+        for r in range(r0, r0 + n):
+            state, m = exp.round_fn(state, r)
+            m = dict(m)
+            if eval_on > 0:
+                if (r + 1) % eval_on == 0:
+                    tl, ta = exp.eval_fn(exp.params_fn(state))
+                else:
+                    tl = ta = torch.tensor(_NAN)
+                m["test_loss"], m["test_accuracy"] = tl, ta
+            mets.append(m)
+        stacked = {k: torch.stack([torch.as_tensor(m[k], dtype=torch.float32)
+                                   .to(mets[0]["loss"].device) for m in mets])
+                   for k in mets[0]}
+        recs = records_from_metrics(r0, stacked, strategy=exp.name)
+        logs.extend(recs)
+        if log_fn is not None:
+            for rec in recs:
+                log_fn(rec)
+        if on_chunk is not None:
+            on_chunk(r0, n)
+        r0 += n
+    return state, logs
+
+
+def num_dispatches(rounds: int, chunk: int) -> int:
+    """⌈R/chunk⌉ — the host read-backs an experiment costs on this
+    engine."""
+    return math.ceil(rounds / max(1, chunk))
+
+
+_CAPTURE_STREAMS: dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream() -> "torch.cuda.Stream":
+    """The process's one side stream (per card) for graph warm-ups and
+    captures. cuBLAS keeps a workspace for every stream that runs a GEMM
+    for the life of the process, so a new stream per capture would leave
+    one behind each time."""
+    idx = torch.cuda.current_device()
+    if idx not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[idx] = torch.cuda.Stream(idx)
+    return _CAPTURE_STREAMS[idx]
+
+
+class SegmentedGraph:
+    """A function captured as CUDA graphs, split at the ops a graph cannot
+    hold (an op that reads a status back to the host, as the SVD of
+    ``torch.linalg.pinv`` does). Inside :meth:`capture`, :meth:`eager`
+    ends the current graph, returns a static output tensor and begins the
+    next graph; :meth:`replay` replays the graphs in order and runs each
+    such op eagerly between two of them, from its static input into its
+    static output. The graphs share one memory pool and replay in capture
+    order, so a tensor made in one segment is safe to read in the next.
+    A capture that fails raises; nothing falls back to the eager loop."""
+
+    def __init__(self):
+        self.graphs: list[torch.cuda.CUDAGraph] = []
+        self.breaks: list[tuple[Callable, torch.Tensor, torch.Tensor]] = []
+        self._pool = None
+
+    @contextlib.contextmanager
+    def capture(self):
+        self._pool = torch.cuda.graph_pool_handle()
+        stream = capture_stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        torch.cuda.synchronize()
+        with torch.cuda.stream(stream):
+            self._begin()
+            try:
+                yield self
+            finally:
+                self.graphs[-1].capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self._pool)
+        self.graphs.append(graph)
+
+    def eager(self, fn: Callable, x: torch.Tensor, shape: tuple
+              ) -> torch.Tensor:
+        """``fn(x)`` as a break between two graphs: (replayed) ``out`` of
+        ``shape`` and x's dtype receives ``fn(x)``."""
+        self.graphs[-1].capture_end()
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        self.breaks.append((fn, x, out))
+        self._begin()
+        return out
+
+    def replay(self) -> None:
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.breaks):
+                fn, x, out = self.breaks[i]
+                out.copy_(fn(x))

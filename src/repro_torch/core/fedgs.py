@@ -21,13 +21,23 @@ quarantine; and the §18 compressed sync (DESIGN.md §18.1): with
 stochastically int8-quantized under a per-group error-feedback residual
 (``core.compress.ef_compress_rows`` over the flat (M, P4) rows, the
 ``topk_compress`` and ``int8_quant`` kernels on the card), with the
-analytic byte ledger in every round record. Availability (§14), drift
-(§13) and the fused/sharded engines are not part of the port yet.
+analytic byte ledger in every round record.
+
+The device-resident engine (DESIGN.md §7, §12) follows the host loop:
+:func:`make_round_body` runs one round — T iterations of counts, GBP-CS,
+image generation and the train step, all drawn on the device from a
+round's staged keys, then the Eq. 5 sync and broadcast — with no host copy
+and no host read inside; :func:`make_fedgs_experiment` and
+:func:`run_fedgs_fused` drive it through ``engine.run_experiment``, on the
+card as a CUDA graph per round. Availability (§14), drift (§13), the
+robust branch of the fused round and the sharded engine are not part of
+the port yet.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable, NamedTuple
 
@@ -146,10 +156,10 @@ def global_params(group_params):
 class Compressor(NamedTuple):
     """The Eq. 4 link's §18 compression for one train step: the parsed
     spec, the (M, P4) EF residual before the step, the iteration's (M, 2)
-    keys and |θ|."""
+    keys (numpy, or an int64 tensor on the device) and |θ|."""
     spec: compress.CompressSpec
     e: torch.Tensor
-    keys: np.ndarray
+    keys: np.ndarray | torch.Tensor
     n: int
 
     def __call__(self, g: torch.Tensor):
@@ -303,6 +313,17 @@ def make_group_train_step(group_loss_fn, cfg: FedGSConfig):
     return step
 
 
+def _external_compress(gp_round0, gp, e_ext, keys, spec, n_par: int):
+    """§18 Eq. 5 compression: each group transmits the EF-compressed round
+    delta ω_t^m − ω_{t−1} (``gp_round0``, the round-entry broadcast model)
+    and the BS applies it. Returns (gp', e_ext', (M,) ‖e'‖₂)."""
+    m = e_ext.shape[0]
+    base = agg_weighted.flatten(gp_round0, m)
+    y, e_ext, err = compress.ef_compress_rows(
+        agg_weighted.flatten(gp, m) - base, e_ext, n_par, spec, keys)
+    return agg_weighted.unflatten(base + y, gp, 1), e_ext, err
+
+
 def external_sync_and_broadcast(group_params):
     """Alg. 1 line 10 (Eq. 5): ω_t = mean_m ω_t^m, then ω_t^m ← ω_t."""
     m = tree.leaves(group_params)[0].shape[0]
@@ -452,13 +473,10 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
             if spec_ext is not None:
                 with span("fedgs.external_sync.compress"):
                     key, esub = prng.split(key)
-                    base = agg_weighted.flatten(gp_round0, m)
-                    y, e_ext, err = compress.ef_compress_rows(
-                        agg_weighted.flatten(gp, m) - base, e_ext, n_par,
-                        spec_ext, prng.split(esub, m))
-                    gp = agg_weighted.unflatten(base + y, gp, 1)
+                    gp, e_ext, err = _external_compress(
+                        gp_round0, gp, e_ext, prng.split(esub, m), spec_ext,
+                        n_par)
                     cerrs.append(err.mean())
-                    del base, y
             gp = external_sync_and_broadcast(gp)
         tl = ta = None
         if eval_fn is not None and (r + 1) % eval_every == 0:
@@ -489,3 +507,336 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
         if log_fn is not None:
             log_fn(log)
     return global_params(gp), logs
+
+
+# ---------------------------------------------------------------------------
+# The device-resident engine (DESIGN.md §7, §12).
+#
+# The whole key chain of a round depends on nothing the device computes:
+# the iteration sub-keys, the groups' keys and pre-sample permutations, the
+# stream's label and image keys and the compression keys. The host derives
+# them with the same numpy split/fold_in as the host loop (RoundKeys) and
+# one copy puts them into a static device buffer before each round; the
+# round itself (make_round_body) then runs with no host copy and no host
+# read, so on the card it is captured once as a CUDA graph and replayed.
+# ---------------------------------------------------------------------------
+
+def _fused_unported(cfg: FedGSConfig, avail_fn, corrupt_fn, mesh) -> None:
+    """Raise for the fused-round branches the port does not have yet."""
+    if corrupt_fn is not None or cfg.robust_agg != "mean":
+        raise NotImplementedError(
+            "the robust branch of the fused round (DESIGN.md §15) is "
+            "ROADMAP item 22; run the host engine")
+    if avail_fn is not None:
+        raise NotImplementedError(
+            "availability and bounded-async sync in the fused round "
+            "(DESIGN.md §14) are ROADMAP item 12")
+    if cfg.reselect_every != 1:
+        raise NotImplementedError(
+            "reselect_every != 1 in the fused round (DESIGN.md §13) is "
+            "ROADMAP item 11")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the group-sharded engine (DESIGN.md §8) is ROADMAP item 17")
+
+
+def init_selection_state(cfg: FedGSConfig, params) -> tuple:
+    """Initial carried selection state of the round body, on the params'
+    device: ``(mask (M, K), distance (M,))``, all zero (iteration 0 always
+    selects), then the §18 error-feedback residuals — ``e_int`` then
+    ``e_ext``, each an (M, P4) zero buffer — where compression is on."""
+    m, k = cfg.num_groups, cfg.devices_per_group
+    dev = tree.leaves(params)[0].device
+    sel = (torch.zeros(m, k, device=dev), torch.zeros(m, device=dev))
+    on = [compress.parse_compress(spec) is not None
+          for spec in (cfg.compress_int, cfg.compress_ext)]
+    if not any(on):
+        return sel
+    p4 = compress.zero_residual(tree.map(lambda v: v[None], params)).shape[1]
+    return sel + tuple(torch.zeros(m, p4, device=dev) for _ in range(sum(on)))
+
+
+class RoundKeys:
+    """One round's key material, derived on the host and packed into one
+    int64 buffer of uint32 words: per iteration the pre-sample
+    permutations (T, M, K), the random initializer's keys (T, M, 2), the
+    stream's label and image keys (T, M, 2, 2) and, with ``compress_int``,
+    the Eq. 4 keys (T, M, 2); with ``compress_ext`` the round's Eq. 5 keys
+    (M, 2). :meth:`host` advances the key chain exactly as the host loop
+    does; :meth:`views` names the parts of a buffer."""
+
+    def __init__(self, cfg: FedGSConfig, sampler):
+        t, m, k = cfg.iters_per_round, cfg.num_groups, cfg.devices_per_group
+        self.cfg, self.sampler = cfg, sampler
+        self.spec_int = compress.parse_compress(cfg.compress_int)
+        self.spec_ext = compress.parse_compress(cfg.compress_ext)
+        self.shapes = {"perm": (t, m, k), "opt": (t, m, 2),
+                       "data": (t, m, 2, 2)}
+        if self.spec_int is not None:
+            self.shapes["cint"] = (t, m, 2)
+        if self.spec_ext is not None:
+            self.shapes["cext"] = (m, 2)
+        self.size = sum(math.prod(s) for s in self.shapes.values())
+
+    def host(self, key: np.ndarray, t0: int) -> tuple[np.ndarray, np.ndarray]:
+        """(key', flat int64 material) of the round whose first iteration
+        is ``t0``."""
+        cfg = self.cfg
+        m, k = cfg.num_groups, cfg.devices_per_group
+        parts = {name: [] for name in self.shapes}
+        for i in range(cfg.iters_per_round):
+            key, sub = prng.split(key)
+            perm, opt = selection.presample_keys(prng.split(sub, m), k,
+                                                 cfg.selection)
+            parts["perm"].append(perm)
+            parts["opt"].append(opt)
+            parts["data"].append(self.sampler.keys(t0 + i, np.arange(m)))
+            if self.spec_int is not None:
+                parts["cint"].append(prng.split(prng.fold_in(
+                    sub, compress.FOLD_COMPRESS), m))
+        if self.spec_ext is not None:
+            key, esub = prng.split(key)
+            parts["cext"] = prng.split(esub, m)
+        flat = np.concatenate([np.asarray(parts[name], np.int64).reshape(-1)
+                               for name in self.shapes])
+        return key, flat
+
+    def views(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
+        out, off = {}, 0
+        for name, shape in self.shapes.items():
+            n = math.prod(shape)
+            out[name] = buf[off:off + n].view(shape)
+            off += n
+        return out
+
+
+def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
+                    avail_fn=None, corrupt_fn=None, mesh=None):
+    """The one-round body of the device-resident engine:
+    ``body(gp, sel, keys, p_real, pinv_fn=None) -> (gp', sel', metrics)``.
+
+    ``keys`` are :meth:`RoundKeys.views` of the round's staged material and
+    ``sel`` the carried state of :func:`init_selection_state`. Each of the
+    T iterations draws the devices' labels, counts and (for the selected
+    devices only) images on the device (``sampler``, a
+    ``data.DeviceSampler``), runs GBP-CS for all groups from the staged
+    permutations, and takes the all-groups superbatch step
+    (:func:`_train_all_groups`, or the ``model_avg`` step), with the §18
+    Eq. 4 compression and its EF residual in the carry; the round ends with
+    the Eq. 5 compression of the round delta, the Eq. 5 average and the
+    broadcast. ``metrics`` holds (T,) tensors ``loss``, ``divergence``,
+    ``group_discrepancy``, ``selection_distance``, ``reselected``,
+    ``bytes_int`` (and ``compress_error_int``), and the round's
+    ``bytes_ext`` (and ``compress_error_ext``). Nothing reads back to the
+    host or copies from it; ``pinv_fn`` is handed to the mpinv initializer
+    (a captured round breaks its graph there). The robust branch,
+    availability, ``reselect_every != 1`` and ``mesh`` raise
+    ``NotImplementedError``."""
+    _fused_unported(cfg, avail_fn, corrupt_fn, mesh)
+    m, k, l = cfg.num_groups, cfg.devices_per_group, cfg.num_selected
+    spec_int = compress.parse_compress(cfg.compress_int)
+    spec_ext = compress.parse_compress(cfg.compress_ext)
+    train_step = make_group_train_step(group_loss_fn, cfg)
+    gids = torch.arange(m, device=sampler.device)
+
+    def body(gp, sel, keys, p_real, pinv_fn=None):
+        n_par = sum(leaf[0].numel() for leaf in tree.leaves(gp))
+        gp_round0 = gp
+        mask, dist = sel[0], sel[1]
+        e_int = sel[2] if spec_int is not None else None
+        rows = {name: [] for name in ("loss", "divergence",
+                                      "group_discrepancy",
+                                      "selection_distance")}
+        cerrs = []
+        for i in range(cfg.iters_per_round):
+            labels = sampler.labels(keys["data"][i], gids)
+            counts = sampler.counts(labels)
+            res = selection.select_presampled(
+                keys["perm"][i], keys["opt"][i], counts, p_real, l,
+                cfg.num_presampled, method=cfg.selection, init=cfg.init,
+                max_iters=cfg.gbp_max_iters, pinv_fn=pinv_fn)
+            mask, dist = res.mask, res.distance
+            batches = sampler.selected_batch(labels, keys["data"][i], gids,
+                                             mask, l)
+            if spec_int is not None:
+                tx = Compressor(spec_int, e_int, keys["cint"][i], n_par)
+                gp, loss, e_int, errs = _train_all_groups(
+                    gp, batches, group_loss_fn, cfg, tx)
+                cerrs.append(errs.mean())
+            else:
+                gp, loss = train_step(gp, batches)
+            rows["loss"].append(loss.mean())
+            rows["divergence"].append(res.divergence.mean())
+            rows["group_discrepancy"].append(
+                distributions.group_discrepancy(counts, p_real).mean())
+            rows["selection_distance"].append(dist.mean())
+        mets = {name: torch.stack(v) for name, v in rows.items()}
+        t = cfg.iters_per_round
+        mets["reselected"] = torch.ones(t, device=gids.device)
+        mets["bytes_int"] = torch.full(
+            (t,), 2.0 * compress.payload_bytes(n_par, spec_int) * m * l,
+            device=gids.device)
+        new_sel = (mask, dist)
+        if spec_int is not None:
+            new_sel += (e_int,)
+            mets["compress_error_int"] = torch.stack(cerrs)
+        if spec_ext is not None:
+            gp, e_ext, err = _external_compress(
+                gp_round0, gp, sel[-1], keys["cext"], spec_ext, n_par)
+            new_sel += (e_ext,)
+            mets["compress_error_ext"] = err.mean()
+        mets["bytes_ext"] = torch.full(
+            (), 2.0 * compress.payload_bytes(n_par, spec_ext) * m,
+            device=gids.device)
+        return external_sync_and_broadcast(gp), new_sel, mets
+
+    return body
+
+
+def _round_record_metrics(mets: dict, cfg: FedGSConfig) -> dict:
+    """A round's (T,) metrics → the round's scalars, on the device."""
+    out = {"loss": mets["loss"].mean(),
+           "divergence": mets["divergence"].mean(),
+           "group_discrepancy": mets["group_discrepancy"].mean(),
+           "selection_distance": mets["selection_distance"].mean(),
+           "reselections": mets["reselected"].sum(),
+           "bytes_int": mets["bytes_int"].sum(),
+           "bytes_ext": mets["bytes_ext"]}
+    errs = []
+    if "compress_error_int" in mets:
+        errs.append(mets["compress_error_int"].sum())
+    if "compress_error_ext" in mets:
+        errs.append(mets["compress_error_ext"])
+    if errs:
+        n_ev = (cfg.iters_per_round if "compress_error_int" in mets else 0) \
+            + ("compress_error_ext" in mets)
+        out["compress_error"] = sum(errs) / n_ev
+    return out
+
+
+class FusedRound:
+    """``round_fn(state, r)`` of the fused experiment. State is (group
+    params, carried selection state, the host's threefry key). Each call
+    derives the round's keys on the host (:class:`RoundKeys`), copies them
+    into the static key buffer, and runs the body: eagerly, or (``graph``)
+    as a CUDA graph captured at the first call after one eager warm-up
+    round on a side stream, then replayed. In the graph, group params,
+    selection state and EF residuals live in static tensors that each
+    replay overwrites with the round's outputs; the round breaks around
+    ``torch.linalg.pinv``, whose SVD reads a status back to the host and
+    cannot be captured (``engine.SegmentedGraph``): one eager pinv per
+    iteration between two graph segments.
+
+    Kernel launch counters move where a wrapper launches, so in a graphed
+    run they count the warm-up and the capture only: :attr:`captured`
+    holds the capture's counts, and a run's launches are those times
+    :attr:`replays`."""
+
+    def __init__(self, body, layout: RoundKeys, cfg: FedGSConfig, p_real,
+                 device, graph: bool):
+        self.body, self.layout, self.cfg = body, layout, cfg
+        self.p_real, self.graph = p_real, graph
+        self.keybuf = torch.zeros(layout.size, dtype=torch.int64,
+                                  device=device)
+        self.keys = layout.views(self.keybuf)
+        self.static = None
+        self.captured: dict[str, int] | None = None
+        self.replays = 0
+
+    def __call__(self, state, r: int):
+        gp, sel, key = state
+        key, material = self.layout.host(key, r * self.cfg.iters_per_round)
+        self.keybuf.copy_(torch.from_numpy(material), non_blocking=True)
+        if not self.graph:
+            gp, sel, mets = self.body(gp, sel, self.keys, self.p_real)
+            return (gp, sel, key), _round_record_metrics(mets, self.cfg)
+        if self.static is None:
+            self._capture(gp, sel)
+        elif gp is not self.static[0] or sel is not self.static[1]:
+            for dst, src in zip(self._leaves(*self.static[:2]),
+                                self._leaves(gp, sel)):
+                if dst is not src:
+                    dst.copy_(src)
+        self.segments.replay()
+        self.replays += 1
+        gp, sel, mets = self.static
+        return (gp, sel, key), {name: v.clone() for name, v in
+                                _round_record_metrics(mets, self.cfg).items()}
+
+    @staticmethod
+    def _leaves(gp, sel):
+        return tree.leaves(gp) + list(sel)
+
+    def _capture(self, gp, sel) -> None:
+        static_gp = tree.map(torch.clone, gp)
+        static_sel = tuple(torch.clone(x) for x in sel)
+        side = engine.capture_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):        # warm-up, outputs dropped
+            self.body(static_gp, static_sel, self.keys, self.p_real)
+        torch.cuda.current_stream().wait_stream(side)
+        self.segments = engine.SegmentedGraph()
+        before = dispatch.launch_counts()
+        with self.segments.capture() as segs:
+            pinv_fn = lambda A: segs.eager(
+                gbp_cs.pinv, A, A.shape[:-2] + (A.shape[-1], A.shape[-2]))
+            gp2, sel2, mets = self.body(static_gp, static_sel, self.keys,
+                                        self.p_real, pinv_fn)
+            for dst, src in zip(self._leaves(static_gp, static_sel),
+                                self._leaves(gp2, sel2)):
+                dst.copy_(src)
+        after = dispatch.launch_counts()
+        self.captured = {name: after[name] - before[name] for name in after}
+        self.static = (static_gp, static_sel, mets)
+
+
+def make_fedgs_experiment(params, sampler, p_real, cfg: FedGSConfig, *,
+                          group_loss_fn, avail_fn=None, corrupt_fn=None,
+                          mesh=None, eval_fn: Callable | None = None,
+                          graph: bool | None = None):
+    """FEDGS as an ``engine.Experiment`` (DESIGN.md §12): state is (group
+    params (M, ...), carried selection state, threefry key); one round is
+    :func:`make_round_body` at ``t0 = r·T`` through a :class:`FusedRound`.
+    ``graph`` (default: whether the params lie on a card) captures the
+    round as a CUDA graph; the CPU always runs it eagerly."""
+    body = make_round_body(group_loss_fn, cfg, sampler, avail_fn=avail_fn,
+                           corrupt_fn=corrupt_fn, mesh=mesh)
+    dev = tree.leaves(params)[0].device
+    if graph is None:
+        graph = dev.type == "cuda"
+    if graph and dev.type != "cuda":
+        raise ValueError("a CUDA graph needs the params on a card")
+    p_real = torch.as_tensor(np.asarray(p_real), dtype=torch.float32,
+                             device=dev)
+    round_fn = FusedRound(body, RoundKeys(cfg, sampler), cfg, p_real, dev,
+                          graph)
+    state = (replicate_for_groups(params, cfg.num_groups),
+             init_selection_state(cfg, params), prng.PRNGKey(cfg.seed))
+    # every group row holds the broadcast global model: row 0 is ω_t
+    params_fn = lambda st: tree.map(lambda leaf: leaf[0], st[0])
+    return engine.Experiment(
+        name="fedgs" if cfg.selection == "gbp_cs" else "fedgs_random_sel",
+        init_state=state, round_fn=round_fn, params_fn=params_fn,
+        eval_fn=eval_fn)
+
+
+def run_fedgs_fused(params, sampler, p_real, cfg: FedGSConfig, *,
+                    group_loss_fn, avail_fn=None, corrupt_fn=None, mesh=None,
+                    eval_fn: Callable | None = None, eval_every: int = 10,
+                    log_fn: Callable[[RoundRecord], None] | None = None,
+                    chunk: int = 1, graph: bool | None = None):
+    """Alg. 1 end to end on the device-resident engine (DESIGN.md §7, §12):
+    the same selections, images and steps as :func:`run_fedgs` over a
+    ``data.DeviceBackedStreams`` of the same sampler, with ``chunk``
+    rounds per host read-back (0 = ``engine.default_chunk``) and eval on
+    the device every ``eval_every`` rounds. ``graph=False`` is the eager
+    form (the CPU's); on the card a CUDA graph per round is the default.
+    Returns (global params, [RoundRecord])."""
+    exp = make_fedgs_experiment(params, sampler, p_real, cfg,
+                                group_loss_fn=group_loss_fn,
+                                avail_fn=avail_fn, corrupt_fn=corrupt_fn,
+                                mesh=mesh, eval_fn=eval_fn, graph=graph)
+    state, logs = engine.run_experiment(
+        exp, cfg.rounds, eval_every=eval_every if eval_fn is not None else 0,
+        chunk=chunk, log_fn=log_fn)
+    return exp.params_fn(state), logs

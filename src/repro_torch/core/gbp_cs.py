@@ -43,25 +43,33 @@ def top_lsel(scores: torch.Tensor, l_sel: int) -> torch.Tensor:
         -1, order[..., :l_sel], 1.0)
 
 
-def init_random(keys: np.ndarray, A: torch.Tensor, l_sel: int
-                ) -> torch.Tensor:
+def init_random(keys, A: torch.Tensor, l_sel: int) -> torch.Tensor:
     """Random initializer: L_sel ones at the largest of one threefry
     ``uniform`` draw per instance (``keys`` (G, 2), the selection's
-    ``key_opt``)."""
-    u = np.stack([prng.uniform(key, (A.shape[-1],)) for key in keys])
-    return top_lsel(torch.as_tensor(u, device=A.device), l_sel)
+    ``key_opt``: numpy, or an int64 tensor on A's device)."""
+    if not isinstance(keys, torch.Tensor):
+        keys = torch.as_tensor(np.asarray(keys, np.uint32).astype(np.int64),
+                               device=A.device)
+    return top_lsel(prng.uniform_t(keys, (A.shape[-1],)), l_sel)
 
 
-def init_mpinv(A: torch.Tensor, y: torch.Tensor, l_sel: int) -> torch.Tensor:
-    """Moore-Penrose Inverse initializer (Eq. 14): x̃ = A⁺ y, top-L_sel → 1.
-
-    The singular-value cutoff is ``jnp.linalg.pinv``'s, 10·max(F, K)·eps
-    (``torch.linalg.pinv`` defaults to max(F, K)·eps); A is rank-deficient,
-    so the cutoff decides which directions survive."""
+def pinv(A: torch.Tensor) -> torch.Tensor:
+    """A⁺ with ``jnp.linalg.pinv``'s singular-value cutoff, 10·max(F, K)·eps
+    (``torch.linalg.pinv`` defaults to max(F, K)·eps); A is
+    rank-deficient, so the cutoff decides which directions survive. Its SVD
+    reads a status back to the host, so a CUDA graph cannot capture it."""
     f, k = A.shape[-2:]
     rtol = 10.0 * max(f, k) * torch.finfo(torch.float32).eps
-    pinv = torch.linalg.pinv(A.float(), rtol=rtol)
-    x_tilde = (pinv @ y.float().unsqueeze(-1)).squeeze(-1)
+    return torch.linalg.pinv(A.float(), rtol=rtol)
+
+
+def init_mpinv(A: torch.Tensor, y: torch.Tensor, l_sel: int,
+               pinv_fn=None) -> torch.Tensor:
+    """Moore-Penrose Inverse initializer (Eq. 14): x̃ = A⁺ y, top-L_sel → 1.
+    ``pinv_fn`` (default :func:`pinv`) computes A⁺; a captured round
+    passes one that runs :func:`pinv` between two graph segments."""
+    a_pinv = (pinv_fn or pinv)(A)
+    x_tilde = (a_pinv @ y.float().unsqueeze(-1)).squeeze(-1)
     return top_lsel(x_tilde, l_sel)
 
 
@@ -78,15 +86,12 @@ def init_zero(A: torch.Tensor, y: torch.Tensor, l_sel: int) -> torch.Tensor:
     return x
 
 
-_INIT_FNS = {ZERO: init_zero, MPINV: init_mpinv}
-
-
 def gbp_cs_minimize(A: torch.Tensor, y: torch.Tensor, l_sel: int, *,
                     init: str = MPINV, max_iters: int = 64,
-                    keys=None) -> GBPCSResult:
+                    keys=None, pinv_fn=None) -> GBPCSResult:
     """Run GBP-CS (Alg. 2 lines 2–10) on G instances: A (G, F, K) candidate
     class counts, y (G, F) targets (Eq. 11); ``keys`` (G, 2) feed only the
-    random initializer."""
+    random initializer, ``pinv_fn`` only the mpinv one."""
     if init not in INITIALIZERS:
         raise ValueError(f"unknown GBP-CS initializer {init!r} "
                          f"(expected one of {INITIALIZERS})")
@@ -96,8 +101,10 @@ def gbp_cs_minimize(A: torch.Tensor, y: torch.Tensor, l_sel: int, *,
         if keys is None:
             raise ValueError("the random GBP-CS initializer needs keys")
         x0 = init_random(keys, A, l_sel)
+    elif init == MPINV:
+        x0 = init_mpinv(A, y, l_sel, pinv_fn)
     else:
-        x0 = _INIT_FNS[init](A, y, l_sel)
-    x0 = x0.contiguous()
-    x, d, iters, trace = dispatch.gbp_cs_loop(A, y, x0, max_iters)
+        x0 = init_zero(A, y, l_sel)
+    x, d, iters, trace = dispatch.gbp_cs_loop(A, y, x0.contiguous(),
+                                              max_iters)
     return GBPCSResult(x=x, distance=d, iterations=iters, trace=trace)

@@ -203,30 +203,45 @@ def threefry2x32_t(key, x0, x1: torch.Tensor
     return a, b
 
 
-def random_bits_t(key: np.ndarray, shape: tuple, device) -> torch.Tensor:
-    """:func:`random_bits` drawn on ``device`` (the words in int64): the
+def random_bits_t(key, shape: tuple, device=None) -> torch.Tensor:
+    """:func:`random_bits` drawn on the device (the words in int64): the
     counters and the threefry rounds run there, so a draw of millions of
-    numbers never passes through the host. A batch of keys (..., 2) draws
-    (..., *shape) in one pass."""
+    numbers never passes through the host. ``key`` is a numpy key (drawn on
+    ``device``) or an int64 tensor of keys (drawn on its device, with no
+    copy from the host: the form a CUDA graph captures); a batch of keys
+    (..., 2) draws (..., *shape) in one pass."""
     n = math.prod(shape)
     if n >= 2 ** 32:
         raise ValueError(f"random_bits_t: {n} elements need 64-bit counters")
+    if isinstance(key, torch.Tensor):
+        device, lead, key = key.device, tuple(key.shape[:-1]), key[..., None, :]
+    else:
+        lead = np.shape(key)[:-1]
     b1, b2 = threefry2x32_t(key, 0, torch.arange(n, dtype=torch.int64,
                                                  device=device))
-    return (b1 ^ b2).reshape(np.shape(key)[:-1] + tuple(shape))
+    return (b1 ^ b2).reshape(lead + tuple(shape))
 
 
-def uniform_t(key: np.ndarray, shape: tuple, device, minval: float = 0.0,
+def split_t(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """:func:`split` of an int64 tensor of keys (..., 2) on its device:
+    (..., num, 2)."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32_t(key[..., None, :], 0, lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def uniform_t(key, shape: tuple, device=None, minval: float = 0.0,
               maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` drawn on ``device``; same numbers as
-    :func:`uniform`."""
+    """``jax.random.uniform`` drawn on the device (a numpy key on
+    ``device``, a key tensor on its own); same numbers as :func:`uniform`."""
     return _uniform_from_bits(random_bits_t(key, shape, device), minval,
                               maxval)
 
 
-def normal_t(key: np.ndarray, shape: tuple, device) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` drawn on ``device``; same numbers
-    as :func:`normal`."""
+def normal_t(key, shape: tuple, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` drawn on the device (a numpy key
+    on ``device``, a key tensor on its own); same numbers as
+    :func:`normal`."""
     return _normal_from_bits(random_bits_t(key, shape, device))
 
 

@@ -4,8 +4,9 @@ Per group m: pre-sample L_rnd devices uniformly (keeps every device's
 selection probability nonzero — paper §V.A), build b from the pre-sampled
 devices' next-batch counts and A from the remaining candidates, then run
 GBP-CS for the remaining L_sel slots. The group axis is a batch dimension:
-the permutations come from the threefry key chain on the host, everything
-else runs on the counts' device, and GBP-CS runs for all groups at once.
+the permutations come from the threefry key chain on the host
+(:func:`presample_keys`), everything else runs on the counts' device
+(:func:`select_presampled`), and GBP-CS runs for all groups at once.
 """
 from __future__ import annotations
 
@@ -30,18 +31,50 @@ def _scatter_rows(idx: torch.Tensor, values, k: int) -> torch.Tensor:
     return out.scatter(1, idx, values)
 
 
-def _presample_perms(keys: np.ndarray, k_total: int, avail, dev):
-    """Per group, the key's ``permutation`` of the devices (M, K); with
-    ``avail`` (M, K) stably partitioned so available devices come first,
-    permutation order kept within each class (an identity at avail ≡ 1)."""
-    perm = torch.as_tensor(
-        np.stack([prng.permutation(key, k_total) for key in keys]),
-        device=dev)
+def presample_keys(keys: np.ndarray, k_total: int,
+                   method: str = "gbp_cs") -> tuple[np.ndarray, np.ndarray]:
+    """The host half of one selection: from the groups' keys (M, 2), the
+    pre-sample permutations of the K devices (M, K) and the random
+    initializer's keys (M, 2). GBP-CS splits each key into (key_pre,
+    key_opt) and permutes with key_pre; random selection permutes with the
+    key itself (its initializer keys are unused zeros). Everything after
+    this runs on the counts' device."""
+    keys = np.asarray(keys, np.uint32)
+    if method == "random":
+        return (np.stack([prng.permutation(key, k_total) for key in keys]),
+                np.zeros_like(keys))
+    pre_opt = prng.split(keys)                                # (M, 2, 2)
+    return (np.stack([prng.permutation(key, k_total)
+                      for key in pre_opt[:, 0]]), pre_opt[:, 1])
+
+
+def _partition_avail(perm: torch.Tensor, avail) -> torch.Tensor:
+    """With ``avail`` (M, K), the permutations stably partitioned so that
+    available devices come first, permutation order kept within each class
+    (an identity at avail ≡ 1)."""
+    if avail is None:
+        return perm
+    order = torch.argsort(1.0 - avail.gather(1, perm), dim=1, stable=True)
+    return perm.gather(1, order)
+
+
+def _instances(perm: torch.Tensor, counts: torch.Tensor, p_real, l: int,
+               l_rnd: int, avail):
+    """Per group, pre-sample the first L_rnd devices of ``perm`` and build
+    the GBP-CS instance of the rest: (pre-sample mask (M, K), candidate
+    indices (M, K−L_rnd), A (M, F, K−L_rnd), y (M, F))."""
+    m, k_total, _ = counts.shape
+    counts = counts.float()
     if avail is not None:
-        order = torch.argsort(1.0 - avail.gather(1, perm), dim=1,
-                              stable=True)
-        perm = perm.gather(1, order)
-    return perm
+        counts = counts * avail[..., None]      # dark devices report nothing
+    perm = _partition_avail(perm, avail)
+    pre_idx, cand_idx = perm[:, :l_rnd], perm[:, l_rnd:]    # C_rnd, rest
+    rows = torch.arange(m, device=counts.device)[:, None]
+    b = counts[rows, pre_idx].sum(dim=1)                     # (M, F)  b_t^m
+    A = counts[rows, cand_idx].transpose(1, 2).contiguous()  # (M, F, K-L_rnd)
+    n_total = counts.sum(dim=(1, 2)) / k_total * l           # nL
+    y = n_total[:, None] * p_real.float() - b                # Eq. (11)
+    return _scatter_rows(pre_idx, 1.0, k_total), cand_idx, A, y
 
 
 def gbp_cs_instances(keys: np.ndarray, counts: torch.Tensor,
@@ -51,21 +84,10 @@ def gbp_cs_instances(keys: np.ndarray, counts: torch.Tensor,
     build the GBP-CS instance of the rest. Returns (pre-sample mask (M, K),
     candidate indices (M, K−L_rnd), A (M, F, K−L_rnd), y (M, F)). With
     ``avail`` the counts are those of available devices only."""
-    m, k_total, _ = counts.shape
-    counts = counts.float()
-    if avail is not None:
-        counts = counts * avail[..., None]      # dark devices report nothing
-    dev = counts.device
-    # key_pre, key_opt = split(key); key_opt feeds only the random init
-    perm = _presample_perms(np.stack([prng.split(key)[0] for key in keys]),
-                            k_total, avail, dev)
-    pre_idx, cand_idx = perm[:, :l_rnd], perm[:, l_rnd:]    # C_rnd, rest
-    rows = torch.arange(m, device=dev)[:, None]
-    b = counts[rows, pre_idx].sum(dim=1)                     # (M, F)  b_t^m
-    A = counts[rows, cand_idx].transpose(1, 2).contiguous()  # (M, F, K-L_rnd)
-    n_total = counts.sum(dim=(1, 2)) / k_total * l           # nL
-    y = n_total[:, None] * p_real.float() - b                # Eq. (11)
-    return _scatter_rows(pre_idx, 1.0, k_total), cand_idx, A, y
+    perm, _ = presample_keys(keys, counts.shape[1])
+    return _instances(torch.as_tensor(perm, device=counts.device), counts,
+                      p_real, l, l_rnd,
+                      None if avail is None else avail.float())
 
 
 def select_for_groups(keys: np.ndarray, counts: torch.Tensor,
@@ -74,7 +96,28 @@ def select_for_groups(keys: np.ndarray, counts: torch.Tensor,
                       method: str = "gbp_cs", init: str = gbp_cs.MPINV,
                       max_iters: int = 64) -> SelectionResult:
     """keys (M, 2) threefry keys, counts (M, K, F) → one selection per
-    group.
+    group: :func:`presample_keys` on the host, then
+    :func:`select_presampled` on the counts' device."""
+    if method not in ("gbp_cs", "random"):
+        raise ValueError(f"unknown selection method: {method!r}")
+    perm, opt = presample_keys(keys, counts.shape[1], method)
+    dev = counts.device
+    return select_presampled(
+        torch.as_tensor(perm, device=dev),
+        torch.as_tensor(opt.astype(np.int64), device=dev), counts, p_real, l,
+        l_rnd, avail=avail, method=method, init=init, max_iters=max_iters)
+
+
+def select_presampled(perm: torch.Tensor, opt_keys: torch.Tensor,
+                      counts: torch.Tensor, p_real: torch.Tensor, l: int,
+                      l_rnd: int, *, avail: torch.Tensor | None = None,
+                      method: str = "gbp_cs", init: str = gbp_cs.MPINV,
+                      max_iters: int = 64, pinv_fn=None) -> SelectionResult:
+    """One selection per group from :func:`presample_keys`' material on
+    the counts' device: ``perm`` (M, K) int64, ``opt_keys`` (M, 2) int64
+    words. No host copy and no host sync, so a CUDA graph captures it
+    (``pinv_fn``, the mpinv initializer's pseudo-inverse, is where a
+    captured round breaks: see ``core.gbp_cs.init_mpinv``).
 
     With ``avail`` (M, K) 0/1, devices at 0 are never selected (DESIGN.md
     §14.2; quarantine folds into it, §15.4): their counts are zeroed, the
@@ -85,11 +128,10 @@ def select_for_groups(keys: np.ndarray, counts: torch.Tensor,
     m, k_total, _ = counts.shape
     counts = counts.float()
     p_real = p_real.float()
-    dev = counts.device
     if avail is not None:
         avail = avail.float()
     if method == "random":
-        perm = _presample_perms(keys, k_total, avail, dev)
+        perm = _partition_avail(perm, avail)
         mask = _scatter_rows(perm[:, :l], 1.0, k_total)
         if avail is not None:
             counts = counts * avail[..., None]
@@ -97,14 +139,14 @@ def select_for_groups(keys: np.ndarray, counts: torch.Tensor,
         div = mask_divergence(counts, mask, p_real)
         return SelectionResult(mask=mask, divergence=div, distance=div,
                                iterations=torch.zeros(m, dtype=torch.int32,
-                                                      device=dev))
+                                                      device=counts.device))
     if method != "gbp_cs":
         raise ValueError(f"unknown selection method: {method!r}")
-    pre_mask, cand_idx, A, y = gbp_cs_instances(keys, counts, p_real, l,
-                                                l_rnd, avail)
-    res = gbp_cs.gbp_cs_minimize(
-        A, y, l - l_rnd, init=init, max_iters=max_iters,
-        keys=np.stack([prng.split(key)[1] for key in keys]))
+    pre_mask, cand_idx, A, y = _instances(perm, counts, p_real, l, l_rnd,
+                                          avail)
+    res = gbp_cs.gbp_cs_minimize(A, y, l - l_rnd, init=init,
+                                 max_iters=max_iters, keys=opt_keys,
+                                 pinv_fn=pinv_fn)
     x, distance = res.x, res.distance
     if avail is not None:
         # availability dominates the solver's choice: chosen-and-up scores

@@ -5,12 +5,21 @@ has a deterministic glyph-like prototype (blobs + strokes); each *writer*
 applies a persistent style (rotation/scale/shift bias, stroke gain) plus
 per-sample jitter and pixel noise. Pure numpy, so the images are bit-equal
 to the JAX package's generator for the same (class, writer, sample) ids.
+
+The device-side generator of the fused engine (DESIGN.md §7) follows:
+:func:`writer_style_table` (host, once per partition) and
+:func:`generate_images_device`, the port of ``generate_images_jax``, whose
+jitter comes from the threefry key chain (``core.prng``) under the same
+keys as ``jax.random``, drawn on the tensors' device.
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
+
+from ..core import prng
 
 NUM_CLASSES = 62
 IMAGE_SIZE = 28
@@ -110,6 +119,91 @@ def generate_images(classes: np.ndarray, writer_ids: np.ndarray,
     imgs = imgs + rng.normal(0, 1.0, imgs.shape).astype(np.float32) \
         * styles[:, 5][:, None, None]
     return np.clip(imgs, 0.0, 1.5)
+
+
+# ---------------------------------------------------------------------------
+# Device-side generator (DESIGN.md §7): the port of the JAX package's
+# ``generate_images_jax``. Styles stay host-precomputed (per-writer
+# constants); only the per-sample jitter and noise are drawn on the device.
+# ---------------------------------------------------------------------------
+
+def writer_style_table(writer_ids: np.ndarray) -> np.ndarray:
+    """(...,) writer-id array -> (..., 6) persistent style array (host, once)."""
+    flat = np.asarray(writer_ids).reshape(-1)
+    return _writer_styles(flat).reshape(np.shape(writer_ids) + (6,))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a·b + c rounded once to float32, as XLA's contraction of a multiply
+    into the add that consumes it computes it: the product of two floats is
+    exact in float64 (a double rounding is possible only at a float32 tie
+    of the float64 sum)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
+
+
+def affine_sample_device(protos: torch.Tensor, classes: torch.Tensor,
+                         rots: torch.Tensor, scales: torch.Tensor,
+                         shifts: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling under per-sample inverse affine maps, on the
+    tensors' device: protos (C, S, S), classes (..., N), rots/scales
+    (..., N), shifts (..., N, 2) → (..., N, S, S).
+
+    The arithmetic is the JAX package's ``_affine_sample_jax`` as XLA
+    compiles it, multiply-adds contracted into one rounding: the rotation
+    ``fma(m_i1, y, m_i0·x)``, then ``fma(·, 1/scale, c0) − shift``,
+    ``floor`` and the clips, and the taps summed as ``fma(g11·fx, fy,
+    fma(g10·(1−fx), fy, fma(g00·(1−fx), 1−fy, g01·fx·(1−fy))))``. Given the
+    same jitter it is bit-equal to XLA on the CPU but for denormals, which
+    XLA flushes; a one-ulp difference at an integer coordinate would move
+    a whole tap."""
+    size = protos.shape[-1]
+    c0 = (size - 1) / 2.0
+    grid = torch.arange(size, dtype=torch.float32, device=protos.device)
+    xx = (grid[None, :] - c0).expand(size, size).reshape(-1)   # (P,)
+    yy = (grid[:, None] - c0).expand(size, size).reshape(-1)
+    cos, sin = torch.cos(rots)[..., None], torch.sin(rots)[..., None]
+    inv_scale = (1.0 / scales)[..., None]
+    sx = _fma(_fma(sin, yy, cos * xx), inv_scale, c0) \
+        - shifts[..., 0:1]
+    sy = _fma(_fma(cos, yy, -sin * xx), inv_scale, c0) \
+        - shifts[..., 1:2]
+    x0 = torch.clamp(torch.floor(sx).to(torch.int32), 0, size - 2)
+    y0 = torch.clamp(torch.floor(sy).to(torch.int32), 0, size - 2)
+    fx = torch.clamp(sx - x0, 0.0, 1.0)
+    fy = torch.clamp(sy - y0, 0.0, 1.0)
+    ux, uy = 1 - fx, 1 - fy
+    flat = protos.reshape(protos.shape[0], -1)[classes.long()]   # (..., N, P)
+    tap = lambda yv, xv: torch.gather(flat, -1, (yv * size + xv).long())
+    out = _fma(tap(y0, x0) * ux, uy, tap(y0, x0 + 1) * fx * uy)
+    out = _fma(tap(y0 + 1, x0) * ux, fy, out)
+    out = _fma(tap(y0 + 1, x0 + 1) * fx, fy, out)
+    oob = (sx < 0) | (sx > size - 1) | (sy < 0) | (sy > size - 1)
+    out = torch.where(oob, 0.0, out)
+    return out.reshape(out.shape[:-1] + (size, size))
+
+
+def generate_images_device(protos: torch.Tensor, classes: torch.Tensor,
+                           styles: torch.Tensor, key: torch.Tensor
+                           ) -> torch.Tensor:
+    """The JAX package's ``generate_images_jax`` on the tensors' device,
+    batched over leading axes: classes (..., N) int, styles (..., N, 6)
+    from :func:`writer_style_table`, key (..., 2) int64 threefry words, one
+    key per batch row (a JAX key per vmapped call). Returns (..., N, 28,
+    28), the jitter drawn from ``split(key, 4)`` as ``jax.random`` draws
+    it (``normal`` to its 5e-7)."""
+    n = classes.shape[-1]
+    k = prng.split_t(key, 4)
+    rots = styles[..., 0] + 0.08 * prng.normal_t(k[..., 0, :], (n,))
+    scales = styles[..., 1] * prng.uniform_t(k[..., 1, :], (n,),
+                                             minval=0.95, maxval=1.05)
+    shifts = styles[..., 2:4] + 0.6 * prng.normal_t(k[..., 2, :], (n, 2))
+    imgs = affine_sample_device(protos, classes, rots, scales, shifts)
+    imgs = imgs * styles[..., 4, None, None]
+    imgs = imgs + prng.normal_t(k[..., 3, :], tuple(imgs.shape[-3:])) \
+        * styles[..., 5, None, None]
+    return torch.clamp(imgs, 0.0, 1.5)
 
 
 def make_test_set(n_per_class: int = 40, seed: int = 99

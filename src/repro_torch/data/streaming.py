@@ -7,6 +7,11 @@ class-count vector a_t^{m,k} is reportable to the BS before selection);
 images are generated lazily ONLY for the devices that are actually selected.
 After each iteration all devices advance. Pure numpy, so counts and images
 are bit-equal to the JAX package's ``FactoryStreams`` for the same seed.
+
+The device-resident streams of the fused engine (DESIGN.md §7) follow at
+the end: :class:`DeviceStream`, :class:`DeviceSampler` and the host-loop
+adapter :class:`DeviceBackedStreams`, the JAX package's dense-population
+forms, drawing labels and images on the card from threefry keys.
 """
 from __future__ import annotations
 
@@ -194,3 +199,199 @@ def make_corruption_fn(corrupt: CorruptionConfig | None, seed: int):
         return grads, torch.as_tensor(hit, dtype=torch.float32, device=dev)
 
     return corrupt_fn
+
+
+# ---------------------------------------------------------------------------
+# Device-resident streams (DESIGN.md §7): the stream is a pure function of
+# (iteration t, group id). Every key of an iteration depends on nothing the
+# device computes, so the host derives them (:meth:`DeviceSampler.keys`,
+# the JAX package's ``fold_in(fold_in(·, t), gid)``) and the device draws
+# labels and images from them; the fused engine stages a round's keys in
+# one buffer, so a CUDA graph replays the round with no host copy inside.
+# ---------------------------------------------------------------------------
+
+def xla_cumsum(p: np.ndarray, base: int = 16) -> np.ndarray:
+    """``jnp.cumsum(p, axis=-1)`` in float32 as XLA on the CPU computes it
+    (its reduce-window rewrite): the last axis in blocks of ``base``, each
+    summed in order, plus the in-order sum of the blocks before it. The
+    label draw compares uniforms against it, so its last bit matters."""
+    p = np.asarray(p, np.float32)
+    f = p.shape[-1]
+    nb = -(-f // base)
+    if nb > base:
+        raise ValueError(f"xla_cumsum: {f} > {base * base} classes")
+    q = np.zeros(p.shape[:-1] + (nb * base,), np.float32)
+    q[..., :f] = p
+    q = q.reshape(p.shape[:-1] + (nb, base))
+    within = np.empty_like(q)
+    acc = np.zeros(q.shape[:-1], np.float32)
+    for i in range(base):
+        acc = acc + q[..., i]
+        within[..., i] = acc
+    before = np.zeros(q.shape[:-1], np.float32)
+    acc = np.zeros(q.shape[:-2], np.float32)
+    for b in range(1, nb):
+        acc = acc + within[..., b - 1, base - 1]
+        before[..., b] = acc
+    out = within + before[..., None]
+    return out.reshape(p.shape[:-1] + (nb * base,))[..., :f]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceStream:
+    """All M×K streams on one device: the per-device class distributions,
+    their cumulative sums (:func:`xla_cumsum`, once, on the host) and the
+    persistent writer styles. The dense population view of DESIGN.md §17
+    (``cdf_for``/``styles_for`` by flat device id)."""
+    class_probs: torch.Tensor   # (M, K, F)
+    cdf: torch.Tensor           # (M, K, F)
+    styles: torch.Tensor        # (M, K, 6)
+    batch_size: int             # n
+    seed: int
+
+    @classmethod
+    def from_partition(cls, part: Partition, batch_size: int = 32,
+                       seed: int = 0, device="cuda") -> "DeviceStream":
+        probs = np.asarray(part.class_probs, np.float32)
+        on = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                       device=device)
+        return cls(class_probs=on(probs), cdf=on(xla_cumsum(probs)),
+                   styles=on(femnist.writer_style_table(part.writer_ids)),
+                   batch_size=batch_size, seed=seed)
+
+    @property
+    def num_factories(self) -> int:
+        return self.class_probs.shape[0]
+
+    @property
+    def devices_per_factory(self) -> int:
+        return self.class_probs.shape[1]
+
+    @property
+    def num_classes(self) -> int:
+        return self.class_probs.shape[2]
+
+    def cdf_for(self, ids: torch.Tensor) -> torch.Tensor:
+        """(...,) flat device ids -> (..., F) cumulative distributions."""
+        return self.cdf.reshape(-1, self.num_classes)[ids]
+
+    def styles_for(self, ids: torch.Tensor) -> torch.Tensor:
+        """(...,) flat device ids -> (..., 6) writer-style rows."""
+        return self.styles.reshape(-1, 6)[ids]
+
+
+class DeviceSampler:
+    """The fused engine's sampling interface over a :class:`DeviceStream`.
+
+    ``keys(t, gids)`` derives on the host each group's (label, image) key
+    of iteration t, (G, 2, 2) uint32 words: the JAX package's
+    ``fold_in(fold_in(base ⊕ 101 | 202, t), gid)``. The device side takes
+    them as an int64 tensor:
+
+    * ``labels(keys, gids)`` → (G, K, n) next-batch labels, ``u > cdf``
+      summed over classes from one ``uniform`` draw per group;
+    * ``counts(labels)`` → (G, K, F) int32 class counts;
+    * ``selected_batch(labels, keys, gids, masks, l)`` → (images (G, l, n,
+      28, 28), labels (G, l, n)) of the selected devices, in the order
+      ``argsort(-mask, stable)[:l]`` (``lax.top_k``'s, the host loop's).
+
+    The same (t, gid) gives the same batch, which is how the host loop over
+    :class:`DeviceBackedStreams` and the fused round see identical data.
+    """
+
+    def __init__(self, stream: DeviceStream):
+        self.stream = stream
+        self.num_groups = stream.num_factories
+        self.devices_per_group = stream.devices_per_factory
+        self.num_classes = stream.num_classes
+        self.batch_size = stream.batch_size
+        self.device = stream.class_probs.device
+        self.protos = torch.as_tensor(femnist.class_prototypes(),
+                                      device=self.device)
+        base = prng.PRNGKey(stream.seed)
+        self._label_key = prng.fold_in(base, 101)
+        self._img_key = prng.fold_in(base, 202)
+
+    def keys(self, t: int, gids) -> np.ndarray:
+        """(G, 2, 2) uint32: each group's label and image key of
+        iteration ``t``."""
+        g = np.asarray(gids, np.int64)
+        return np.stack([prng.fold_in(prng.fold_in(self._label_key, t), g),
+                         prng.fold_in(prng.fold_in(self._img_key, t), g)],
+                        axis=1)
+
+    def device_ids(self, gids: torch.Tensor) -> torch.Tensor:
+        """(G, K) flat population ids of each group's K slots (dense)."""
+        k = self.devices_per_group
+        return gids[:, None] * k + torch.arange(k, device=gids.device)
+
+    def labels(self, keys: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+        k, n, f = self.devices_per_group, self.batch_size, self.num_classes
+        u = prng.uniform_t(keys[:, 0], (k, n, 1))               # (G, K, n, 1)
+        cdf = self.stream.cdf_for(self.device_ids(gids))[:, :, None, :]
+        return torch.clamp_max((u > cdf).sum(-1), f - 1)
+
+    def counts(self, labels: torch.Tensor) -> torch.Tensor:
+        f = self.num_classes
+        onehot = labels[..., None] == torch.arange(f, device=labels.device)
+        return onehot.sum(dim=2, dtype=torch.int32)
+
+    def selected_batch(self, labels: torch.Tensor, keys: torch.Tensor,
+                       gids: torch.Tensor, masks: torch.Tensor, l: int):
+        g, _, n = labels.shape
+        idx = torch.argsort(-masks, dim=1, stable=True)[:, :l]   # (G, l)
+        lab = labels.gather(1, idx[..., None].expand(g, l, n))
+        sty = self.stream.styles_for(self.device_ids(gids))
+        sty = sty.gather(1, idx[..., None].expand(g, l, 6))
+        sty = sty[:, :, None, :].expand(g, l, n, 6).reshape(g, l * n, 6)
+        imgs = femnist.generate_images_device(
+            self.protos, lab.reshape(g, l * n), sty, keys[:, 1])
+        return imgs.reshape(g, l, n, femnist.IMAGE_SIZE,
+                            femnist.IMAGE_SIZE), lab
+
+
+def make_device_sampler(stream: DeviceStream, drift=None, *,
+                        candidates: int | None = None,
+                        candidate_every: int = 0) -> DeviceSampler:
+    """The dense device sampler over ``stream``. Drift schedules and
+    candidate committees are not ported yet."""
+    if drift is not None:
+        raise NotImplementedError("drift schedules on the device stream "
+                                  "(DESIGN.md §13) are ROADMAP item 11")
+    if candidates is not None or candidate_every:
+        raise NotImplementedError("candidate committees over a lazy "
+                                  "population (DESIGN.md §17) are ROADMAP "
+                                  "item 14")
+    return DeviceSampler(stream)
+
+
+class DeviceBackedStreams:
+    """Host-facing ``FactoryStreams`` adapter over a :class:`DeviceSampler`:
+    the two-phase host loop (``fedgs.run_fedgs``) consumes the exact
+    batches the fused round sees, as tensors on the sampler's device.
+    ``next_counts`` is repeatable (pure in t); ``fetch_selected`` advances
+    time."""
+
+    def __init__(self, sampler: DeviceSampler):
+        self.sampler = sampler
+        self._t = 0
+        self._gids = torch.arange(sampler.num_groups, device=sampler.device)
+
+    def _keys(self) -> torch.Tensor:
+        keys = self.sampler.keys(self._t, np.arange(self.sampler.num_groups))
+        return torch.as_tensor(keys.astype(np.int64),
+                               device=self.sampler.device)
+
+    def next_counts(self) -> torch.Tensor:
+        return self.sampler.counts(self.sampler.labels(self._keys(),
+                                                       self._gids))
+
+    def fetch_selected(self, masks, l: int):
+        keys = self._keys()
+        labels = self.sampler.labels(keys, self._gids)
+        masks = torch.as_tensor(masks, dtype=torch.float32,
+                                device=self.sampler.device)
+        imgs, labs = self.sampler.selected_batch(labels, keys, self._gids,
+                                                 masks, l)
+        self._t += 1
+        return imgs, labs

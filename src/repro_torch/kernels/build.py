@@ -30,7 +30,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaError_t as int)
 SIGNATURES = {
-    "gbp_cs_minimize_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gbp_cs_minimize_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "gbp_cs_chain": [_I, _I, _P],
     "conv_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "agg_weighted_f32": [_P, _P, _P, _I, _L, _P],
     "robust_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P],

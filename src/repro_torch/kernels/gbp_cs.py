@@ -2,14 +2,19 @@
 
 ``minimize(A, y, x0, max_iters)`` runs the bounded loop of
 ``core.gbp_cs.gbp_cs_minimize`` from a given start ``x0`` for every group at
-once: the CUDA kernel (``csrc/gbp_cs.cu``, one block per group, the whole
-loop in one launch) for CUDA tensors, :func:`minimize_plain` for CPU
-tensors. The step math (:func:`objective`, :func:`gradient`,
-:func:`select_swap_pair`, :func:`permute`) is the plain version of what the
-kernel computes, and is shared with ``core.gbp_cs``.
+once: the CUDA kernel (``csrc/gbp_cs.cu``, one warp per group, the whole
+loop in one launch, A·x carried by column updates) for CUDA tensors,
+:func:`minimize_plain` for CPU tensors. The step math (:func:`objective`,
+:func:`gradient`, :func:`select_swap_pair`, :func:`permute`) is the plain
+version of what the kernel computes, and is shared with ``core.gbp_cs``.
+
+The kernel's masks and trip counts equal the plain version's when A holds
+integer counts and x0 is 0/1 (A·x is then exact in any order); its
+distances agree to rounding.
 
 Shapes: A (G, F, K), y (G, F), x (G, K) — any leading batch dims for the
-step math.
+step math; the kernel takes any F, K whose A (F·K floats) fits in one
+block's shared memory, with register-resident fast paths for F, K <= 128.
 """
 from __future__ import annotations
 
@@ -101,24 +106,33 @@ def minimize_plain(A: torch.Tensor, y: torch.Tensor, x0: torch.Tensor,
 
 def minimize(A: torch.Tensor, y: torch.Tensor, x0: torch.Tensor,
              max_iters: int):
-    """The GBP-CS loop for all groups: kernel on the card, plain on CPU."""
+    """The GBP-CS loop for all groups: kernel on the card, plain on CPU.
+    The card's outputs are four allocations, which cost the host less than
+    one buffer cut into four views (PERF.md, the ``gbp_cs`` row)."""
     if A.device.type == "cpu":
         return minimize_plain(A, y, x0, max_iters)
-    lib = build.library()
     g, f, k = A.shape
-    build.require(A, "A", (g, f, k), torch.float32)
-    build.require(y, "y", (g, f), torch.float32)
-    build.require(x0, "x0", (g, k), torch.float32)
+    if not (A.dtype == y.dtype == x0.dtype == torch.float32
+            and A.is_contiguous() and y.is_contiguous()
+            and x0.is_contiguous() and y.shape == (g, f)
+            and x0.shape == (g, k) and f >= 1 and k >= 1
+            and max_iters >= 0 and y.device == x0.device == A.device):
+        raise ValueError(
+            f"gbp_cs: needs contiguous f32 A (G, F, K), y (G, F), x0 (G, K) "
+            f"on one card; got {tuple(A.shape)} {tuple(y.shape)} "
+            f"{tuple(x0.shape)}")
+    lib = build.library()
     x = torch.empty_like(x0)
     d = torch.empty(g, dtype=torch.float32, device=A.device)
     iters = torch.empty(g, dtype=torch.int32, device=A.device)
     trace = torch.empty(g, max_iters + 1, dtype=torch.float32,
                         device=A.device)
-    err = lib.gbp_cs_minimize_f32(
-        A.data_ptr(), y.data_ptr(), x0.data_ptr(), x.data_ptr(),
-        d.data_ptr(), iters.data_ptr(), trace.data_ptr(), g, f, k,
-        max_iters, build.stream(A))
+    err = lib.gbp_cs_minimize_f32(A.data_ptr(), y.data_ptr(), x0.data_ptr(),
+                                  x.data_ptr(), d.data_ptr(),
+                                  iters.data_ptr(), trace.data_ptr(), g, f,
+                                  k, max_iters, build.stream(A))
     build.check(err, NAME)
     global LAUNCHES
     LAUNCHES += 1
     return x, d, iters, trace
+

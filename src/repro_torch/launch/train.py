@@ -31,7 +31,14 @@ round's ``bytes_int`` / ``bytes_ext`` ledger and ``compress_error`` go to
       --compress-int topk:0.01+int8 --compress-ext int8
 
 ``--train-step model_avg`` runs the paper's literal L one-step models.
-The JAX CLI's other scenario flags (engines, availability, drift,
+
+``--engine fused`` runs the device-resident engine (DESIGN.md §7, §12):
+labels, counts and images drawn on the device from the threefry key
+chain, each round one CUDA graph on the card (eager on the CPU), the
+metrics read back once per ``--eval-chunk`` rounds. It prints the JAX
+CLI's ``--engine fused`` round lines; it has no robust branch yet
+(``--corrupt``/``--robust-agg`` raise there), and ``--engine sharded``
+raises. The JAX CLI's other scenario flags (availability, drift,
 populations, baselines) are not ported yet and are rejected.
 
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
@@ -51,9 +58,9 @@ import torch
 
 from ..configs import femnist_cnn
 from ..core import fedgs, prng, sync
-from ..data import (CORRUPTION_MODES, CorruptionConfig, FactoryStreams,
-                    PartitionConfig, femnist, make_corruption_fn,
-                    make_partition)
+from ..data import (CORRUPTION_MODES, CorruptionConfig, DeviceStream,
+                    FactoryStreams, PartitionConfig, femnist,
+                    make_corruption_fn, make_device_sampler, make_partition)
 from ..models import cnn
 
 
@@ -81,6 +88,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--selection", choices=("gbp_cs", "random"),
                     default="gbp_cs")
+    ap.add_argument("--engine", choices=("host", "fused", "sharded"),
+                    default="host",
+                    help="host loop / device-resident fused rounds (one CUDA "
+                         "graph per round on the card) / sharded (not "
+                         "ported: ROADMAP item 17)")
+    ap.add_argument("--eval-chunk", type=int, default=1,
+                    help="fused: rounds per host read-back of the metrics "
+                         "(0 = auto, 1 = per round)")
     ap.add_argument("--train-step", choices=("grad_avg", "model_avg"),
                     default="grad_avg",
                     help="Eq. 4 in gradient space (one update per group) / "
@@ -181,17 +196,30 @@ def main(argv: list[str] | None = None) -> list[dict]:
             mode=args.corrupt, frac=args.corrupt_frac,
             prob=args.corrupt_prob, t0=args.corrupt_t0,
             scale=args.corrupt_scale, sigma=args.corrupt_sigma), args.seed)
-    streams = FactoryStreams(part, batch_size=args.batch_size, seed=args.seed)
     logs_out = []
 
     def log_fn(rec):
         print(format_record(rec), flush=True)
         logs_out.append(rec.to_dict())
 
-    fedgs.run_fedgs(params, streams, part.p_real, fcfg,
-                    group_loss_fn=cnn.make_group_loss_fn(),
-                    corrupt_fn=corrupt_fn, eval_fn=eval_fn,
-                    eval_every=args.eval_every, log_fn=log_fn)
+    if args.engine == "sharded":
+        raise NotImplementedError("--engine sharded (the group-sharded "
+                                  "engine, DESIGN.md §8) is ROADMAP item 17")
+    if args.engine == "fused":
+        sampler = make_device_sampler(DeviceStream.from_partition(
+            part, batch_size=args.batch_size, seed=args.seed, device=device))
+        fedgs.run_fedgs_fused(params, sampler, part.p_real, fcfg,
+                              group_loss_fn=cnn.make_group_loss_fn(),
+                              corrupt_fn=corrupt_fn, eval_fn=eval_fn,
+                              eval_every=args.eval_every, log_fn=log_fn,
+                              chunk=args.eval_chunk)
+    else:
+        streams = FactoryStreams(part, batch_size=args.batch_size,
+                                 seed=args.seed)
+        fedgs.run_fedgs(params, streams, part.p_real, fcfg,
+                        group_loss_fn=cnn.make_group_loss_fn(),
+                        corrupt_fn=corrupt_fn, eval_fn=eval_fn,
+                        eval_every=args.eval_every, log_fn=log_fn)
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
         with open(args.log_json, "w") as f:

@@ -39,6 +39,78 @@ def test_gbp_cs_kernel_matches_plain(cuda):
             torch.testing.assert_close(out[3], ref[3], rtol=1e-5, atol=1e-5)
 
 
+def test_gbp_cs_warp_kernel_sweep(cuda):
+    """The one-warp kernel against minimize_plain for F, K up to 64 (one
+    and two rows/columns per lane, K = 33 as on the main path) and past
+    the register-resident templates (K = 200, F = 150: the shared-memory
+    form), masks and trip counts equal, distances to 1e-3 as in
+    chip_smoke.py; among the groups one stops at its first step
+    (y = A·x0, d = 0) and some hit ``max_iters``."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    stopped = capped = 0
+    shapes = ((6, 62, 33, 8), (5, 64, 64, 20), (4, 31, 9, 4),
+              (3, 33, 64, 30), (2, 1, 1, 1), (4, 64, 2, 1),
+              (3, 62, 200, 30), (2, 150, 40, 10))
+    for g, f, k, l_sel in shapes:
+        A = torch.randint(0, 9, (g, f, k), generator=gen,
+                          device=cuda).float()
+        y = A.sum(-1) * (l_sel / k) + torch.rand(g, f, generator=gen,
+                                                 device=cuda)
+        x0 = core_gbp.init_zero(A, y, l_sel).contiguous()
+        y[0] = (A[0] @ x0[0].unsqueeze(-1)).squeeze(-1)   # d = 0 at x0
+        for max_iters in (0, 2, 64):
+            out = gbp_cs.minimize(A, y, x0, max_iters)
+            ref = gbp_cs.minimize_plain(A, y, x0, max_iters)
+            assert torch.equal(out[0], ref[0])
+            assert torch.equal(out[2], ref[2])
+            torch.testing.assert_close(out[1], ref[1], rtol=0, atol=1e-3)
+            torch.testing.assert_close(out[3], ref[3], rtol=0, atol=1e-3)
+            if max_iters == 64:
+                stopped += int(out[2][0] == 1)      # the d = 0 group
+            elif max_iters == 2:
+                capped += int((out[2] == 2).sum())
+    assert stopped == len(shapes) and capped > 0
+
+
+def test_fused_graph_replay_equals_eager(cuda):
+    """The smoke config's fused run: one CUDA graph per round (T + 1
+    segments around the eager pinv), replayed R times, gives the eager
+    run's state and records bit for bit; the capture counted each kernel
+    once per launch of one round."""
+    from repro_torch import tree
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import engine, fedgs, prng
+    from repro_torch.data import (DeviceStream, PartitionConfig,
+                                  make_device_sampler, make_partition)
+    from repro_torch.models import cnn
+    part = make_partition(PartitionConfig(num_factories=4,
+                                          devices_per_factory=8, seed=0))
+    sampler = make_device_sampler(DeviceStream.from_partition(
+        part, batch_size=8, seed=0, device=cuda))
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(), cuda)
+    cfg = fedgs.FedGSConfig(num_groups=4, devices_per_group=8,
+                            num_selected=4, num_presampled=1,
+                            iters_per_round=5, rounds=3, lr=0.05,
+                            compress_int="topk:0.01+int8",
+                            compress_ext="int8")
+    runs = []
+    for graph in (False, True):
+        exp = fedgs.make_fedgs_experiment(
+            params, sampler, part.p_real, cfg,
+            group_loss_fn=cnn.make_group_loss_fn(), graph=graph)
+        state, logs = engine.run_experiment(exp, cfg.rounds, chunk=2)
+        runs.append((tree.leaves(state[0]) + list(state[1]), logs,
+                     exp.round_fn))
+    (eager, elogs, _), (graphed, glogs, rf) = runs
+    for a, b in zip(eager, graphed, strict=True):
+        assert torch.equal(a, b)
+    assert [r.to_dict() for r in elogs] == [r.to_dict() for r in glogs]
+    assert rf.replays == 3 and len(rf.segments.graphs) == 6
+    assert {k: v for k, v in rf.captured.items() if v} == {
+        "gbp_cs": 5, "conv_fused": 10, "agg_weighted": 1,
+        "topk_compress": 5, "int8_quant": 6}
+
+
 @pytest.mark.parametrize("g,b,h,cin,cout", [(10, 8, 28, 1, 32),
                                             (10, 8, 14, 32, 64),
                                             (1, 40, 28, 1, 32),
