@@ -21,7 +21,9 @@ the last line):
    shape in the conv kernel's ``pool=False`` form; the robust
    path's (M, L, |θ|) member-gradient stack; the compress path's (M, |θ|)
    gradient rows for top-k, with each row's candidates and route, and
-   with an all-ties and an overflow row, and for int8), with times;
+   with an all-ties and an overflow row, and for int8; ``corrupt_rows`` on
+   its sweep and on the robust path's (M·L, P4) member buffer, with the
+   CLI's typical fault trace and with every row Gaussian), with times;
 4. main path — ``python -m repro_torch.launch.train`` at full width for
    2 rounds of 3 iterations, with every kernel's launch count checked
    against what the path implies; one profiled full-width round (host
@@ -29,7 +31,8 @@ the last line):
    the card against the same run's plain versions on the CPU;
 5. robust path (DESIGN.md §15) — the same CLI with ``--corrupt
    scale+nan_burst+gauss_noise --robust-agg trimmed_mean``, driven, counted
-   and profiled the same way, and its smoke configuration card vs CPU;
+   (one ``corrupt_rows`` launch per iteration) and profiled the same way,
+   and its smoke configuration card vs CPU;
 6. compress path (DESIGN.md §18) — the same CLI with ``--compress-int
    topk:0.01+int8 --compress-ext int8``, driven, counted and profiled the
    same way; three compressed smoke configurations card vs CPU, their
@@ -45,7 +48,11 @@ the last line):
    the path's instances, ms per internal iteration eager and replayed
    beside the host loop's, one traced replay, the device stream's share
    of an iteration; the smoke configuration card vs CPU; all of it again
-   with the compress flags;
+   with the compress flags, and with the robust flags (the fault trace
+   staged with the round's keys; the CLI run must seat a corrupted
+   member; peak device memory of the graph and eager runs), whose smoke
+   configuration, Gaussian noise in the mix, is held card vs CPU plain
+   and with ``--compress-int topk:0.1+int8``;
 7. LM path (the dense-LM serving slice, ``granite-3-2b`` at full width
    and depth) — ``flash_attention`` against its plain version at the
    prefill shape (2, 4096, 32/8 heads, 64) in f32 (causal, causal with
@@ -121,6 +128,10 @@ ROBUST_FLAGS = ["--corrupt", "scale+nan_burst+gauss_noise", "--robust-agg",
 ROBUST_SMOKE_FLAGS = ["--corrupt", "scale+nan_burst", "--corrupt-frac",
                       "0.25", "--quarantine-limit", "2", "--robust-agg",
                       "trimmed_mean"]
+# the fused robust path's smoke configuration, Gaussian noise in the mix
+FUSED_ROBUST_SMOKE_FLAGS = ["--corrupt", "scale+nan_burst+gauss_noise",
+                            "--corrupt-frac", "0.25", "--quarantine-limit",
+                            "2", "--robust-agg", "trimmed_mean"]
 COMPRESS_FLAGS = ["--compress-int", "topk:0.01+int8", "--compress-ext",
                   "int8"]
 COMPRESS_SMOKE_FLAGS = [
@@ -658,6 +669,120 @@ def check_int8(torch, dev):
                 library_ms=None, shape=f"M={m} P4={p}")
 
 
+def check_corrupt_rows(torch, dev):
+    """The fault injection against its plain version: the sweep
+    (``kernels.corrupt.SWEEP``), then the robust path's member stack
+    (M·L, P4) = (100, 6,603,712) with the CLI's fault trace at an
+    iteration that seats a Gaussian row (its typical fill) and with every
+    row Gaussian. NaN/Inf/scale/sign rows, untouched rows and pads must be
+    bit-equal, Gaussian rows within 2e-6·σ (``log1pf`` against
+    ``torch.log1p``, and the plain erfinv's Horner steps rounded through
+    double). The all-Gaussian plain version runs in 25-row slices (its
+    int64 threefry takes ~10 GB a row slice of 25)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import prng
+    from repro_torch.data import CorruptionConfig, make_corruption_fn
+    from repro_torch.kernels import corrupt as kc
+    from repro_torch.models import cnn
+
+    tol, worst = 2e-6, 0.0
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for case in kc.SWEEP:
+        x, code, keys, sizes, modes = kc.sweep_inputs(case, gen)
+        for sigma in (1.0, 0.25):
+            out = kc.corrupt_rows(x.clone(), code, keys, sizes, modes, 25.0,
+                                  sigma)
+            ref = kc.corrupt_rows_plain(x.clone(), code, keys, sizes, modes,
+                                        25.0, sigma)
+            exact, err = kc.max_error(out, ref, code, modes, sigma)
+            if not exact or err > tol:
+                fail(f"corrupt_rows sweep {case[:2]}: exact {exact}, gauss "
+                     f"error {err} sigma > {tol}")
+            worst = max(worst, err)
+    print(f"corrupt_rows sweep ({len(kc.SWEEP)} cases x sigma 1, 0.25): "
+          f"exact rows bit-equal, gauss max err {worst:.3g} sigma (tol {tol})",
+          flush=True)
+
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
+    sizes = [leaf.numel() for leaf in tree.leaves(params)]
+    del params
+    m, l, k, p, p4 = 10, 10, 35, CNN_PARAMS, CNN_P4
+    cfn = make_corruption_fn(CorruptionConfig(mode=ROBUST_FLAGS[1]), 0)
+    seats = np.arange(m)[:, None] * k + np.arange(l)
+    gauss = 1 + cfn.modes.index("gauss_noise")
+    t = next(t for t in range(1, 100)
+             if (cfn.trace(t, seats, len(sizes))[0] == gauss).any())
+    code, keys = cfn.device_trace(t, seats.reshape(-1), len(sizes), dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(m * l, p4, generator=gen, device=dev) * 1e-2
+    x[:, p:] = 0.0
+    fills = {"typical": code, "all gauss": torch.full_like(code, gauss)}
+    res = {}
+    for fill, c in fills.items():
+        out = cfn.apply(x.clone(), c, keys, sizes)
+        ref = x.clone()
+        step = m * l if fill == "typical" else 25
+        for r0 in range(0, m * l, step):        # in place, row slices
+            kc.corrupt_rows_plain(ref[r0:r0 + step], c[r0:r0 + step],
+                                  keys[r0:r0 + step], sizes, cfn.modes,
+                                  cfn.config.scale, cfn.config.sigma)
+        exact, err = kc.max_error(out, ref, c, cfn.modes, cfn.config.sigma)
+        del out, ref
+        if not exact or err > tol:
+            fail(f"corrupt_rows {fill} at ({m * l}, {p4}): exact {exact}, "
+                 f"gauss error {err} sigma > {tol}")
+        buf = x.clone()
+        ms = time_ms(lambda: cfn.apply(buf, c, keys, sizes), reps=20)
+        if fill == "typical":
+            plain_ms = time_ms(lambda: kc.corrupt_rows_plain(
+                buf, c, keys, sizes, cfn.modes, cfn.config.scale,
+                cfn.config.sigma), reps=3, warmup=1)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r0 in range(0, m * l, 25):
+                kc.corrupt_rows_plain(buf[r0:r0 + 25], c[r0:r0 + 25],
+                                      keys[r0:r0 + 25], sizes, cfn.modes,
+                                      cfn.config.scale, cfn.config.sigma)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+        del buf
+        torch.cuda.empty_cache()
+        counts = {mode: int((c == j + 1).sum()) for j, mode in
+                  enumerate(cfn.modes)}
+        # each hit row's P coordinates written once and, but for NaN/Inf,
+        # read once; 74 int32 operations per Gaussian coordinate
+        read = sum(v for mode, v in counts.items()
+                   if mode not in ("nan_burst", "inf_spike"))
+        b_ms, b_by = bound(4 * p * (sum(counts.values()) + read),
+                           THREEFRY_INT_OPS * p * counts["gauss_noise"],
+                           INT32_OPS)
+        res[fill] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, err=err, counts=counts)
+        print(f"corrupt_rows {fill} (t={t}, rows hit by mode {counts} of "
+              f"{m * l}, P4={p4}): exact rows bit-equal, gauss max err "
+              f"{err:.3g} sigma; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain"
+              f"{' (25-row slices)' if fill != 'typical' else ''}, bound "
+              f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call draws "
+              "threefry normals)", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    typ, full = res["typical"], res["all gauss"]
+    return dict(name=kc.NAME, route="cuda", source=kc.SOURCE,
+                replaces=kc.REPLACES,
+                max_abs_err=max(worst, typ["err"], full["err"]), tol=tol,
+                ms=typ["ms"], plain_ms=typ["plain_ms"],
+                bound_ms=typ["bound_ms"], bound_by=typ["bound_by"],
+                library_ms=None, all_gauss_ms=full["ms"],
+                all_gauss_plain_ms=full["plain_ms"],
+                all_gauss_bound_ms=full["bound_ms"],
+                all_gauss_bound_by=full["bound_by"],
+                shape=f"R={m * l} P4={p4}, typical {typ['counts']}")
+
+
 class _Stamps(io.TextIOBase):
     """stdout tee that stamps every 'round' line with the host clock."""
 
@@ -809,12 +934,15 @@ def smoke_card_vs_cpu(label, flags) -> None:
           f"compress_error to {ce_worst:.2g} relative", flush=True)
 
 
-def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool):
+def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
+                corrupt: str | None = None):
     """The fused engine at the paper's traffic and full CNN width, through
-    the library: (experiment, sampler)."""
+    the library, with the CLI's fault schedule of mode(s) ``corrupt`` if
+    given: (experiment, sampler)."""
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import fedgs, prng
-    from repro_torch.data import (DeviceStream, PartitionConfig,
+    from repro_torch.data import (CorruptionConfig, DeviceStream,
+                                  PartitionConfig, make_corruption_fn,
                                   make_device_sampler, make_partition)
     from repro_torch.models import cnn
 
@@ -826,9 +954,12 @@ def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool):
     cfg = fedgs.FedGSConfig(num_groups=10, devices_per_group=35,
                             num_selected=10, num_presampled=2,
                             iters_per_round=3, rounds=rounds, **extra)
+    cfn = None if corrupt is None else make_corruption_fn(
+        CorruptionConfig(mode=corrupt), 0)
     return fedgs.make_fedgs_experiment(
         params, sampler, part.p_real, cfg,
-        group_loss_fn=cnn.make_group_loss_fn(), graph=graph), sampler
+        group_loss_fn=cnn.make_group_loss_fn(), corrupt_fn=cfn,
+        graph=graph), sampler
 
 
 def fused_rounds(torch, exp, rounds: int) -> tuple[list, list, list]:
@@ -851,7 +982,8 @@ DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
                  "agg_weighted": "agg_weighted_kernel",
                  "robust_agg": "robust_agg_kernel",
                  "topk_compress": "topk_hist0", "int8_quant": "int8_absmax",
-                 "flash_attention": "flash_fwd", "ssd_scan": "ssd_chunk_scan"}
+                 "flash_attention": "flash_fwd", "ssd_scan": "ssd_chunk_scan",
+                 "corrupt_rows": "corrupt_rows_kernel"}
 
 
 def device_launches(torch, argv) -> tuple[dict, dict]:
@@ -878,7 +1010,8 @@ def device_launches(torch, argv) -> tuple[dict, dict]:
     return counts, execs
 
 
-def fused_path(label, flags, extra, host_expect, host_ms, torch, dev):
+def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
+               corrupt: str | None = None):
     """``--engine fused`` at full width (R=2, T=3). The CLI driven with the
     counts set to 0 before and read after: the wrappers count where they
     launch, so a replay moves no counter and the counts hold the eager
@@ -892,7 +1025,10 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev):
     against its plain version on the path's GBP-CS instances, ms per
     internal iteration eager and replayed, one traced replay, and the
     share of an iteration spent on drawing labels and images on the card
-    and on their threefry bits alone."""
+    and on their threefry bits alone. With ``corrupt`` (the robust
+    branch: the CLI's fault mode(s), ``extra`` its aggregator) the CLI run
+    must seat a corrupted member, and the graph and eager runs print their
+    peak device memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -918,6 +1054,9 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev):
         logs, counts, cli_ms = drive(label, argv, calls, torch)
     finally:
         fedgs.make_fedgs_experiment = make
+    if corrupt is not None and sum(rec["corrupted_selected"]
+                                   for rec in logs) <= 0:
+        fail(f"{label}: no corrupted member was seated in the run")
     rf = seen[0].round_fn
     if rf.captured != per_round or rf.replays != rounds:
         fail(f"{label}: the capture counted {rf.captured} for "
@@ -934,13 +1073,19 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev):
           f"wrapper counts (warm-up round + capture + eval) {counts}; "
           f"kernel executions on the card, traced: {run} = the host "
           f"loop's {host_expect} + the warm-up round", flush=True)
+    del seen, rf                  # the CLI run's graph and its memory pool
 
     # graph against eager, and the kernel on the path's GBP-CS instances
     t_rounds = 4
-    runs = {}
+    runs, peaks = {}, {}
     for graph in (True, False):
-        exp, sampler = fused_setup(torch, dev, extra, t_rounds, graph)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        exp, sampler = fused_setup(torch, dev, extra, t_rounds, graph,
+                                   corrupt)
         runs[graph] = fused_rounds(torch, exp, t_rounds) + (exp, sampler)
+        peaks[graph] = torch.cuda.max_memory_allocated() / 1e9
     (g_secs, g_mets, g_state, g_exp, sampler), (e_secs, e_mets, e_state,
                                                _, _) = runs[True], runs[False]
     leaves = lambda st: tree.leaves(st[0]) + list(st[1])
@@ -966,7 +1111,8 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev):
 
     dispatch.gbp_cs_loop = checked
     try:
-        fused_rounds(torch, fused_setup(torch, dev, extra, 2, False)[0], 2)
+        fused_rounds(torch, fused_setup(torch, dev, extra, 2, False,
+                                        corrupt)[0], 2)
     finally:
         dispatch.gbp_cs_loop = loop
     if worst > 1e-3:
@@ -981,7 +1127,10 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev):
           f"{eager_ms:.2f} (rounds {[round(1e3 * t / iters, 2) for t in e_secs]}"
           f", no eval); the CLI's last round, eval included: fused "
           f"{cli_ms:.1f}, host loop {host_ms:.1f} (this call), "
-          f"{host_ms / cli_ms:.2f}x", flush=True)
+          f"{host_ms / cli_ms:.2f}x; peak device memory graph "
+          f"{peaks[True]:.2f} GB (4 rounds, capture included), eager "
+          f"{peaks[False]:.2f} GB (the graph run's buffers still held)",
+          flush=True)
 
     # one traced replay
     rf = g_exp.round_fn
@@ -1627,7 +1776,8 @@ def main() -> None:
 
     kernels = [check_gbp_cs(torch, dev, probe), check_conv(torch, dev),
                check_agg(torch, dev), check_robust_agg(torch, dev),
-               check_topk_compress(torch, dev), check_int8(torch, dev)]
+               check_topk_compress(torch, dev), check_int8(torch, dev),
+               check_corrupt_rows(torch, dev)]
     torch.cuda.synchronize()
 
     # each path at full width: R rounds of T iterations, eval every E
@@ -1637,18 +1787,20 @@ def main() -> None:
                    "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
                    "agg_weighted": rounds, "robust_agg": 0,
                    "topk_compress": 0, "int8_quant": 0, "flash_attention": 0,
-                   "ssd_scan": 0}
+                   "ssd_scan": 0, "corrupt_rows": 0}
     _, main_counts, main_ms = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
     smoke_card_vs_cpu("main path", [])
 
     # robust path (DESIGN.md §15): per-member backward (the same conv
-    # launches, at G = M·L), one order-statistics launch per iteration, and
-    # the residual's finite-masked mean, one agg_weighted launch per group
+    # launches, at G = M·L), one fault-injection and one order-statistics
+    # launch per iteration, and the residual's finite-masked mean, one
+    # agg_weighted launch per group
     robust_expect = dict(main_expect, robust_agg=rounds * iters,
+                         corrupt_rows=rounds * iters,
                          agg_weighted=rounds + m * rounds * iters)
-    logs, robust_counts, _ = drive("robust path", flags + ROBUST_FLAGS,
-                                   robust_expect, torch)
+    logs, robust_counts, robust_ms = drive(
+        "robust path", flags + ROBUST_FLAGS, robust_expect, torch)
     if sum(rec["corrupted_selected"] for rec in logs) <= 0:
         fail("robust path: no corrupted member was seated in the run")
     print("robust path telemetry: " + "; ".join(
@@ -1698,6 +1850,17 @@ def main() -> None:
         compress_expect, compress_ms, torch, dev)
     smoke_card_vs_cpu("fused compress path",
                       ["--engine", "fused"] + COMPRESS_FLAGS)
+    # the fused robust path (DESIGN.md §15 on the device-resident engine):
+    # the fault trace staged with the round's keys, one corrupt_rows launch
+    # per iteration inside the graph, quarantine in the carry
+    fused_r_counts = fused_path(
+        "fused robust path", ROBUST_FLAGS,
+        dict(robust_agg=ROBUST_FLAGS[3]), robust_expect, robust_ms, torch,
+        dev, corrupt=ROBUST_FLAGS[1])
+    for extra in ([], ["--compress-int", "topk:0.1+int8"]):
+        smoke_card_vs_cpu(
+            "fused robust path" + (" compressed" if extra else ""),
+            ["--engine", "fused"] + FUSED_ROBUST_SMOKE_FLAGS + extra)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"fused phases: device memory allocated {mem0 / 1e9:.3f} GB "
@@ -1739,6 +1902,7 @@ def main() -> None:
                    "compress": compress_counts[k["name"]],
                    "fused": fused_counts[k["name"]],
                    "fused_compress": fused_c_counts[k["name"]],
+                   "fused_robust": fused_r_counts[k["name"]],
                    "lm": lm_counts[k["name"]],
                    "ssm": ssm_counts[k["name"]],
                    "hybrid": hybrid_counts[k["name"]]}

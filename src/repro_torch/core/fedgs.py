@@ -29,9 +29,10 @@ image generation and the train step, all drawn on the device from a
 round's staged keys, then the Eq. 5 sync and broadcast — with no host copy
 and no host read inside; :func:`make_fedgs_experiment` and
 :func:`run_fedgs_fused` drive it through ``engine.run_experiment``, on the
-card as a CUDA graph per round. Availability (§14), drift (§13), the
-robust branch of the fused round and the sharded engine are not part of
-the port yet.
+card as a CUDA graph per round, the robust layer of §15 included (the
+fault trace staged with the keys, applied by the ``corrupt_rows`` kernel).
+Availability (§14), drift (§13) and the sharded engine are not part of the
+port yet.
 """
 from __future__ import annotations
 
@@ -236,14 +237,18 @@ class RobustStep(NamedTuple):
     residual: torch.Tensor  # (M,) ‖robust aggregate − finite-masked mean‖
 
 
-def _train_robust(gp, batches, fresh_w, t: int, dev_ids, group_loss_fn,
+def _train_robust(gp, batches, fresh_w, trace, group_loss_fn,
                   cfg: FedGSConfig, corrupt_fn, agg_fn,
                   tx: Compressor | None = None):
     """Corruption-exposed Eq. (4) for all groups (DESIGN.md §15): the
     per-member gradients are materialised (fault injection and the order
-    statistics need the stack), corrupted, flattened ONCE into an
-    (M, L, P4) buffer, aggregated by ``agg_fn`` at the ``fresh_w`` weights,
-    and applied. The member stacks are freed before the step returns.
+    statistics need the stack), flattened ONCE into an (M·L, P4) buffer,
+    corrupted there in place by the seated members' fault ``trace`` (one
+    ``corrupt_fn.apply``: the ``corrupt_rows`` kernel on the card),
+    aggregated by ``agg_fn`` at the ``fresh_w`` weights, and applied.
+    ``trace`` is (code (M, L), noise keys (M, L, S, 2) or None) on the
+    device, ``CorruptionFn.device_trace``'s form, or None without
+    corruption. The member stacks are freed before the step returns.
     Returns (gp', (M,) mean loss, RobustStep); with ``tx`` the (M, P4)
     aggregate is EF-compressed after robust aggregation (the compressor
     never sees raw corrupted members) and (e', (M,) err) are appended."""
@@ -252,12 +257,19 @@ def _train_robust(gp, batches, fresh_w, t: int, dev_ids, group_loss_fn,
     m, l = losses.shape
     with torch.no_grad():
         with span("fedgs.train.corrupt"):
-            if corrupt_fn is not None:
-                grads, hit = corrupt_fn(grads, t, dev_ids.reshape(-1))
-            else:
-                hit = torch.zeros(m * l, device=losses.device)
-            flat = agg_weighted.flatten(grads, m * l).view(m, l, -1)
+            flat = agg_weighted.flatten(grads, m * l)
             del grads
+            if trace is not None:
+                code, keys = trace
+                corrupt_fn.apply(
+                    flat, code.reshape(-1),
+                    None if keys is None else keys.reshape(
+                        (m * l,) + keys.shape[-2:]),
+                    [leaf[0].numel() for leaf in tree.leaves(gp)])
+                hit = (code > 0).float()
+            else:
+                hit = torch.zeros(m, l, device=losses.device)
+            flat = flat.view(m, l, -1)
         with span("fedgs.train.aggregate"):
             stats = robust_agg.member_stats(flat)
             finite, norms, clean = stats
@@ -275,7 +287,7 @@ def _train_robust(gp, batches, fresh_w, t: int, dev_ids, group_loss_fn,
         if tx is not None:
             g, e, err = tx(g)
         new = sync.apply_sgd(gp, agg_weighted.unflatten(g, gp, 1), cfg.lr)
-    step = RobustStep(hit.reshape(m, l), flags, residual)
+    step = RobustStep(hit, flags, residual)
     if tx is None:
         return new, losses.mean(dim=-1), step
     return new, losses.mean(dim=-1), step, e, err
@@ -297,6 +309,53 @@ def _where_groups(pred: torch.Tensor, new, old):
     §15.3)."""
     return tree.map(lambda n, o: torch.where(
         pred.reshape((-1,) + (1,) * (n.dim() - 1)), n, o), new, old)
+
+
+def _seats(mask: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The L seats of each group in fetch order, ``argsort(-mask, stable)``
+    (``lax.top_k``'s order; never ``torch.topk`` on a 0/1 mask), and the
+    mask values there: ((M, L) indices, (M, L) weights)."""
+    idx = torch.argsort(-mask, dim=1, stable=True)[:, :l]
+    return idx, mask.gather(1, idx)
+
+
+ROBUST_METRICS = ("corrupted_selected", "clipped_fraction", "rollbacks",
+                  "agg_residual")
+
+
+def _robust_iteration(gp, batches, idx, vals, trace, quar, tx,
+                      group_loss_fn, cfg: FedGSConfig, corrupt_fn, agg_fn):
+    """One internal iteration of the robust layer (DESIGN.md §15) on the
+    device, the same code in the host loop and the fused round: the robust
+    step at the seats ``idx`` with weights ``vals`` (:func:`_seats`), the
+    NaN-guard rollback of non-finite groups (and of their EF residual when
+    compressing), and the quarantine counters' update, out of place.
+    Returns (gp', (M,) loss, quar', e_int', (M,) err, metrics): e_int' and
+    err are None without ``tx``, quar' None without ``quar``, and metrics
+    maps :data:`ROBUST_METRICS` and ``uploads`` (seats of positive weight)
+    to 0-d tensors. Nothing reads back to the host."""
+    gp_old = gp
+    out = _train_robust(gp, batches, vals, trace, group_loss_fn, cfg,
+                        corrupt_fn, agg_fn, tx)
+    gp, loss, rs = out[:3]
+    e_int, errs = out[3:] if tx is not None else (None, None)
+    rb = torch.zeros((), device=vals.device)
+    if corrupt_fn is not None and cfg.nan_guard:
+        finite_m = _group_finite(gp)
+        if tx is not None:
+            finite_m &= torch.isfinite(e_int).all(dim=1)
+            e_int = torch.where(finite_m[:, None], e_int, tx.e)
+        gp = _where_groups(finite_m, gp, gp_old)
+        rb = torch.sum(~finite_m).float()
+    if quar is not None:
+        quar = quar.scatter_add(1, idx, (rs.flags * vals).int())
+    mets = {"corrupted_selected": torch.sum(rs.hit * vals),
+            "clipped_fraction": torch.sum(rs.flags * vals)
+            / torch.clamp_min(vals.sum(), 1.0),
+            "rollbacks": rb,
+            "agg_residual": rs.residual.mean(),
+            "uploads": torch.sum((vals > 0).float())}
+    return gp, loss, quar, e_int, errs, mets
 
 
 def make_group_train_step(group_loss_fn, cfg: FedGSConfig):
@@ -368,7 +427,6 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                          "train_step='grad_avg' (the per-member gradient "
                          "stack)")
     quarantined = corrupt_fn is not None and cfg.quarantine_limit > 0
-    guard = corrupt_fn is not None and cfg.nan_guard
     agg_fn = dispatch.robust_agg_fn(cfg.robust_agg, clip=cfg.robust_clip,
                                     trim=cfg.robust_trim)
     train_step = make_group_train_step(group_loss_fn, cfg)
@@ -380,6 +438,7 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
     dist_c = torch.zeros(m, dtype=torch.float32, device=dev)
     quar = torch.zeros(m, k, dtype=torch.int32, device=dev)
     gids = np.arange(m)[:, None]
+    n_leaves = len(tree.leaves(params))
     # §18 compression: parsed specs, EF residuals, the Eq. 4/5 byte ledger
     # (one-direction payload of |θ| parameters, 4|θ| when dense)
     spec_int = compress.parse_compress(cfg.compress_int)
@@ -392,7 +451,7 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
     logs: list[RoundRecord] = []
     t = 0
     for r in range(cfg.rounds):
-        stats, rstats, cerrs, resel, uploads = [], [], [], 0, 0.0
+        stats, rstats, ups, cerrs, resel, uploads = [], [], [], [], 0, 0.0
         gp_round0 = gp          # round-entry broadcast model (Eq. 5 Δ base)
         for _ in range(cfg.iters_per_round):
             with span("fedgs.select"):
@@ -426,37 +485,25 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                            torch.as_tensor(labs, device=dev).long())
             with span("fedgs.train"):
                 if robust:
-                    # seats in fetch order: ties to the lower index, as
-                    # lax.top_k seats them (never torch.topk on a 0/1 mask)
-                    idx = np.argsort(-host_mask, axis=1, kind="stable")[:, :l]
-                    vals = np.take_along_axis(host_mask, idx, axis=1)
-                    fresh_w = torch.as_tensor(vals, device=dev)
-                    gp_old = gp
-                    out = _train_robust(
-                        gp, batches, fresh_w, t, gids * k + idx,
-                        group_loss_fn, cfg, corrupt_fn, agg_fn, tx)
-                    gp, loss, rs = out[:3]
-                    if tx is not None:
-                        e_int, errs = out[3:]
-                    rb = torch.zeros((), device=dev)
-                    if guard:
-                        finite_m = _group_finite(gp)
-                        if tx is not None:
-                            finite_m &= torch.isfinite(e_int).all(dim=1)
-                            e_int = torch.where(finite_m[:, None], e_int,
-                                                tx.e)
-                        gp = _where_groups(finite_m, gp, gp_old)
-                        rb = torch.sum(~finite_m).float()
+                    # the fault trace of the seated devices, hashed on the
+                    # host from their ids (seats as _seats orders them)
+                    trace = None if corrupt_fn is None else \
+                        corrupt_fn.device_trace(
+                            t, gids * k + np.argsort(
+                                -host_mask, axis=1, kind="stable")[:, :l],
+                            n_leaves, dev)
+                    idx, vals = _seats(mask_c, l)
+                    gp, loss, quar_new, e_new, errs, rm = _robust_iteration(
+                        gp, batches, idx, vals, trace,
+                        quar if quarantined else None, tx, group_loss_fn,
+                        cfg, corrupt_fn, agg_fn)
                     if quarantined:
-                        quar.scatter_add_(
-                            1, torch.as_tensor(idx, device=dev),
-                            (rs.flags * fresh_w).int())
-                    seated = max(float(vals.sum()), 1.0)
-                    rstats.append(torch.stack([
-                        torch.sum(rs.hit * fresh_w),
-                        torch.sum(rs.flags * fresh_w) / seated, rb,
-                        rs.residual.mean()]))
-                    uploads += float((vals > 0).sum())
+                        quar = quar_new
+                    if tx is not None:
+                        e_int = e_new
+                    rstats.append(torch.stack([rm[name] for name in
+                                               ROBUST_METRICS]))
+                    ups.append(rm["uploads"])
                 elif tx is not None:
                     gp, loss, e_int, errs = _train_all_groups(
                         gp, batches, group_loss_fn, cfg, tx)
@@ -484,6 +531,8 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                 tl, ta = (float(v) for v in eval_fn(global_params(gp)))
         loss, div, disc, dist = np.mean(
             torch.stack(stats).cpu().numpy().astype(np.float64), axis=0)
+        if ups:
+            uploads += float(torch.stack(ups).sum())
         fields = {}
         if rstats:
             rs_np = torch.stack(rstats).cpu().numpy().astype(np.float64)
@@ -521,12 +570,8 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
 # read, so on the card it is captured once as a CUDA graph and replayed.
 # ---------------------------------------------------------------------------
 
-def _fused_unported(cfg: FedGSConfig, avail_fn, corrupt_fn, mesh) -> None:
+def _fused_unported(cfg: FedGSConfig, avail_fn, mesh) -> None:
     """Raise for the fused-round branches the port does not have yet."""
-    if corrupt_fn is not None or cfg.robust_agg != "mean":
-        raise NotImplementedError(
-            "the robust branch of the fused round (DESIGN.md §15) is "
-            "ROADMAP item 22; run the host engine")
     if avail_fn is not None:
         raise NotImplementedError(
             "availability and bounded-async sync in the fused round "
@@ -540,40 +585,58 @@ def _fused_unported(cfg: FedGSConfig, avail_fn, corrupt_fn, mesh) -> None:
             "the group-sharded engine (DESIGN.md §8) is ROADMAP item 17")
 
 
-def init_selection_state(cfg: FedGSConfig, params) -> tuple:
+def init_selection_state(cfg: FedGSConfig, params, *,
+                         quarantine: bool = False) -> tuple:
     """Initial carried selection state of the round body, on the params'
     device: ``(mask (M, K), distance (M,))``, all zero (iteration 0 always
     selects), then the §18 error-feedback residuals — ``e_int`` then
-    ``e_ext``, each an (M, P4) zero buffer — where compression is on."""
+    ``e_ext``, each an (M, P4) zero buffer — where compression is on, and
+    with ``quarantine`` (corruption injection and ``quarantine_limit`` >
+    0, DESIGN.md §15.4) the (M, K) int32 outlier-flag counters LAST, as
+    the JAX package lays the carry out."""
     m, k = cfg.num_groups, cfg.devices_per_group
     dev = tree.leaves(params)[0].device
     sel = (torch.zeros(m, k, device=dev), torch.zeros(m, device=dev))
     on = [compress.parse_compress(spec) is not None
           for spec in (cfg.compress_int, cfg.compress_ext)]
-    if not any(on):
-        return sel
-    p4 = compress.zero_residual(tree.map(lambda v: v[None], params)).shape[1]
-    return sel + tuple(torch.zeros(m, p4, device=dev) for _ in range(sum(on)))
+    if any(on):
+        p4 = compress.zero_residual(
+            tree.map(lambda v: v[None], params)).shape[1]
+        sel += tuple(torch.zeros(m, p4, device=dev) for _ in range(sum(on)))
+    if quarantine:
+        sel += (torch.zeros(m, k, dtype=torch.int32, device=dev),)
+    return sel
 
 
 class RoundKeys:
     """One round's key material, derived on the host and packed into one
     int64 buffer of uint32 words: per iteration the pre-sample
     permutations (T, M, K), the random initializer's keys (T, M, 2), the
-    stream's label and image keys (T, M, 2, 2) and, with ``compress_int``,
-    the Eq. 4 keys (T, M, 2); with ``compress_ext`` the round's Eq. 5 keys
+    stream's label and image keys (T, M, 2, 2), with ``compress_int`` the
+    Eq. 4 keys (T, M, 2), and with a corruption schedule (``corrupt_fn``,
+    a ``data.CorruptionFn``) the fault trace of all M·K devices — codes
+    (T, M, K) and, when the mix draws noise, each leaf's noise keys
+    (T, M, K, S, 2) for the model's S = ``num_leaves`` leaves — at the
+    dense ids gid·K + slot; with ``compress_ext`` the round's Eq. 5 keys
     (M, 2). :meth:`host` advances the key chain exactly as the host loop
-    does; :meth:`views` names the parts of a buffer."""
+    does (the trace hashes its own keys and leaves the chain alone);
+    :meth:`views` names the parts of a buffer."""
 
-    def __init__(self, cfg: FedGSConfig, sampler):
+    def __init__(self, cfg: FedGSConfig, sampler, corrupt_fn=None,
+                 num_leaves: int = 0):
         t, m, k = cfg.iters_per_round, cfg.num_groups, cfg.devices_per_group
         self.cfg, self.sampler = cfg, sampler
+        self.corrupt_fn, self.num_leaves = corrupt_fn, num_leaves
         self.spec_int = compress.parse_compress(cfg.compress_int)
         self.spec_ext = compress.parse_compress(cfg.compress_ext)
         self.shapes = {"perm": (t, m, k), "opt": (t, m, 2),
                        "data": (t, m, 2, 2)}
         if self.spec_int is not None:
             self.shapes["cint"] = (t, m, 2)
+        if corrupt_fn is not None:
+            self.shapes["ccode"] = (t, m, k)
+            if corrupt_fn.noisy:
+                self.shapes["cnoise"] = (t, m, k, num_leaves, 2)
         if self.spec_ext is not None:
             self.shapes["cext"] = (m, 2)
         self.size = sum(math.prod(s) for s in self.shapes.values())
@@ -594,6 +657,12 @@ class RoundKeys:
             if self.spec_int is not None:
                 parts["cint"].append(prng.split(prng.fold_in(
                     sub, compress.FOLD_COMPRESS), m))
+            if self.corrupt_fn is not None:
+                code, noise = self.corrupt_fn.trace(
+                    t0 + i, np.arange(m * k).reshape(m, k), self.num_leaves)
+                parts["ccode"].append(code)
+                if noise is not None:
+                    parts["cnoise"].append(noise)
         if self.spec_ext is not None:
             key, esub = prng.split(key)
             parts["cext"] = prng.split(esub, m)
@@ -624,47 +693,93 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
     (:func:`_train_all_groups`, or the ``model_avg`` step), with the §18
     Eq. 4 compression and its EF residual in the carry; the round ends with
     the Eq. 5 compression of the round delta, the Eq. 5 average and the
-    broadcast. ``metrics`` holds (T,) tensors ``loss``, ``divergence``,
+    broadcast. With ``corrupt_fn`` (a ``data.CorruptionFn``) or
+    ``cfg.robust_agg != 'mean'`` each iteration runs the robust layer
+    instead (DESIGN.md §15, :func:`_robust_iteration`): the quarantine
+    counters (the carry's last leaf) bar repeat offenders from selection,
+    the seated members' fault trace is gathered from the staged trace of
+    all devices, and the per-member step, the NaN guard and the counters'
+    update follow, as in the host loop.
+
+    ``metrics`` holds (T,) tensors ``loss``, ``divergence``,
     ``group_discrepancy``, ``selection_distance``, ``reselected``,
-    ``bytes_int`` (and ``compress_error_int``), and the round's
-    ``bytes_ext`` (and ``compress_error_ext``). Nothing reads back to the
-    host or copies from it; ``pinv_fn`` is handed to the mpinv initializer
-    (a captured round breaks its graph there). The robust branch,
-    availability, ``reselect_every != 1`` and ``mesh`` raise
-    ``NotImplementedError``."""
-    _fused_unported(cfg, avail_fn, corrupt_fn, mesh)
+    ``bytes_int`` (and ``compress_error_int``; on the robust layer also
+    :data:`ROBUST_METRICS`), and the round's ``bytes_ext`` (and
+    ``compress_error_ext``). Nothing reads back to the host or copies from
+    it; ``pinv_fn`` is handed to the mpinv initializer (a captured round
+    breaks its graph there). Availability, ``reselect_every != 1`` and
+    ``mesh`` raise ``NotImplementedError``."""
+    _fused_unported(cfg, avail_fn, mesh)
     m, k, l = cfg.num_groups, cfg.devices_per_group, cfg.num_selected
+    robust = corrupt_fn is not None or cfg.robust_agg != "mean"
+    if robust and cfg.train_step != "grad_avg":
+        raise ValueError("corruption injection and robust_agg require "
+                         "train_step='grad_avg' (the per-member gradient "
+                         "stack)")
+    quarantined = corrupt_fn is not None and cfg.quarantine_limit > 0
+    agg_fn = dispatch.robust_agg_fn(cfg.robust_agg, clip=cfg.robust_clip,
+                                    trim=cfg.robust_trim) if robust else None
     spec_int = compress.parse_compress(cfg.compress_int)
     spec_ext = compress.parse_compress(cfg.compress_ext)
+    i_eext = 2 + (spec_int is not None)
     train_step = make_group_train_step(group_loss_fn, cfg)
     gids = torch.arange(m, device=sampler.device)
 
+    def seated_trace(keys, i, idx):
+        """The staged trace of iteration i gathered at the seats idx."""
+        if corrupt_fn is None:
+            return None
+        code = keys["ccode"][i].gather(1, idx)
+        noise = keys.get("cnoise")
+        if noise is not None:
+            s = noise.shape[-2]
+            noise = noise[i].gather(1, idx[..., None, None].expand(
+                m, l, s, 2))
+        return code, noise
+
     def body(gp, sel, keys, p_real, pinv_fn=None):
         n_par = sum(leaf[0].numel() for leaf in tree.leaves(gp))
+        payload_int = compress.payload_bytes(n_par, spec_int)
         gp_round0 = gp
         mask, dist = sel[0], sel[1]
         e_int = sel[2] if spec_int is not None else None
-        rows = {name: [] for name in ("loss", "divergence",
-                                      "group_discrepancy",
-                                      "selection_distance")}
+        quar = sel[-1] if quarantined else None
+        names = ("loss", "divergence", "group_discrepancy",
+                 "selection_distance") + (ROBUST_METRICS + ("bytes_int",)
+                                          if robust else ())
+        rows = {name: [] for name in names}
         cerrs = []
         for i in range(cfg.iters_per_round):
             labels = sampler.labels(keys["data"][i], gids)
             counts = sampler.counts(labels)
+            avail = selection.quarantine_mask(
+                quar, cfg.quarantine_limit) if quarantined else None
             res = selection.select_presampled(
                 keys["perm"][i], keys["opt"][i], counts, p_real, l,
-                cfg.num_presampled, method=cfg.selection, init=cfg.init,
-                max_iters=cfg.gbp_max_iters, pinv_fn=pinv_fn)
+                cfg.num_presampled, avail=avail, method=cfg.selection,
+                init=cfg.init, max_iters=cfg.gbp_max_iters, pinv_fn=pinv_fn)
             mask, dist = res.mask, res.distance
             batches = sampler.selected_batch(labels, keys["data"][i], gids,
                                              mask, l)
-            if spec_int is not None:
-                tx = Compressor(spec_int, e_int, keys["cint"][i], n_par)
+            tx = None if spec_int is None else Compressor(
+                spec_int, e_int, keys["cint"][i], n_par)
+            if robust:
+                idx, vals = _seats(mask, l)
+                gp, loss, quar, e_new, errs, rm = _robust_iteration(
+                    gp, batches, idx, vals, seated_trace(keys, i, idx), quar,
+                    tx, group_loss_fn, cfg, corrupt_fn, agg_fn)
+                for name in ROBUST_METRICS:
+                    rows[name].append(rm[name])
+                rows["bytes_int"].append(2.0 * payload_int * rm["uploads"])
+                if tx is not None:
+                    e_int = e_new
+            elif tx is not None:
                 gp, loss, e_int, errs = _train_all_groups(
                     gp, batches, group_loss_fn, cfg, tx)
-                cerrs.append(errs.mean())
             else:
                 gp, loss = train_step(gp, batches)
+            if tx is not None:
+                cerrs.append(errs.mean())
             rows["loss"].append(loss.mean())
             rows["divergence"].append(res.divergence.mean())
             rows["group_discrepancy"].append(
@@ -673,18 +788,20 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
         mets = {name: torch.stack(v) for name, v in rows.items()}
         t = cfg.iters_per_round
         mets["reselected"] = torch.ones(t, device=gids.device)
-        mets["bytes_int"] = torch.full(
-            (t,), 2.0 * compress.payload_bytes(n_par, spec_int) * m * l,
-            device=gids.device)
+        if not robust:
+            mets["bytes_int"] = torch.full((t,), 2.0 * payload_int * m * l,
+                                           device=gids.device)
         new_sel = (mask, dist)
         if spec_int is not None:
             new_sel += (e_int,)
             mets["compress_error_int"] = torch.stack(cerrs)
         if spec_ext is not None:
             gp, e_ext, err = _external_compress(
-                gp_round0, gp, sel[-1], keys["cext"], spec_ext, n_par)
+                gp_round0, gp, sel[i_eext], keys["cext"], spec_ext, n_par)
             new_sel += (e_ext,)
             mets["compress_error_ext"] = err.mean()
+        if quarantined:
+            new_sel += (quar,)
         mets["bytes_ext"] = torch.full(
             (), 2.0 * compress.payload_bytes(n_par, spec_ext) * m,
             device=gids.device)
@@ -702,6 +819,11 @@ def _round_record_metrics(mets: dict, cfg: FedGSConfig) -> dict:
            "reselections": mets["reselected"].sum(),
            "bytes_int": mets["bytes_int"].sum(),
            "bytes_ext": mets["bytes_ext"]}
+    if "corrupted_selected" in mets:
+        out["corrupted_selected"] = mets["corrupted_selected"].sum()
+        out["clipped_fraction"] = mets["clipped_fraction"].mean()
+        out["rollbacks"] = mets["rollbacks"].sum()
+        out["agg_residual"] = mets["agg_residual"].mean()
     errs = []
     if "compress_error_int" in mets:
         errs.append(mets["compress_error_int"].sum())
@@ -775,6 +897,11 @@ class FusedRound:
         with torch.cuda.stream(side):        # warm-up, outputs dropped
             self.body(static_gp, static_sel, self.keys, self.p_real)
         torch.cuda.current_stream().wait_stream(side)
+        # the warm-up's cached blocks cannot serve the graph's private
+        # pool: hand them back first (the robust round's member stacks
+        # are 2.64 GB each at full width)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         self.segments = engine.SegmentedGraph()
         before = dispatch.launch_counts()
         with self.segments.capture() as segs:
@@ -802,16 +929,18 @@ def make_fedgs_experiment(params, sampler, p_real, cfg: FedGSConfig, *,
     body = make_round_body(group_loss_fn, cfg, sampler, avail_fn=avail_fn,
                            corrupt_fn=corrupt_fn, mesh=mesh)
     dev = tree.leaves(params)[0].device
+    quarantine = corrupt_fn is not None and cfg.quarantine_limit > 0
     if graph is None:
         graph = dev.type == "cuda"
     if graph and dev.type != "cuda":
         raise ValueError("a CUDA graph needs the params on a card")
     p_real = torch.as_tensor(np.asarray(p_real), dtype=torch.float32,
                              device=dev)
-    round_fn = FusedRound(body, RoundKeys(cfg, sampler), cfg, p_real, dev,
-                          graph)
+    layout = RoundKeys(cfg, sampler, corrupt_fn, len(tree.leaves(params)))
+    round_fn = FusedRound(body, layout, cfg, p_real, dev, graph)
     state = (replicate_for_groups(params, cfg.num_groups),
-             init_selection_state(cfg, params), prng.PRNGKey(cfg.seed))
+             init_selection_state(cfg, params, quarantine=quarantine),
+             prng.PRNGKey(cfg.seed))
     # every group row holds the broadcast global model: row 0 is ω_t
     params_fn = lambda st: tree.map(lambda leaf: leaf[0], st[0])
     return engine.Experiment(

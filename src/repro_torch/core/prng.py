@@ -245,16 +245,18 @@ def normal_t(key, shape: tuple, device=None) -> torch.Tensor:
     return _normal_from_bits(random_bits_t(key, shape, device))
 
 
-def normal_segments_t(keys: np.ndarray, sizes: list[int], device
-                      ) -> torch.Tensor:
+def normal_segments_t(keys, sizes: list[int], device) -> torch.Tensor:
     """Rows of concatenated draws in one pass on ``device``: keys (R, S, 2)
-    → (R, Σ sizes), row r being ``normal(keys[r, s], (sizes[s],))`` for
+    (numpy uint32 words, or an int64 tensor of them on ``device``) →
+    (R, Σ sizes), row r being ``normal(keys[r, s], (sizes[s],))`` for
     s = 0, 1, … side by side — one draw per (member, leaf) of a gradient
     stack without a pass per leaf."""
     n = torch.as_tensor(sizes, device=device)
     seg = torch.repeat_interleave(torch.arange(len(sizes), device=device), n)
     counters = torch.arange(seg.numel(), device=device) - \
         (torch.cumsum(n, 0) - n)[seg]
-    key = torch.as_tensor(np.asarray(keys, np.int64), device=device)[:, seg]
+    if not isinstance(keys, torch.Tensor):
+        keys = torch.as_tensor(np.asarray(keys, np.int64), device=device)
+    key = keys[:, seg]
     b1, b2 = threefry2x32_t(key, 0, counters)
     return _normal_from_bits(b1 ^ b2)

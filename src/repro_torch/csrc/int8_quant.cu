@@ -30,41 +30,16 @@
 // Design: two launches after a 4-byte-per-row memset, a max-abs reduction
 // (contiguous chunks per block, warp and block max, one atomicMax per
 // block) and the quantizer, one float4 of coordinates per thread per step,
-// with the 20 rounds unrolled in registers.
+// with the 20 rounds unrolled in registers (csrc/threefry.cuh).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned rotl(unsigned v, int r) {
-  return __funnelshift_l(v, v, r);
-}
-
-// threefry2x32 (20 rounds) of the counter (0, i) under (k0, k1); returns
-// the 32 random bits b1 ^ b2 that jax.random.bits draws for element i.
-__device__ __forceinline__ unsigned threefry_bits(unsigned k0, unsigned k1,
-                                                  unsigned i) {
-  const unsigned k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  unsigned a = k0, b = i + k1;
-#define TF_MIX(r) \
-  a += b;         \
-  b = rotl(b, r) ^ a;
-  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  a += k1; b += k2 + 1u;
-  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
-  a += k2; b += k0 + 2u;
-  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  a += k0; b += k1 + 3u;
-  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
-  a += k1; b += k2 + 4u;
-  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  a += k2; b += k0 + 5u;
-#undef TF_MIX
-  return a ^ b;
-}
 
 __device__ __forceinline__ unsigned mag_bits(float f) {
   return __float_as_uint(f) & 0x7fffffffu;
@@ -98,8 +73,7 @@ __device__ __forceinline__ float quant1(float x, float scale, unsigned k0,
                                         unsigned k1, unsigned i) {
   const float y = __fdiv_rn(x, scale);
   const float lo = floorf(y);
-  const unsigned bits = threefry_bits(k0, k1, i);
-  const float u = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.f);
+  const float u = threefry::unit_uniform(threefry::threefry_bits(k0, k1, i));
   float qv = __fadd_rn(lo, u < __fsub_rn(y, lo) ? 1.f : 0.f);
   qv = qv < -127.f ? -127.f : (qv > 127.f ? 127.f : qv);
   return __fmul_rn(qv, scale);

@@ -22,6 +22,7 @@ import torch
 
 from .. import tree
 from ..core import prng
+from ..kernels import agg_weighted, corrupt
 from . import femnist
 from .partition import Partition
 
@@ -86,8 +87,7 @@ class FactoryStreams:
 # emits a poisoned/faulty *update* (sensor fault, firmware bug, adversary).
 # ---------------------------------------------------------------------------
 
-CORRUPTION_MODES = ("nan_burst", "inf_spike", "scale", "sign_flip",
-                    "gauss_noise")
+CORRUPTION_MODES = corrupt.MODES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,67 +138,90 @@ class CorruptionConfig:
             raise ValueError(f"sigma must be > 0, got {self.sigma}")
 
 
+class CorruptionFn:
+    """One corruption schedule's fault trace (DESIGN.md §15.1), split into
+    a host trace and a device apply.
+
+    :meth:`trace` hashes, in numpy, the JAX package's ``fold_in`` keys (606
+    off the seed) for any array of flat device ids (gid·K + k) at
+    iteration t: faulty membership, firing, the per-device mode and the
+    per-(device, t, leaf) noise keys, so both packages corrupt the same
+    members the same way. :meth:`apply` rewrites the rows of a flat
+    (R, P4) member buffer on its device from that trace in one call of
+    ``kernels.corrupt.corrupt_rows`` (the kernel on the card), reading
+    nothing back: the trace's tensors may come from staged keys, as in the
+    fused round. ``corrupt_fn(grads, t, ids) -> (grads', hit)`` is the
+    two together on a stacked per-member gradient tree (leaves (D, ...)),
+    the JAX package's ``make_corruption_fn`` contract: the corrupted stack
+    and the (D,) float32 ground-truth hit mask on the leaves' device."""
+
+    def __init__(self, config: CorruptionConfig, seed: int):
+        self.config = config
+        self.modes = config.modes
+        base_key = prng.fold_in(prng.PRNGKey(seed), 606)
+        self._k_faulty, self._k_mode, self._k_fire, self._k_noise = (
+            prng.fold_in(base_key, i) for i in (1, 2, 3, 4))
+
+    @property
+    def noisy(self) -> bool:
+        """Does the mix draw Gaussian noise (so the trace carries keys)?"""
+        return "gauss_noise" in self.modes
+
+    def trace(self, t: int, ids, num_leaves: int):
+        """(code, keys) of the devices ``ids`` (any shape (...,)) at
+        iteration ``t``: code (...,) int32, 0 for an untouched device, else
+        1 + its mode's index in ``modes``; keys (..., S, 2) uint32, each
+        leaf's noise key ``fold_in(fold_in(fold_in(k_noise, id), t), s)``
+        for the S = ``num_leaves`` leaves, or None when no mode draws
+        noise."""
+        c = self.config
+        ids = np.asarray(ids, np.int64)
+        faulty = prng.bernoulli(prng.fold_in(self._k_faulty, ids), c.frac)
+        fire = prng.bernoulli(prng.fold_in(prng.fold_in(self._k_fire, ids),
+                                           t), c.prob)
+        hit = faulty & fire & (t >= c.t0)
+        midx = prng.randint(prng.fold_in(self._k_mode, ids), (), 0,
+                            len(self.modes))
+        code = np.where(hit, midx + 1, 0).astype(np.int32)
+        if not self.noisy:
+            return code, None
+        nkeys = prng.fold_in(prng.fold_in(self._k_noise, ids), t)
+        return code, prng.fold_in(nkeys[..., None, :], np.arange(num_leaves))
+
+    def apply(self, flat: torch.Tensor, code: torch.Tensor, keys, sizes
+              ) -> torch.Tensor:
+        """Corrupt the rows of ``flat`` (R, P4) in place from a trace on its
+        device: code (R,), keys (R, S, 2) int64 words or None; ``sizes``
+        are the S leaves' coordinate counts in column order."""
+        c = self.config
+        return corrupt.corrupt_rows(flat, code, keys, sizes, self.modes,
+                                    c.scale, c.sigma)
+
+    def device_trace(self, t: int, ids, num_leaves: int, device):
+        """:meth:`trace` as tensors on ``device``: (code int32, keys int64
+        or None)."""
+        code, keys = self.trace(t, ids, num_leaves)
+        return (torch.as_tensor(code, device=device),
+                None if keys is None else
+                torch.as_tensor(keys.astype(np.int64), device=device))
+
+    def __call__(self, grads, t: int, ids):
+        leaves = tree.leaves(grads)
+        d, dev = leaves[0].shape[0], leaves[0].device
+        code, keys = self.device_trace(
+            t, np.asarray(torch.as_tensor(ids).cpu(), np.int64), len(leaves),
+            dev)
+        flat = agg_weighted.flatten(grads, d)
+        self.apply(flat, code, keys, [leaf[0].numel() for leaf in leaves])
+        return agg_weighted.unflatten(flat, grads, 1), (code > 0).float()
+
+
 def make_corruption_fn(corrupt: CorruptionConfig | None, seed: int):
-    """Build ``corrupt_fn(grads, t, ids) -> (grads', hit)`` for one schedule.
-
-    ``grads`` is a stacked per-member gradient tree (leaves (D, ...)),
-    ``ids`` the (D,) flat device ids of those members (gid·K + k), ``t``
-    the iteration index. Returns the corrupted stack and the (D,) float32
-    ground-truth hit mask on the leaves' device. The fault trace — faulty
-    membership, firing, the per-device mode and the noise keys — hashes the
-    JAX package's ``fold_in`` keys (606 off the seed), so both packages
-    corrupt the same members the same way; the trace is drawn on the host
-    from the (D,) ids alone.
-
-    Only the rows of hit members are touched, and they are overwritten IN
-    PLACE (one indexed write per mode and leaf, no candidate tensor per
-    mode): the caller hands over gradient buffers it owns. Gaussian noise is
-    drawn on the leaves' device, only for the members that need it, every
-    leaf of every such member in one pass (``prng.normal_segments_t``).
-    ``corrupt=None`` returns None.
-    """
+    """The schedule's :class:`CorruptionFn` (``corrupt=None`` returns
+    None)."""
     if corrupt is None:
         return None
-    modes = corrupt.modes
-    base_key = prng.fold_in(prng.PRNGKey(seed), 606)
-    k_faulty, k_mode, k_fire, k_noise = (prng.fold_in(base_key, i)
-                                         for i in (1, 2, 3, 4))
-
-    def corrupt_fn(grads, t: int, ids):
-        ids = np.asarray(torch.as_tensor(ids).cpu(), np.int64)
-        faulty = prng.bernoulli(prng.fold_in(k_faulty, ids), corrupt.frac)
-        fire = prng.bernoulli(prng.fold_in(prng.fold_in(k_fire, ids), t),
-                              corrupt.prob)
-        hit = faulty & fire & (t >= corrupt.t0)
-        midx = prng.randint(prng.fold_in(k_mode, ids), (), 0, len(modes))
-        leaves = tree.leaves(grads)
-        dev = leaves[0].device
-        for j, mode in enumerate(modes):
-            rows = np.flatnonzero(hit & (midx == j))
-            if rows.size == 0:
-                continue
-            r = torch.as_tensor(rows, device=dev)
-            if mode == "gauss_noise":   # per (device, t, leaf) keys
-                nkeys = prng.fold_in(prng.fold_in(k_noise, ids[rows]), t)
-                sizes = [x[0].numel() for x in leaves]
-                noise = prng.normal_segments_t(
-                    prng.fold_in(nkeys[:, None], np.arange(len(leaves))),
-                    sizes, dev).split(sizes, dim=1)
-            for li, x in enumerate(leaves):
-                if mode == "nan_burst":
-                    x[r] = float("nan")
-                elif mode == "inf_spike":
-                    x[r] = float("inf")
-                elif mode == "scale":
-                    x[r] = x[r] * corrupt.scale
-                elif mode == "sign_flip":
-                    x[r] = -x[r]
-                else:
-                    x[r] = x[r] + corrupt.sigma * noise[li].reshape(
-                        (len(rows),) + x.shape[1:])
-        return grads, torch.as_tensor(hit, dtype=torch.float32, device=dev)
-
-    return corrupt_fn
+    return CorruptionFn(corrupt, seed)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ SIGNATURES = {
     "robust_agg_f32": [_P, _P, _P, _I, _I, _L, _I, _I, _P],
     "topk_compress_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _L, _P],
     "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
+    "corrupt_rows_f32": [_P, _P, _P, _I, _L, _P, _I, _P, _I, _F, _F, _P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9
     + [_I, _I, _F, _P],
     "ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P],
@@ -51,8 +52,10 @@ def sources() -> list[pathlib.Path]:
 
 
 def _digest() -> str:
+    """Hash of the target and every source and header: editing a shared
+    header (``threefry.cuh``) rebuilds the library too."""
     h = hashlib.sha256(ARCH.encode())
-    for src in sources():
+    for src in sorted(sources() + list(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -36,16 +36,23 @@ round's ``bytes_int`` / ``bytes_ext`` ledger and ``compress_error`` go to
 labels, counts and images drawn on the device from the threefry key
 chain, each round one CUDA graph on the card (eager on the CPU), the
 metrics read back once per ``--eval-chunk`` rounds. It prints the JAX
-CLI's ``--engine fused`` round lines; it has no robust branch yet
-(``--corrupt``/``--robust-agg`` raise there), and ``--engine sharded``
-raises. The JAX CLI's other scenario flags (availability, drift,
-populations, baselines) are not ported yet and are rejected.
+CLI's ``--engine fused`` round lines, the robust flags included (the
+fault trace of every device staged with the round's keys, quarantine
+counters in the carried state):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --engine fused \\
+      --corrupt scale+nan_burst+gauss_noise --corrupt-frac 0.2 \\
+      --robust-agg trimmed_mean --quarantine-limit 3
+
+``--engine sharded`` raises. The JAX CLI's other scenario flags
+(availability, drift, populations, baselines) are not ported yet and are
+rejected.
 
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
-averages, the robust order statistics, the top-k selection (DESIGN.md
-§18.2) and the stochastic int8 quantizer run as the port's CUDA kernels;
-``--device cpu`` runs their plain PyTorch versions instead. Asking for
-``cuda`` without a card is an error.
+averages, the fault injection, the robust order statistics, the top-k
+selection (DESIGN.md §18.2) and the stochastic int8 quantizer run as the
+port's CUDA kernels; ``--device cpu`` runs their plain PyTorch versions
+instead. Asking for ``cuda`` without a card is an error.
 """
 from __future__ import annotations
 

@@ -15,16 +15,19 @@ def leaves(tree: Tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def _build(node: Tree, it) -> Tree:
+    if isinstance(node, dict):
+        return {key: _build(node[key], it) for key in sorted(node)}
+    return next(it)
+
+
 def unflatten(like: Tree, flat: list) -> Tree:
-    """A tree shaped like ``like`` holding ``flat`` (in :func:`leaves` order)."""
-    it = iter(flat)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {key: build(node[key]) for key in sorted(node)}
-        return next(it)
-
-    return build(like)
+    """A tree shaped like ``like`` holding ``flat`` (in :func:`leaves` order).
+    A module-level recursion: a nested one would close over itself, and
+    that cycle would keep ``flat``'s tensors alive until the garbage
+    collector ran (the robust step's member stacks, gigabytes on the
+    card)."""
+    return _build(like, iter(flat))
 
 
 def map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:  # noqa: A001

@@ -4,7 +4,8 @@ L_rnd=1, T=5, R=3, n=8, the smoke CNN), on the CPU: the device stream's
 counts and labels exactly and its images to ``IMG_TOL``, the selections of
 every iteration exactly, ``run_fedgs_fused`` against JAX's, against the
 port's own host loop over ``DeviceBackedStreams``, chunk 1 against chunk R,
-the CLI against the JAX CLI, and the branches the port refuses."""
+the robust branch (DESIGN.md §15) against the host loop, the CLI against
+the JAX CLI, and the branches the port refuses."""
 import contextlib
 import io
 import json
@@ -25,8 +26,9 @@ from repro.data import make_device_sampler as jmake_device_sampler
 from repro.models import cnn as jcnn
 from repro_torch import convert, tree
 from repro_torch.core import engine, fedgs, prng, selection
-from repro_torch.data import (DeviceBackedStreams, DeviceStream,
-                              PartitionConfig, femnist, make_device_sampler,
+from repro_torch.data import (CorruptionConfig, DeviceBackedStreams,
+                              DeviceStream, PartitionConfig, femnist,
+                              make_corruption_fn, make_device_sampler,
                               make_partition, streaming)
 from repro_torch.kernels import int8_quant
 from repro_torch.launch import train
@@ -39,6 +41,9 @@ CFG = dict(num_groups=4, devices_per_group=8, num_selected=4,
 COMPRESS = dict(compress_int="topk:0.01+int8", compress_ext="int8")
 COMPRESS_FLAGS = ["--compress-int", "topk:0.01+int8", "--compress-ext",
                   "int8"]
+ROBUST_FLAGS = ["--corrupt", "scale+nan_burst+gauss_noise", "--corrupt-frac",
+                "0.25", "--quarantine-limit", "2", "--robust-agg",
+                "trimmed_mean"]
 # the smoke command's config (SMOKE, test_torch_train.py): GBP-CS at its
 # default cap of 64 steps
 CLI_CFG = dict(CFG, gbp_max_iters=64)
@@ -74,14 +79,15 @@ def setup():
 @pytest.fixture(scope="module")
 def jax_cli(tmp_path_factory):
     """The JAX CLI's ``--engine fused`` run on the smoke command, once per
-    arm (plain, compressed): its round lines, its ``--log-json`` records
-    and its final params (``--ckpt-dir``), reused by the engine and CLI
-    tests. Its per-round and chunked read-backs print the same lines, so
+    arm (plain, compressed, robust): its round lines, its ``--log-json``
+    records and its final params (``--ckpt-dir``), reused by the engine
+    and CLI tests. Its per-round and chunked read-backs print the same lines, so
     the port's ``--eval-chunk 3`` is held to the per-round run."""
     from repro import checkpoint as jckpt
     from repro.launch import train as jtrain
     out = {}
-    for name, flags in (("plain", []), ("compress", COMPRESS_FLAGS)):
+    for name, flags in (("plain", []), ("compress", COMPRESS_FLAGS),
+                        ("robust", ROBUST_FLAGS)):
         tmp = tmp_path_factory.mktemp(f"jax_{name}")
         argv = ["train"] + SMOKE + ["--engine", "fused", "--log-json",
                                     str(tmp / "log.json"), "--ckpt-dir",
@@ -262,6 +268,51 @@ def test_fused_matches_host_loop(setup):
             (h.reselections, h.bytes_int, h.bytes_ext)
 
 
+@pytest.mark.parametrize("mode,method", [
+    ("scale", "clip_norm"), ("nan_burst", "trimmed_mean"),
+    ("sign_flip+gauss_noise", "coord_median"), ("inf_spike", "mean")])
+def test_fused_robust_matches_host_loop(setup, mode, method, monkeypatch):
+    """The robust branch of the fused round (DESIGN.md §15: staged fault
+    trace, per-member step, NaN guard, quarantine in the carry) against
+    the port's robust host loop over the same device stream, for the JAX
+    package's four (mode, aggregator) pairs: params to 1e-5, ``corr`` and
+    ``rb`` equal, ``clip`` and the residual to 1e-4, and the quarantine
+    counters equal at every iteration (each one read as selection reads
+    it), so after each round too."""
+    part, _, sampler, _, params = setup
+    cfg = fedgs.FedGSConfig(**dict(CFG, rounds=2), robust_agg=method,
+                            robust_clip=5.0, quarantine_limit=2)
+    cfn = make_corruption_fn(CorruptionConfig(mode=mode, frac=0.3, prob=0.6),
+                             0)
+    seen, quarantine_mask = [], selection.quarantine_mask
+    monkeypatch.setattr(selection, "quarantine_mask", lambda q, limit: (
+        seen.append(q.clone()), quarantine_mask(q, limit))[1])
+    fused, flogs = fedgs.run_fedgs_fused(
+        params, sampler, part.p_real, cfg,
+        group_loss_fn=cnn.make_group_loss_fn(), corrupt_fn=cfn)
+    fused_q = list(seen)
+    seen.clear()
+    host, hlogs = fedgs.run_fedgs(params, DeviceBackedStreams(sampler),
+                                  part.p_real, cfg,
+                                  group_loss_fn=cnn.make_group_loss_fn(),
+                                  corrupt_fn=cfn)
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(tree.leaves(fused), tree.leaves(host), strict=True))
+    assert diff <= 1e-5
+    for f, h in zip(flogs, hlogs, strict=True):
+        assert f.loss == pytest.approx(h.loss, abs=1e-5)
+        assert (f.corrupted_selected, f.rollbacks) == \
+            (h.corrupted_selected, h.rollbacks)
+        assert f.clipped_fraction == pytest.approx(h.clipped_fraction,
+                                                   abs=1e-4)
+        assert f.agg_residual == pytest.approx(h.agg_residual, abs=1e-4)
+        assert f.bytes_int == h.bytes_int
+    assert sum(f.corrupted_selected for f in flogs) > 0
+    assert len(fused_q) == len(seen) == 2 * CFG["iters_per_round"]
+    assert all(torch.equal(a, b) for a, b in zip(fused_q, seen))
+    assert int(seen[-1].sum()) > 0
+
+
 def test_chunk_one_equals_chunk_r(setup):
     """Reading the metrics back per round or once per run changes nothing:
     the same records, eval (on the device, every 2nd round) included."""
@@ -296,15 +347,12 @@ def test_unported_branches_raise(setup):
     run = lambda cfg=CFG, **kw: fedgs.run_fedgs_fused(
         params, sampler, part.p_real, fedgs.FedGSConfig(**cfg),
         group_loss_fn=cnn.make_group_loss_fn(), **kw)
-    for kw, item in ((dict(corrupt_fn=lambda g, t, i: (g, None)), "22"),
-                     (dict(avail_fn=lambda t, ids: ids), "12"),
+    for kw, item in ((dict(avail_fn=lambda t, ids: ids), "12"),
                      (dict(mesh=object()), "17")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             run(**kw)
-    for cfg, item in ((dict(CFG, robust_agg="trimmed_mean"), "22"),
-                      (dict(CFG, reselect_every=2), "11")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            run(cfg)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run(dict(CFG, reselect_every=2))
     stream = DeviceStream.from_partition(part, batch_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         make_device_sampler(stream, drift=object())
@@ -318,11 +366,12 @@ def test_unported_branches_raise(setup):
 
 @pytest.mark.parametrize("port_flags,arm", [
     (["--eval-chunk", "1"], "plain"), (["--eval-chunk", "3"], "plain"),
-    (COMPRESS_FLAGS, "compress"),
-], ids=["chunk1", "chunk3", "compress"])
+    (COMPRESS_FLAGS, "compress"), (ROBUST_FLAGS, "robust"),
+], ids=["chunk1", "chunk3", "compress", "robust"])
 def test_fused_cli_matches_reference(port_flags, arm, jax_cli, capsys):
     """``--engine fused`` prints the JAX CLI's fused round lines to 1e-4
-    (``resel`` equal), per-round and chunked read-back, and compressed."""
+    (``resel``, and on the robust branch ``corr`` and ``rb``, equal),
+    per-round and chunked read-back, compressed, and robust."""
     ref = jax_cli[arm][0]
     capsys.readouterr()
     recs = train.main(SMOKE + ["--engine", "fused", "--device", "cpu"]
@@ -332,11 +381,13 @@ def test_fused_cli_matches_reference(port_flags, arm, jax_cli, capsys):
     for r, o in zip(ref, out):
         assert [k for k, _ in r] == [k for k, _ in o]
         for (key, rv), (_, ov) in zip(r, o):
-            if key == "resel":
+            if key in ("resel", "corr", "rb"):
                 assert rv == ov
             else:
                 assert abs(float(rv) - float(ov)) <= 1e-4, (key, rv, ov)
     assert recs[1]["test_accuracy"] is not None
+    if arm == "robust":
+        assert sum(r["corrupted_selected"] for r in recs) > 0
 
 
 def test_cli_refuses_sharded_and_robust_fused():
@@ -345,5 +396,3 @@ def test_cli_refuses_sharded_and_robust_fused():
              "--rounds", "1", "--batch-size", "2", "--smoke-model"]
     with pytest.raises(NotImplementedError, match="item 17"):
         train.main(smoke + ["--engine", "sharded"])
-    with pytest.raises(NotImplementedError, match="item 22"):
-        train.main(smoke + ["--engine", "fused", "--corrupt", "scale"])

@@ -7,8 +7,8 @@ import pytest
 import torch
 
 from repro_torch.core import dispatch, gbp_cs as core_gbp
-from repro_torch.kernels import (agg_weighted, conv_fused, gbp_cs, robust_agg,
-                                 ssd_scan)
+from repro_torch.kernels import (agg_weighted, conv_fused, corrupt, gbp_cs,
+                                 robust_agg, ssd_scan)
 
 pytestmark = pytest.mark.gpu
 
@@ -72,11 +72,10 @@ def test_gbp_cs_warp_kernel_sweep(cuda):
     assert stopped == len(shapes) and capped > 0
 
 
-def test_fused_graph_replay_equals_eager(cuda):
-    """The smoke config's fused run: one CUDA graph per round (T + 1
-    segments around the eager pinv), replayed R times, gives the eager
-    run's state and records bit for bit; the capture counted each kernel
-    once per launch of one round."""
+def _fused_graph_against_eager(cuda, corrupt_fn=None, **extra):
+    """The smoke config's fused run eager and as one CUDA graph per round,
+    R = 3 rounds read back two at a time: (eager, graphed) each as (state
+    leaves, records), and the graphed run's round function."""
     from repro_torch import tree
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import engine, fedgs, prng
@@ -90,14 +89,13 @@ def test_fused_graph_replay_equals_eager(cuda):
     params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(), cuda)
     cfg = fedgs.FedGSConfig(num_groups=4, devices_per_group=8,
                             num_selected=4, num_presampled=1,
-                            iters_per_round=5, rounds=3, lr=0.05,
-                            compress_int="topk:0.01+int8",
-                            compress_ext="int8")
+                            iters_per_round=5, rounds=3, lr=0.05, **extra)
     runs = []
     for graph in (False, True):
         exp = fedgs.make_fedgs_experiment(
             params, sampler, part.p_real, cfg,
-            group_loss_fn=cnn.make_group_loss_fn(), graph=graph)
+            group_loss_fn=cnn.make_group_loss_fn(), corrupt_fn=corrupt_fn,
+            graph=graph)
         state, logs = engine.run_experiment(exp, cfg.rounds, chunk=2)
         runs.append((tree.leaves(state[0]) + list(state[1]), logs,
                      exp.round_fn))
@@ -106,9 +104,59 @@ def test_fused_graph_replay_equals_eager(cuda):
         assert torch.equal(a, b)
     assert [r.to_dict() for r in elogs] == [r.to_dict() for r in glogs]
     assert rf.replays == 3 and len(rf.segments.graphs) == 6
+    return elogs, rf
+
+
+def test_fused_graph_replay_equals_eager(cuda):
+    """The smoke config's fused run: one CUDA graph per round (T + 1
+    segments around the eager pinv), replayed R times, gives the eager
+    run's state and records bit for bit; the capture counted each kernel
+    once per launch of one round."""
+    _, rf = _fused_graph_against_eager(cuda, compress_int="topk:0.01+int8",
+                                       compress_ext="int8")
     assert {k: v for k, v in rf.captured.items() if v} == {
         "gbp_cs": 5, "conv_fused": 10, "agg_weighted": 1,
         "topk_compress": 5, "int8_quant": 6}
+
+
+def test_fused_robust_graph_replay_equals_eager(cuda):
+    """The robust branch (DESIGN.md §15) of the fused round with noise in
+    the mix and quarantine in the carry: the graph replays the eager run
+    bit for bit, a corrupted member is seated, and the capture counts one
+    ``corrupt_rows`` and one ``robust_agg`` launch per iteration and the
+    residual's M ``agg_weighted`` launches beside the Eq. 5 one."""
+    from repro_torch.data import CorruptionConfig, make_corruption_fn
+    cfn = make_corruption_fn(CorruptionConfig(
+        mode="scale+nan_burst+gauss_noise", frac=0.25), 0)
+    logs, rf = _fused_graph_against_eager(
+        cuda, cfn, robust_agg="trimmed_mean", quarantine_limit=2)
+    assert sum(r.corrupted_selected for r in logs) > 0
+    assert {k: v for k, v in rf.captured.items() if v} == {
+        "gbp_cs": 5, "conv_fused": 10, "agg_weighted": 1 + 5 * 4,
+        "robust_agg": 5, "corrupt_rows": 5}
+
+
+@pytest.mark.parametrize("case", range(len(corrupt.SWEEP)))
+def test_corrupt_rows_kernel_matches_plain(cuda, case):
+    """The fault-injection kernel against its plain version on the sweep:
+    NaN/Inf/scale/sign rows, untouched rows and the P4 pads bit-equal, the
+    Gaussian rows to 2e-6·σ (log1pf and torch.log1p may differ by an ulp,
+    and the plain erfinv rounds its Horner steps through double); one
+    launch per call."""
+    gen = torch.Generator(device=cuda).manual_seed(case)
+    x, code, keys, sizes, modes = corrupt.sweep_inputs(corrupt.SWEEP[case],
+                                                       gen)
+    for sigma in (1.0, 0.25):
+        dispatch.reset_launch_counts()
+        out = corrupt.corrupt_rows(x.clone(), code, keys, sizes, modes, 25.0,
+                                   sigma)
+        assert dispatch.launch_counts()["corrupt_rows"] == 1
+        ref = corrupt.corrupt_rows_plain(x.clone(), code, keys, sizes, modes,
+                                         25.0, sigma)
+        exact, err = corrupt.max_error(out, ref, code, modes, sigma)
+        assert exact and err <= 2e-6
+    with pytest.raises(ValueError):
+        corrupt.corrupt_rows(x, code[:-1], keys, sizes, modes, 25.0, 1.0)
 
 
 @pytest.mark.parametrize("g,b,h,cin,cout", [(10, 8, 28, 1, 32),

@@ -22,7 +22,7 @@ from repro_torch import convert, tree
 from repro_torch.core import dispatch, fedgs, prng, selection, sync
 from repro_torch.data import (CORRUPTION_MODES, CorruptionConfig,
                               make_corruption_fn)
-from repro_torch.kernels import agg_weighted, robust_agg
+from repro_torch.kernels import agg_weighted, corrupt, robust_agg
 from repro_torch.models import cnn
 from test_torch_train import assert_cli_matches
 
@@ -89,6 +89,44 @@ def test_corruption_fn_matches_reference(mode):
         tol = dict(rtol=0, atol=1e-6) if "gauss_noise" in mode else \
             dict(rtol=0, atol=0)
         _assert_trees(out, ref, **tol)
+    assert hits > 0
+
+
+@pytest.mark.parametrize("mode", CORRUPTION_MODES)
+def test_trace_and_corrupt_rows_match_reference(mode):
+    """The host trace plus ``kernels.corrupt``'s plain version on the
+    flattened member buffer against JAX's ``make_corruption_fn``: hit and
+    NaN/Inf/scale/sign rows exact, Gaussian noise to 5e-7·σ (the port's
+    normal against jax.random.normal), the P4 pad columns untouched."""
+    sigma = 0.5
+    kw = dict(mode=mode, frac=0.5, prob=0.7, scale=7.0, sigma=sigma)
+    ref_fn = jstreaming.make_corruption_fn(
+        jstreaming.CorruptionConfig(**kw), 5, 400)
+    cfn = make_corruption_fn(CorruptionConfig(**kw), 5)
+    rng = np.random.default_rng(11)
+    ids = np.sort(rng.choice(400, 24, replace=False)).astype(np.int32)
+    hits = 0
+    for t in (0, 3, 8):
+        grads = _stack(rng, (24,))
+        ref, ref_hit = ref_fn(jax.tree.map(jnp.asarray, grads), t,
+                              jnp.asarray(ids))
+        tg = _to_torch(grads)
+        sizes = [leaf[0].numel() for leaf in tree.leaves(tg)]
+        code, keys = cfn.trace(t, ids, len(sizes))
+        assert (keys is None) == (mode != "gauss_noise")
+        np.testing.assert_array_equal((code > 0).astype(np.float32),
+                                      np.asarray(ref_hit))
+        hits += int((code > 0).sum())
+        flat = agg_weighted.flatten(tg, 24)
+        assert flat.shape[1] == 120 > sum(sizes)       # 2 pad columns
+        out = corrupt.corrupt_rows_plain(
+            flat, torch.from_numpy(code),
+            None if keys is None else torch.from_numpy(keys.astype(np.int64)),
+            sizes, cfn.modes, 7.0, sigma)
+        assert out is flat and not flat[:, sum(sizes):].any()
+        tol = 5e-7 * sigma if mode == "gauss_noise" else 0.0
+        _assert_trees(agg_weighted.unflatten(flat, tg, 1), ref, rtol=0,
+                      atol=tol)
     assert hits > 0
 
 
@@ -288,6 +326,24 @@ def _cnn_batch(m, l, n, seed):
     return gp, x, y
 
 
+def test_unflatten_leaves_no_reference_cycle():
+    """Dropping ``tree.unflatten``'s result frees the tensors at once, with
+    no garbage collection: the robust step unflattens its member stacks
+    (2.64 GB each at full width) every iteration."""
+    import gc
+    import weakref
+    x = torch.zeros(3)
+    alive = weakref.ref(x)
+    gc.disable()
+    try:
+        out = tree.unflatten({"fc": {"w": 0, "b": 0}}, [torch.ones(2), x])
+        assert out["fc"]["w"] is x
+        del out, x
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
 def test_member_grads_match_reference():
     """One backward at G = M·L gives each member's own gradient."""
     m, l, n = 2, 3, 4
@@ -347,12 +403,13 @@ def test_robust_train_step_matches_reference(method):
         jax.tree.map(jnp.asarray, gp), (jnp.asarray(x), jnp.asarray(y)),
         jnp.asarray(fresh_w), jnp.int32(t), jnp.asarray(dev_ids))
     cfg = fedgs.FedGSConfig(**common)
+    cfn = make_corruption_fn(CorruptionConfig(**kw), 1)
     out_p, loss, rs = fedgs._train_robust(
         convert.params_from_jax(gp, "cpu"),
         (torch.from_numpy(x), torch.from_numpy(y)),
-        torch.from_numpy(fresh_w), t, torch.from_numpy(dev_ids),
-        cnn.make_group_loss_fn(), cfg,
-        make_corruption_fn(CorruptionConfig(**kw), 1),
+        torch.from_numpy(fresh_w),
+        cfn.device_trace(t, dev_ids, len(jax.tree.leaves(gp)), "cpu"),
+        cnn.make_group_loss_fn(), cfg, cfn,
         dispatch.robust_agg_fn(method, clip=5.0, trim=1))
     assert float(rs.hit.sum()) > 0
     np.testing.assert_array_equal(rs.hit.numpy(), np.asarray(ref_rs.hit))
