@@ -53,6 +53,17 @@ the last line):
    member; peak device memory of the graph and eager runs), whose smoke
    configuration, Gaussian noise in the mix, is held card vs CPU plain
    and with ``--compress-int topk:0.1+int8``;
+6c. baselines (the Table II strategies, ``--strategy``) — each of the
+   fourteen through the CLI at full width and the paper's traffic (C = M·L
+   = 100 clients a round, S = 10 local steps, n = 32, R = 2, eval at round
+   2) on ``--engine host`` and ``--engine fused``, the wrappers' counts
+   held to the formula of ``baseline_round_launches`` (the fused capture
+   to one round's); the fused rounds as CUDA graphs against their eager
+   run, bit for bit, with ms per round (host loop, replayed, eager) and
+   peak device memory; five strategies' smoke configurations card vs CPU
+   on both engines to 1e-4; ``agg_weighted`` at K = 100 client models and
+   ``conv_fused`` at G = 100 client CNNs against their plain versions,
+   with kernel, plain and library times;
 7. LM path (the dense-LM serving slice, ``granite-3-2b`` at full width
    and depth) — ``flash_attention`` against its plain version at the
    prefill shape (2, 4096, 32/8 heads, 64) in f32 (causal, causal with
@@ -976,6 +987,333 @@ def fused_rounds(torch, exp, rounds: int) -> tuple[list, list, list]:
     return secs, mets, state
 
 
+# ---------------------------------------------------------------- baselines
+# The Table II strategies (``--strategy``) at the paper's traffic and full
+# CNN width: C = M·L = 100 clients a round, S = 10 local steps, n = 32.
+BASELINE_ROUNDS, BASELINE_EVERY = 2, 2
+BASELINE_CLIENTS, BASELINE_STEPS = 100, 10
+# strategies whose client objective also runs the frozen global model's
+# features (one G = 1 forward, two conv launches, per local step)
+GLOBAL_FEATURES = ("fedmmd", "fedfusion_conv", "fedfusion_multi",
+                   "fedfusion_single")
+# averaged trees per round: the params, the extras where the strategy has
+# them, IDA's uniform mean beside its weighted one
+TWO_AVERAGES = ("fedfusion_conv", "fedfusion_multi", "fedfusion_single",
+                "cgau", "ida", "ida_intrac", "ida_fedavg")
+BASELINE_SMOKE = ("fedavg", "fedmmd", "fedfusion_conv", "ida_intrac",
+                  "fedyogi")
+BASELINE_PROFILED = "fedavg"     # one traced replayed round
+
+
+def baseline_round_launches(name: str) -> dict:
+    """One baseline round's wrapper launches, from ``core/baselines.py``:
+    per local step one grouped ``conv_fused`` per conv layer (the clients'
+    forward; the backward is PyTorch), two more for the global features of
+    FedMMD and FedFusion; two for the last batch's accuracy; one
+    ``agg_weighted`` per averaged tree."""
+    conv = 2 * BASELINE_STEPS * (1 + (name in GLOBAL_FEATURES)) + 2
+    return {"conv_fused": conv, "agg_weighted": 1 + (name in TWO_AVERAGES)}
+
+
+def baseline_expect(name: str, fused: bool) -> dict:
+    """The CLI run's wrapper counts: R rounds on the host loop; on the
+    fused engine the eager warm-up round and the capture (a replay calls no
+    wrapper); the eval's two conv launches every ``BASELINE_EVERY``
+    rounds."""
+    from repro_torch.core import dispatch
+    per = baseline_round_launches(name)
+    times = 2 if fused else BASELINE_ROUNDS
+    out = {k: 0 for k in dispatch.KERNELS}
+    out.update({k: v * times for k, v in per.items()})
+    out["conv_fused"] += 2 * (BASELINE_ROUNDS // BASELINE_EVERY)
+    return out
+
+
+def baseline_strategy(torch, dev, name: str) -> dict:
+    """One strategy at full width through the CLI, on the host loop and on
+    the fused engine, each with its launch counts set to 0 before and read
+    after and held to :func:`baseline_expect` (the fused capture to one
+    round's :func:`baseline_round_launches`). The host loop runs each
+    round eagerly, the fused engine as a CUDA graph: their final params
+    and extras and their records must be equal bit for bit. Then the fused
+    run's round function, its graph still held, runs two more rounds
+    replayed and the same two eagerly from a copy of the same state: the
+    whole states (server state included) and records bit for bit, and
+    their times. Peak device memory of the
+    host loop's run (eager) and of the fused run (warm-up and capture
+    included)."""
+    from repro_torch import tree
+    from repro_torch.core import baselines, dispatch
+
+    argv = main_flags(BASELINE_ROUNDS, 1, BASELINE_EVERY) + [
+        "--strategy", name, "--clients-per-round", str(BASELINE_CLIENTS),
+        "--local-steps", str(BASELINE_STEPS)]
+    out = {"strategy": name}
+    runs, exps = {}, []
+    make, run = baselines.make_baseline_experiment, baselines.run_baseline
+
+    def spy_make(*args, **kw):     # keep the CLI's round function in view
+        exps.append(make(*args, **kw))
+        return exps[-1]
+
+    def spy_run(*args, **kw):      # and its final (params, extras)
+        res = run(*args, **kw)
+        runs[engine_name] = res[0]
+        return res
+
+    for engine_name in ("host", "fused"):
+        baselines.make_baseline_experiment = spy_make
+        baselines.run_baseline = spy_run
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        try:
+            logs, tee, t0 = run_cli(argv + ["--engine", engine_name])
+        finally:
+            baselines.make_baseline_experiment = make
+            baselines.run_baseline = run
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        expect = baseline_expect(name, engine_name == "fused")
+        if counts != expect:
+            fail(f"baselines {name} {engine_name}: launch counts {counts} "
+                 f"!= the formula's {expect}")
+        if len(logs) != BASELINE_ROUNDS or not all(
+                math.isfinite(rec["loss"]) for rec in logs):
+            fail(f"baselines {name} {engine_name}: round records {logs}")
+        acc = logs[-1]["test_accuracy"]
+        if acc is None or not 0.0 <= acc <= 1.0:
+            fail(f"baselines {name} {engine_name}: no valid test accuracy "
+                 f"in the last round: {acc}")
+        walls = [b - a for a, b in zip([t0] + tee.stamps, tee.stamps)]
+        out[engine_name] = dict(
+            counts={k: v for k, v in counts.items() if v}, round_s=walls,
+            records=[(r["loss"], r["test_loss"], r["test_accuracy"])
+                     for r in logs],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    rf = exps[0].round_fn
+    per = {k: v for k, v in rf.captured.items() if v}
+    if per != baseline_round_launches(name) or rf.replays != BASELINE_ROUNDS:
+        fail(f"baselines {name}: the capture counted {per} for "
+             f"{rf.replays} replays, one round being "
+             f"{baseline_round_launches(name)}")
+    if out["host"]["records"] != out["fused"]["records"] or not all(
+            torch.equal(a, b) for a, b in zip(tree.leaves(runs["host"]),
+                                              tree.leaves(runs["fused"]),
+                                              strict=True)):
+        fail(f"baselines {name}: the fused engine's graph rounds differ "
+             f"from the host loop's eager rounds: {out['host']['records']} "
+             f"vs {out['fused']['records']}")
+    del runs
+    # two more rounds from the CLI's final state, replayed, then eagerly
+    # from a copy of the same state: bit for bit, server state included
+    snap = [leaf.clone() for leaf in tree.leaves(rf.static[0])]
+    secs, finals, mets = {}, {}, {}
+    for graph in (True, False):
+        rf.graph, secs[graph], mets[graph] = graph, [], []
+        state = rf.static[0] if graph else tree.unflatten(
+            rf.static[0], [leaf.clone() for leaf in snap])
+        for r in range(BASELINE_ROUNDS, BASELINE_ROUNDS + 2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = rf(state, r)
+            torch.cuda.synchronize()
+            secs[graph].append(time.perf_counter() - t1)
+            mets[graph].append({k: float(v) for k, v in m.items()})
+        finals[graph] = [leaf.clone() for leaf in tree.leaves(state)]
+    if mets[True] != mets[False] or not all(
+            torch.equal(a, b) for a, b in zip(finals[True], finals[False],
+                                              strict=True)):
+        fail(f"baselines {name}: two replayed rounds differ from the same "
+             f"rounds run eagerly: {mets[True]} vs {mets[False]}")
+    del snap, finals
+    out.update(host_ms=1e3 * out["host"]["round_s"][-1],
+               replayed_ms=1e3 * secs[True][-1],
+               eager_ms=1e3 * secs[False][-1])
+    if name == BASELINE_PROFILED:
+        rf.graph = True
+        baseline_profile(torch, rf, name, out["replayed_ms"])
+    print(f"baselines {name}: host loop round {out['host_ms']:.1f} ms (CLI "
+          f"rounds {[round(1e3 * t, 1) for t in out['host']['round_s']]} "
+          f"ms, the first with the CLI's set-up, the last with its eval), "
+          f"fused replayed {out['replayed_ms']:.1f} ms, eager "
+          f"{out['eager_ms']:.1f} ms (fused CLI rounds "
+          f"{[round(1e3 * t, 1) for t in out['fused']['round_s']]} ms; then "
+          f"replays {[round(1e3 * t, 1) for t in secs[True]]}, eager "
+          f"{[round(1e3 * t, 1) for t in secs[False]]} ms, no eval); peak "
+          f"device memory host loop {out['host']['peak_gb']:.2f} GB, fused "
+          f"{out['fused']['peak_gb']:.2f} GB; launches host "
+          f"{out['host']['counts']}, fused (warm-up + capture + eval) "
+          f"{out['fused']['counts']}; graph == eager bit for bit", flush=True)
+    del exps, rf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def baseline_profile(torch, rf, name: str, replayed_ms: float) -> None:
+    """One traced replay of a captured baseline round: wall time, device
+    busy share and the top kernels by device time (``torch.profiler``);
+    then the client pool's draw of the round's labels and images alone
+    (graph-timed) and its share of the replayed round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rf(rf.static[0], BASELINE_ROUNDS + 2)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels)
+    share = f"{100 * busy / wall:.1f}%" if busy > 0 else "not measured"
+    print(f"baselines {name} profile: one replayed round (S = "
+          f"{BASELINE_STEPS} local steps, no eval) wall {wall:.1f} ms, "
+          f"device busy {busy:.1f} ms = {share}", flush=True)
+    for ms, count, kname in kernels[:12]:
+        print(f"baselines {name} profile device: {ms:9.3f} ms  "
+              f"x{count:<5d} {kname[:90]}", flush=True)
+    draw_ms = graph_ms(torch, lambda: rf.pool.draw(rf.inputs), n=3, reps=3)
+    c, s, n = rf.pool.num_clients, rf.pool.local_steps, rf.pool.batch_size
+    print(f"baselines {name} client pool: labels and {c * s * n} images "
+          f"{draw_ms:.3f} ms a round ({100 * draw_ms / replayed_ms:.1f}% of "
+          "the replayed round)", flush=True)
+
+
+def baseline_smoke_card_vs_cpu(name: str, engine_name: str) -> None:
+    """The smoke configuration of one strategy, kernels on the card vs
+    plain versions on the CPU: the round records' loss, test loss and
+    accuracy (the numbers the round lines print) to 1e-4."""
+    flags = SMOKE_FLAGS + ["--strategy", name, "--engine", engine_name]
+    logs = [run_cli(flags + ["--device", d])[0] for d in ("cuda", "cpu")]
+    worst = 0.0
+    for rg, rc in zip(*logs, strict=True):
+        for key in ("loss", "test_loss", "test_accuracy"):
+            if (rg[key] is None) != (rc[key] is None):
+                fail(f"baselines {name} {engine_name} smoke: {key} "
+                     f"{rg[key]} vs {rc[key]}")
+            if rg[key] is not None:
+                worst = max(worst, abs(rg[key] - rc[key]))
+    if len(logs[0]) != 3 or worst > 1e-4:
+        fail(f"baselines {name} {engine_name} smoke run on the card "
+             f"differs from the CPU run by {worst}")
+    print(f"baselines {name} {engine_name} smoke config: card vs CPU round "
+          f"records agree to {worst:.2g}", flush=True)
+
+
+def check_baseline_kernels(torch, dev) -> dict:
+    """The two kernels at the baselines' shapes, each against its plain
+    version and its library call: ``agg_weighted`` over the K = 100
+    stacked full-width client models, and both conv layers over the
+    clients' own CNNs (G = 100, B = 32)."""
+    from repro_torch.kernels import agg_weighted as kagg
+    from repro_torch.kernels import conv_fused as kconv
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k, p = BASELINE_CLIENTS, CNN_P4
+    flat = torch.randn(k, p, generator=gen, device=dev)
+    w = torch.rand(k, generator=gen, device=dev)
+    w = w / w.sum()
+    out_k, out_p = kagg.agg(flat, w), kagg.agg_plain(flat, w)
+    err, tol = float((out_k - out_p).abs().max()), 1e-5
+    if err > tol:
+        fail(f"agg_weighted K={k}: max error {err} > {tol}")
+    ms = time_ms(lambda: kagg.agg(flat, w), reps=20)
+    plain_ms = time_ms(lambda: kagg.agg_plain(flat, w), reps=5)
+    lib_ms = time_ms(lambda: torch.matmul(w[None], flat), reps=20)
+    b_ms, b_by = bound(4 * (k * p + k + p), 2 * k * p)
+    agg = dict(shape=f"K={k} P={p}", ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err, tol=tol)
+    print(f"baselines agg_weighted: K={k} P={p} max err {err:.3g} (tol "
+          f"{tol}); {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+          f"{lib_ms:.4f} ms matmul, bound {b_ms:.4f} ms ({b_by}), "
+          f"{b_ms / ms:.0%} of the bound", flush=True)
+    del flat, out_k, out_p
+    torch.cuda.empty_cache()
+    g, b, rows = BASELINE_CLIENTS, 32, []
+    for layer, h, cin, cout in (("conv1", 28, 1, 32), ("conv2", 14, 32, 64)):
+        x = torch.rand(g, b, h, h, cin, generator=gen, device=dev)
+        wt = torch.randn(g, 5, 5, cin, cout, generator=gen, device=dev) \
+            / math.sqrt(25 * cin)
+        bias = 0.1 * torch.randn(g, cout, generator=gen, device=dev)
+        pat = kconv.im2col(x, (5, 5))
+        wm = wt.reshape(g, 25 * cin, cout).contiguous()
+        out_k, y_k = kconv.fused(pat, wm, bias, h)
+        out_p, y_p = kconv.fused_plain(pat, wm, bias, h)
+        err = max(float((y_k - y_p).abs().max()),
+                  float((out_k - out_p).abs().max()))
+        if err > 1e-4:
+            fail(f"conv_fused {layer} G={g}: max error {err} > 1e-4")
+        r, q = pat.shape[1], pat.shape[2]
+        ms = time_ms(lambda: kconv.fused(pat, wm, bias, h), reps=10)
+        plain_ms = time_ms(lambda: kconv.fused_plain(pat, wm, bias, h),
+                           reps=10)
+        lib_ms = time_ms(lambda: torch.baddbmm(bias[:, None, :], pat, wm),
+                         reps=10)
+        bytes_ = 4 * (g * r * q + g * q * cout + g * cout + g * r * cout
+                      + g * r * cout // 4)
+        ops = 2 * g * r * q * cout + 2 * g * r * cout
+        b_ms, b_by = bound(bytes_, ops)
+        rows.append(dict(layer=layer, G=g, R=r, Q=q, C=cout, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err))
+        print(f"baselines conv_fused {layer}: G={g} R={r} Q={q} C={cout} "
+              f"max err {err:.3g} (tol 1e-4); {ms:.4f} ms kernel, "
+              f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms baddbmm, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.0%} of the bound",
+              flush=True)
+        del x, pat, out_k, y_k, out_p, y_p
+        torch.cuda.empty_cache()
+    return {"agg_weighted": agg, "conv_fused": rows}
+
+
+def baselines_phase(torch, dev) -> tuple[dict, dict, dict]:
+    """Every Table II strategy at full width on both engines
+    (:func:`baseline_strategy`), five of them card vs CPU on the smoke
+    configuration to 1e-4, and the two kernels at the path's shapes.
+    Returns (the host runs' summed counts, the fused runs' summed counts,
+    the kernels' rows at the path's shapes)."""
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import baselines, dispatch
+    from repro_torch.models import cnn
+
+    t0 = time.perf_counter()
+    names = sorted(baselines.all_strategies(cnn.make_model_api(
+        femnist_cnn.CONFIG)))
+    if len(names) != 14:
+        fail(f"baselines: {len(names)} strategies, expected 14")
+    sums = {e: {k: 0 for k in dispatch.KERNELS} for e in ("host", "fused")}
+    rows = []
+    for name in names:
+        res = baseline_strategy(torch, dev, name)
+        rows.append(res)
+        for e in sums:
+            for k, v in res[e]["counts"].items():
+                sums[e][k] += v
+    print("baselines table (ms per round at C=100, S=10, n=32, full CNN: "
+          "host loop's last CLI round with its eval / fused replayed / "
+          "fused eager, no eval; peak GB host loop / fused): " +
+          "; ".join(f"{r['strategy']} {r['host_ms']:.1f} / "
+                    f"{r['replayed_ms']:.1f} / {r['eager_ms']:.1f}, "
+                    f"{r['host']['peak_gb']:.2f} / "
+                    f"{r['fused']['peak_gb']:.2f} GB" for r in rows),
+          flush=True)
+    for name in BASELINE_SMOKE:
+        for engine_name in ("host", "fused"):
+            baseline_smoke_card_vs_cpu(name, engine_name)
+    kernel_rows = check_baseline_kernels(torch, dev)
+    print(f"baselines phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return sums["host"], sums["fused"], kernel_rows
+
+
 # per wrapper, the one kernel that each of its calls runs once, by the
 # name the trace gives it (gbp_cs_warp also matches gbp_cs_warp_any)
 DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
@@ -1867,6 +2205,12 @@ def main() -> None:
           f"before, {torch.cuda.memory_allocated() / 1e9:.3f} GB after",
           flush=True)
 
+    # baselines (the Table II strategies, --strategy): all fourteen at full
+    # width on the host loop and the fused engine, launch counts held to
+    # their formula, graph == eager, five card vs CPU, and the two kernels
+    # at the path's shapes (K = 100 client models, G = 100 client CNNs)
+    base_host, base_fused, base_kernels = baselines_phase(torch, dev)
+
     # LM path (the dense-LM serving slice): the kernel at the prefill
     # shape, then the full-width prefill, decode and serve, then the smoke
     # config card vs CPU
@@ -1905,9 +2249,13 @@ def main() -> None:
                    "fused_robust": fused_r_counts[k["name"]],
                    "lm": lm_counts[k["name"]],
                    "ssm": ssm_counts[k["name"]],
-                   "hybrid": hybrid_counts[k["name"]]}
+                   "hybrid": hybrid_counts[k["name"]],
+                   "baselines_host": base_host[k["name"]],
+                   "baselines_fused": base_fused[k["name"]]}
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
+        if k["name"] in base_kernels:
+            k["baselines_shapes"] = base_kernels[k["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)

@@ -8,7 +8,10 @@ whose metrics are tensors left on the device; :func:`run_experiment` runs
 ``eval_every`` rounds, and turns each chunk's stacked metrics into
 :class:`RoundRecord` s (:func:`records_from_metrics`).
 :class:`SegmentedGraph` captures a function as CUDA graphs, split where
-it calls an op that a graph cannot hold.
+it calls an op that a graph cannot hold; :class:`GraphedRound` runs one
+round of an experiment eagerly or as such a capture, replayed, its state
+in static tensors (the fused FEDGS round and the fused baselines, DESIGN.md
+§12.4).
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from .. import tree
+from . import dispatch
 
 _NAN = float("nan")
 
@@ -243,3 +249,71 @@ class SegmentedGraph:
             if i < len(self.breaks):
                 fn, x, out = self.breaks[i]
                 out.copy_(fn(x))
+
+
+class GraphedRound:
+    """One round of an experiment, :meth:`step` ``(carry, inputs, segs) ->
+    (carry', metrics)``, run eagerly or (``graph``) as CUDA graphs.
+
+    :meth:`run` copies the round's host-staged ``material`` (int64 words:
+    keys, ids) into the static ``inputs`` buffer and runs the step. With
+    ``graph``, the first call runs one eager warm-up round on the capture
+    stream (outputs dropped), hands its cached blocks back, and captures
+    the step in a :class:`SegmentedGraph` (``segs``; None in eager runs):
+    the carry lives in static tensors that the capture overwrites with the
+    round's outputs, and every call replays it. Nothing reads back to the
+    host inside a round, so a capture that fails raises.
+
+    Kernel launch counters move where a wrapper launches, so in a graphed
+    run they count the warm-up and the capture only: :attr:`captured`
+    holds the capture's counts, and a run's launches are those times
+    :attr:`replays`."""
+
+    def __init__(self, size: int, device, graph: bool):
+        self.graph = graph
+        self.inputs = torch.zeros(size, dtype=torch.int64, device=device)
+        self.static = None
+        self.segments: SegmentedGraph | None = None
+        self.captured: dict[str, int] | None = None
+        self.replays = 0
+
+    def step(self, carry, inputs: torch.Tensor, segs):
+        raise NotImplementedError
+
+    def run(self, carry, material: np.ndarray):
+        self.inputs.copy_(torch.from_numpy(material), non_blocking=True)
+        if not self.graph:
+            return self.step(carry, self.inputs, None)
+        if self.static is None:
+            self._capture(carry)
+        else:
+            for dst, src in zip(tree.leaves(self.static[0]),
+                                tree.leaves(carry)):
+                if dst is not src:
+                    dst.copy_(src)
+        self.segments.replay()
+        self.replays += 1
+        carry, mets = self.static
+        return carry, {name: v.clone() for name, v in mets.items()}
+
+    def _capture(self, carry) -> None:
+        static = tree.map(torch.clone, carry)
+        side = capture_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):        # warm-up, outputs dropped
+            self.step(static, self.inputs, None)
+        torch.cuda.current_stream().wait_stream(side)
+        # the warm-up's cached blocks cannot serve the graph's private
+        # pool: hand them back first (the robust round's member stacks
+        # are 2.64 GB each at full width)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self.segments = SegmentedGraph()
+        before = dispatch.launch_counts()
+        with self.segments.capture() as segs:
+            out, mets = self.step(static, self.inputs, segs)
+            for dst, src in zip(tree.leaves(static), tree.leaves(out)):
+                dst.copy_(src)
+        after = dispatch.launch_counts()
+        self.captured = {name: after[name] - before[name] for name in after}
+        self.static = (static, mets)

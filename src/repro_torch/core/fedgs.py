@@ -836,85 +836,36 @@ def _round_record_metrics(mets: dict, cfg: FedGSConfig) -> dict:
     return out
 
 
-class FusedRound:
+class FusedRound(engine.GraphedRound):
     """``round_fn(state, r)`` of the fused experiment. State is (group
     params, carried selection state, the host's threefry key). Each call
-    derives the round's keys on the host (:class:`RoundKeys`), copies them
-    into the static key buffer, and runs the body: eagerly, or (``graph``)
-    as a CUDA graph captured at the first call after one eager warm-up
-    round on a side stream, then replayed. In the graph, group params,
-    selection state and EF residuals live in static tensors that each
-    replay overwrites with the round's outputs; the round breaks around
-    ``torch.linalg.pinv``, whose SVD reads a status back to the host and
-    cannot be captured (``engine.SegmentedGraph``): one eager pinv per
-    iteration between two graph segments.
-
-    Kernel launch counters move where a wrapper launches, so in a graphed
-    run they count the warm-up and the capture only: :attr:`captured`
-    holds the capture's counts, and a run's launches are those times
-    :attr:`replays`."""
+    derives the round's keys on the host (:class:`RoundKeys`), stages them
+    in the static key buffer (:attr:`keys` names its parts), and runs the
+    body through ``engine.GraphedRound``: eagerly, or as a CUDA graph
+    captured after one eager warm-up round and replayed, group params,
+    selection state and EF residuals in static tensors. The round breaks
+    around ``torch.linalg.pinv``, whose SVD reads a status back to the host
+    and cannot be captured (``engine.SegmentedGraph``): one eager pinv per
+    iteration between two graph segments."""
 
     def __init__(self, body, layout: RoundKeys, cfg: FedGSConfig, p_real,
                  device, graph: bool):
+        super().__init__(layout.size, device, graph)
         self.body, self.layout, self.cfg = body, layout, cfg
-        self.p_real, self.graph = p_real, graph
-        self.keybuf = torch.zeros(layout.size, dtype=torch.int64,
-                                  device=device)
-        self.keys = layout.views(self.keybuf)
-        self.static = None
-        self.captured: dict[str, int] | None = None
-        self.replays = 0
+        self.p_real = p_real
+        self.keys = layout.views(self.inputs)
+
+    def step(self, carry, inputs, segs):
+        pinv_fn = None if segs is None else lambda A: segs.eager(
+            gbp_cs.pinv, A, A.shape[:-2] + (A.shape[-1], A.shape[-2]))
+        gp, sel, mets = self.body(*carry, self.keys, self.p_real, pinv_fn)
+        return (gp, sel), _round_record_metrics(mets, self.cfg)
 
     def __call__(self, state, r: int):
         gp, sel, key = state
         key, material = self.layout.host(key, r * self.cfg.iters_per_round)
-        self.keybuf.copy_(torch.from_numpy(material), non_blocking=True)
-        if not self.graph:
-            gp, sel, mets = self.body(gp, sel, self.keys, self.p_real)
-            return (gp, sel, key), _round_record_metrics(mets, self.cfg)
-        if self.static is None:
-            self._capture(gp, sel)
-        elif gp is not self.static[0] or sel is not self.static[1]:
-            for dst, src in zip(self._leaves(*self.static[:2]),
-                                self._leaves(gp, sel)):
-                if dst is not src:
-                    dst.copy_(src)
-        self.segments.replay()
-        self.replays += 1
-        gp, sel, mets = self.static
-        return (gp, sel, key), {name: v.clone() for name, v in
-                                _round_record_metrics(mets, self.cfg).items()}
-
-    @staticmethod
-    def _leaves(gp, sel):
-        return tree.leaves(gp) + list(sel)
-
-    def _capture(self, gp, sel) -> None:
-        static_gp = tree.map(torch.clone, gp)
-        static_sel = tuple(torch.clone(x) for x in sel)
-        side = engine.capture_stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):        # warm-up, outputs dropped
-            self.body(static_gp, static_sel, self.keys, self.p_real)
-        torch.cuda.current_stream().wait_stream(side)
-        # the warm-up's cached blocks cannot serve the graph's private
-        # pool: hand them back first (the robust round's member stacks
-        # are 2.64 GB each at full width)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        self.segments = engine.SegmentedGraph()
-        before = dispatch.launch_counts()
-        with self.segments.capture() as segs:
-            pinv_fn = lambda A: segs.eager(
-                gbp_cs.pinv, A, A.shape[:-2] + (A.shape[-1], A.shape[-2]))
-            gp2, sel2, mets = self.body(static_gp, static_sel, self.keys,
-                                        self.p_real, pinv_fn)
-            for dst, src in zip(self._leaves(static_gp, static_sel),
-                                self._leaves(gp2, sel2)):
-                dst.copy_(src)
-        after = dispatch.launch_counts()
-        self.captured = {name: after[name] - before[name] for name in after}
-        self.static = (static_gp, static_sel, mets)
+        (gp, sel), mets = self.run((gp, sel), material)
+        return (gp, sel, key), mets
 
 
 def make_fedgs_experiment(params, sampler, p_real, cfg: FedGSConfig, *,

@@ -11,7 +11,9 @@ are bit-equal to the JAX package's ``FactoryStreams`` for the same seed.
 The device-resident streams of the fused engine (DESIGN.md §7) follow at
 the end: :class:`DeviceStream`, :class:`DeviceSampler` and the host-loop
 adapter :class:`DeviceBackedStreams`, the JAX package's dense-population
-forms, drawing labels and images on the card from threefry keys.
+forms, drawing labels and images on the card from threefry keys; then the
+baselines' :class:`ClientPool` over the same stream and its host adapter
+:class:`HostClientPool`.
 """
 from __future__ import annotations
 
@@ -80,6 +82,41 @@ class FactoryStreams:
                 labs[mi, j] = labels
         self._draw_next()  # streaming: every device's buffer rolls over
         return imgs, labs
+
+    def fetch_device_batches(self, mi: int, ki: int, steps: int
+                             ) -> tuple[np.ndarray, np.ndarray]:
+        """S consecutive mini-batches of one device (baseline local
+        epochs)."""
+        probs = self.part.class_probs[mi, ki]
+        rng = np.random.default_rng((self._t * 9973 + mi * 131 + ki)
+                                    % (2**31))
+        labels = rng.choice(self.f, size=(steps, self.n), p=probs)
+        wid = int(self.part.writer_ids[mi, ki])
+        sample_ids = (self._t * 1_000_000 + rng.integers(0, 2**20)
+                      + np.arange(steps * self.n))
+        imgs = femnist.generate_images(
+            labels.reshape(-1), np.full(steps * self.n, wid), sample_ids)
+        return (imgs.reshape(steps, self.n, femnist.IMAGE_SIZE,
+                             femnist.IMAGE_SIZE), labels.astype(np.int32))
+
+    def sample_baseline_round(self, clients: int, steps: int, seed: int
+                              ) -> tuple[tuple[np.ndarray, np.ndarray],
+                                         np.ndarray]:
+        """FedAvg-style round data: ``clients`` devices sampled uniformly
+        across all factories, each with ``steps`` local batches.
+
+        Returns ((images (C,S,n,28,28), labels (C,S,n)), weights (C,))."""
+        rng = np.random.default_rng(seed)
+        flat = rng.choice(self.m * self.k, size=clients, replace=False)
+        imgs = np.zeros((clients, steps, self.n, femnist.IMAGE_SIZE,
+                         femnist.IMAGE_SIZE), np.float32)
+        labs = np.zeros((clients, steps, self.n), np.int32)
+        for c, idx in enumerate(flat):
+            mi, ki = divmod(int(idx), self.k)
+            imgs[c], labs[c] = self.fetch_device_batches(mi, ki, steps)
+        self._t += 1
+        weights = np.full(clients, float(steps * self.n), np.float32)
+        return (imgs, labs), weights
 
 
 # ---------------------------------------------------------------------------
@@ -418,3 +455,103 @@ class DeviceBackedStreams:
                                                  masks, l)
         self._t += 1
         return imgs, labs
+
+
+# ---------------------------------------------------------------------------
+# The baselines' client pool (core.baselines): C clients drawn uniformly from
+# all M·K devices per round, each with S local mini-batches, a pure function
+# of the round index. The host derives the round's key words and client ids
+# (:meth:`ClientPool.material`); the device draws labels and images from
+# them (:meth:`ClientPool.draw`), so a CUDA graph replays a round from one
+# staged buffer.
+# ---------------------------------------------------------------------------
+
+# pools larger than this draw client ids by per-slot hashing (randint)
+# instead of an exact no-replacement choice, as the JAX package does: its
+# choice(replace=False) sorts a pool-length key vector (DESIGN.md §17)
+LAZY_POOL_THRESHOLD = 1 << 16
+
+
+class ClientPool:
+    """Device-resident FedAvg-style client pool over a :class:`DeviceStream`
+    (the JAX package's ``ClientPool``).
+
+    ``round_batches(r) -> ((images (C, S, n, 28, 28), labels (C, S, n)),
+    weights (C,))`` on the stream's device; the weights are the client data
+    sizes S·n. Round r's keys are ``split(fold_in(fold_in(PRNGKey(seed),
+    303), r), 3)``: the client ids from the first (``permutation(·,
+    pool)[:C]``, ``jax.random.choice(replace=False)``'s draw, or
+    ``randint`` above :data:`LAZY_POOL_THRESHOLD`), the labels from
+    ``uniform(k_lab, (C, S, n, 1)) > cdf`` and all C·S·n images from one
+    key ``k_img``. :meth:`material` stages those on the host as C + 4
+    int64 words; :meth:`draw` runs the rest on the device from them."""
+
+    def __init__(self, stream: DeviceStream, clients: int, steps: int):
+        self.stream = stream
+        self.pool_size = stream.num_factories * stream.devices_per_factory
+        if clients > self.pool_size:
+            raise ValueError(f"clients={clients} exceeds pool of "
+                             f"{self.pool_size} devices")
+        self.num_clients, self.local_steps = clients, steps
+        self.batch_size = stream.batch_size
+        self.num_classes = stream.num_classes
+        self.device = stream.class_probs.device
+        self.material_size = clients + 4
+        self.protos = torch.as_tensor(femnist.class_prototypes(),
+                                      device=self.device)
+        self._key = prng.fold_in(prng.PRNGKey(stream.seed), 303)
+
+    def material(self, r: int) -> np.ndarray:
+        """Round r's client ids (C,) then its label and image keys (2 + 2
+        words), as one int64 array."""
+        k_sel, k_lab, k_img = prng.split(prng.fold_in(self._key, r), 3)
+        if self.pool_size <= LAZY_POOL_THRESHOLD:
+            ids = prng.permutation(k_sel, self.pool_size)[:self.num_clients]
+        else:
+            ids = prng.randint(k_sel, (self.num_clients,), 0, self.pool_size)
+        return np.concatenate([np.asarray(ids, np.int64),
+                               k_lab.astype(np.int64),
+                               k_img.astype(np.int64)])
+
+    def draw(self, material: torch.Tensor):
+        """The round's batches from its staged :meth:`material` on the
+        device (no host copy: the form a CUDA graph captures)."""
+        c, s, n = self.num_clients, self.local_steps, self.batch_size
+        ids, k_lab, k_img = material[:c], material[c:c + 2], material[c + 2:]
+        u = prng.uniform_t(k_lab, (c, s, n, 1))
+        cdf = self.stream.cdf_for(ids)[:, None, None, :]
+        labels = torch.clamp_max((u > cdf).sum(-1), self.num_classes - 1)
+        sty = torch.repeat_interleave(self.stream.styles_for(ids), s * n,
+                                      dim=0)
+        imgs = femnist.generate_images_device(self.protos,
+                                              labels.reshape(-1), sty, k_img)
+        imgs = imgs.reshape(c, s, n, femnist.IMAGE_SIZE, femnist.IMAGE_SIZE)
+        weights = torch.full((c,), float(s * n), dtype=torch.float32,
+                             device=self.device)
+        return (imgs, labels), weights
+
+    def round_batches(self, r: int):
+        return self.draw(torch.as_tensor(self.material(r),
+                                         device=self.device))
+
+
+def make_client_pool(stream: DeviceStream, clients: int, steps: int,
+                     drift=None) -> ClientPool:
+    """The baselines' pool over a dense ``stream``. Drift schedules are not
+    ported yet."""
+    if drift is not None:
+        raise NotImplementedError("drift schedules on the client pool "
+                                  "(DESIGN.md §13) are ROADMAP item 11")
+    return ClientPool(stream, clients, steps)
+
+
+class HostClientPool:
+    """The baselines' host-loop adapter over a :class:`ClientPool`:
+    ``pool(r)`` returns the exact batches the fused engine draws in round r,
+    as tensors on the pool's device."""
+
+    def __init__(self, pool: ClientPool):
+        self.pool = pool
+
+    def __call__(self, r: int):
+        return self.pool.round_batches(r)

@@ -44,9 +44,19 @@ counters in the carried state):
       --corrupt scale+nan_burst+gauss_noise --corrupt-frac 0.2 \\
       --robust-agg trimmed_mean --quarantine-limit 3
 
-``--engine sharded`` raises. The JAX CLI's other scenario flags
-(availability, drift, populations, baselines) are not ported yet and are
-rejected.
+``--strategy`` runs any of the fourteen Table II baselines instead of
+FEDGS (DESIGN.md §12.4): ``--clients-per-round`` clients (0 = groups ×
+selected) drawn per round from the device pool, ``--local-steps`` local
+SGD steps each, the server average through the ``agg_weighted`` kernel.
+``--engine host`` loops over the pool's batches round by round; any other
+engine (``sharded`` included, as in the JAX CLI) runs the fused engine,
+one CUDA graph per round on the card. FedGS-only flags draw a warning:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --strategy fedyogi \
+      --engine fused --rounds 20
+
+``--engine sharded`` raises for FEDGS. The JAX CLI's other scenario flags
+(availability, drift, populations) are not ported yet and are rejected.
 
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
 averages, the fault injection, the robust order statistics, the top-k
@@ -60,15 +70,23 @@ import argparse
 import json
 import math
 import os
+import sys
 
 import torch
 
 from ..configs import femnist_cnn
-from ..core import fedgs, prng, sync
+from ..core import baselines, fedgs, prng, sync
 from ..data import (CORRUPTION_MODES, CorruptionConfig, DeviceStream,
-                    FactoryStreams, PartitionConfig, femnist,
-                    make_corruption_fn, make_device_sampler, make_partition)
+                    FactoryStreams, HostClientPool, PartitionConfig, femnist,
+                    make_client_pool, make_corruption_fn, make_device_sampler,
+                    make_partition)
 from ..models import cnn
+
+STRATEGIES = ("fedgs",) + tuple(sorted(baselines.all_strategies(
+    cnn.make_model_api(femnist_cnn.CONFIG))))
+# flags of the FEDGS path that a baseline strategy ignores (with a warning)
+FEDGS_ONLY = ("train_step", "selection", "init", "corrupt", "robust_agg",
+              "quarantine_limit", "compress_int", "compress_ext")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -85,6 +103,8 @@ def resolve_device(name: str) -> torch.device:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--strategy", choices=STRATEGIES, default="fedgs",
+                    help="fedgs (Alg. 1) or any Table II baseline strategy")
     ap.add_argument("--groups", type=int, default=10, help="M factories")
     ap.add_argument("--devices-per-group", type=int, default=35, help="K^m")
     ap.add_argument("--selected", type=int, default=10, help="L")
@@ -93,13 +113,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=500, help="R")
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--clients-per-round", type=int, default=0,
+                    help="baseline strategies: C sampled clients per round "
+                         "(default M*L — matches FEDGS participation)")
+    ap.add_argument("--local-steps", type=int, default=10,
+                    help="baseline strategies: local mini-batch steps")
     ap.add_argument("--selection", choices=("gbp_cs", "random"),
                     default="gbp_cs")
     ap.add_argument("--engine", choices=("host", "fused", "sharded"),
                     default="host",
                     help="host loop / device-resident fused rounds (one CUDA "
                          "graph per round on the card) / sharded (not "
-                         "ported: ROADMAP item 17)")
+                         "ported for fedgs: ROADMAP item 17; the baselines "
+                         "run it as fused)")
     ap.add_argument("--eval-chunk", type=int, default=1,
                     help="fused: rounds per host read-back of the metrics "
                          "(0 = auto, 1 = per round)")
@@ -176,18 +202,8 @@ def format_record(rec: fedgs.RoundRecord) -> str:
     return msg
 
 
-def main(argv: list[str] | None = None) -> list[dict]:
-    """Run the CLI; returns the per-round records as dicts."""
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    part = make_partition(PartitionConfig(
-        num_factories=args.groups, devices_per_factory=args.devices_per_group,
-        alpha=args.alpha, seed=args.seed))
-    test_x, test_y = femnist.make_test_set(n_per_class=20)
-    eval_fn = cnn.make_eval_fn(test_x, test_y, device)
-    mcfg = femnist_cnn.smoke_config() if args.smoke_model \
-        else femnist_cnn.CONFIG
-    params = cnn.init_cnn(prng.PRNGKey(args.seed), mcfg, device)
+def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
+    """Alg. 1 on the host loop or the fused engine."""
     fcfg = fedgs.FedGSConfig(
         num_groups=args.groups, devices_per_group=args.devices_per_group,
         num_selected=args.selected, num_presampled=args.presampled,
@@ -203,12 +219,6 @@ def main(argv: list[str] | None = None) -> list[dict]:
             mode=args.corrupt, frac=args.corrupt_frac,
             prob=args.corrupt_prob, t0=args.corrupt_t0,
             scale=args.corrupt_scale, sigma=args.corrupt_sigma), args.seed)
-    logs_out = []
-
-    def log_fn(rec):
-        print(format_record(rec), flush=True)
-        logs_out.append(rec.to_dict())
-
     if args.engine == "sharded":
         raise NotImplementedError("--engine sharded (the group-sharded "
                                   "engine, DESIGN.md §8) is ROADMAP item 17")
@@ -227,6 +237,56 @@ def main(argv: list[str] | None = None) -> list[dict]:
                         group_loss_fn=cnn.make_group_loss_fn(),
                         corrupt_fn=corrupt_fn, eval_fn=eval_fn,
                         eval_every=args.eval_every, log_fn=log_fn)
+
+
+def run_strategy(args, part, params, mcfg, device, eval_fn, log_fn) -> None:
+    """A Table II baseline (the JAX CLI's branch): FedGS-only flags warn,
+    the clients come from the device pool, eval sees the global params."""
+    defaults = build_parser()
+    for flag in FEDGS_ONLY:
+        if getattr(args, flag) != defaults.get_default(flag):
+            print(f"warning: --{flag.replace('_', '-')} applies only to "
+                  f"--strategy fedgs; ignored for {args.strategy}",
+                  file=sys.stderr)
+    model = cnn.make_model_api(mcfg, device)
+    strategy = baselines.all_strategies(model)[args.strategy]
+    clients = args.clients_per_round or args.groups * args.selected
+    bcfg = baselines.BaselineConfig(
+        clients_per_round=clients, local_steps=args.local_steps, lr=args.lr,
+        rounds=args.rounds, seed=args.seed)
+    pool = make_client_pool(
+        DeviceStream.from_partition(part, batch_size=args.batch_size,
+                                    seed=args.seed, device=device),
+        clients=clients, steps=args.local_steps)
+    data = HostClientPool(pool) if args.engine == "host" else pool
+    baselines.run_baseline(model, strategy, data, bcfg,
+                           eval_fn=lambda pe: eval_fn(pe[0]),
+                           eval_every=args.eval_every, params=params,
+                           chunk=args.eval_chunk, log_fn=log_fn)
+
+
+def main(argv: list[str] | None = None) -> list[dict]:
+    """Run the CLI; returns the per-round records as dicts."""
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    part = make_partition(PartitionConfig(
+        num_factories=args.groups, devices_per_factory=args.devices_per_group,
+        alpha=args.alpha, seed=args.seed))
+    test_x, test_y = femnist.make_test_set(n_per_class=20)
+    eval_fn = cnn.make_eval_fn(test_x, test_y, device)
+    mcfg = femnist_cnn.smoke_config() if args.smoke_model \
+        else femnist_cnn.CONFIG
+    params = cnn.init_cnn(prng.PRNGKey(args.seed), mcfg, device)
+    logs_out = []
+
+    def log_fn(rec):
+        print(format_record(rec), flush=True)
+        logs_out.append(rec.to_dict())
+
+    if args.strategy == "fedgs":
+        run_fedgs(args, part, params, device, eval_fn, log_fn)
+    else:
+        run_strategy(args, part, params, mcfg, device, eval_fn, log_fn)
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
         with open(args.log_json, "w") as f:

@@ -6,6 +6,7 @@ Parameters are a dict ``conv1/conv2/fc1/fc2 → {w, b}`` in the JAX
 package's layouts (HWIO conv weights, (in, out) dense weights), and images
 are NHWC. Both conv layers go through the fused conv-block kernel
 (``kernels.conv_fused``) — grouped over the M·L·n superbatch in training,
+over the C clients' own models in the baselines (:func:`make_model_api`),
 with G=1 in :func:`apply` and eval — so no cuDNN (TF32) convolution ever
 runs; the dense layers and the log-softmax stay plain PyTorch.
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import dispatch, prng
+from ..core import baselines, dispatch, prng
 
 
 def init_cnn(key, cfg, device: str | torch.device = "cuda") -> dict:
@@ -62,6 +63,39 @@ def apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = _conv_stack(grouped, x[None])[0]
     h = torch.relu(h @ params["fc1"]["w"] + params["fc1"]["b"])
     return h @ params["fc2"]["w"] + params["fc2"]["b"]
+
+
+def features(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Per-client penultimate features: params leaves (C, ...), x (C, n,
+    28, 28[, 1]) → (C, n, hidden). Each conv layer is one grouped launch
+    over the C·n images, fc1 one ``torch.bmm``."""
+    if x.dim() == 4:
+        x = x[..., None]
+    h = _conv_stack(params, x)
+    return torch.relu(torch.bmm(h, params["fc1"]["w"])
+                      + params["fc1"]["b"][:, None])
+
+
+def head(params: dict, f: torch.Tensor) -> torch.Tensor:
+    """Per-client logits: params leaves (C, ...), f (C, n, hidden) → (C, n,
+    classes)."""
+    return torch.bmm(f, params["fc2"]["w"]) + params["fc2"]["b"][:, None]
+
+
+def make_model_api(cfg, device: str | torch.device = "cuda"
+                   ) -> baselines.ModelAPI:
+    """The CNN behind the baselines' model protocol. ``init`` draws one
+    model (:func:`init_cnn` on ``device``); ``apply``/``features``/``head``
+    take a leading client axis (params leaves (C, ...), x (C, n, ...)), the
+    batched form of the JAX package's vmapped per-client calls."""
+    return baselines.ModelAPI(
+        init=lambda key: init_cnn(key, cfg, device),
+        apply=lambda p, x: head(p, features(p, x)),
+        features=features,
+        head=head,
+        feature_dim=cfg.hidden,
+        num_classes=cfg.num_classes,
+    )
 
 
 def loss_fn(params: dict, batch: tuple) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Nested parameter dicts (``{"conv1": {"w", "b"}, ...}``) as pytrees: the
-few traversals the port needs, in a fixed (sorted-key) leaf order."""
+"""Nested parameter dicts (``{"conv1": {"w", "b"}, ...}``), tuples and lists
+as pytrees: the few traversals the port needs, in the JAX package's leaf
+order (dict keys sorted, sequences in order; ``()`` has no leaves)."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -12,12 +13,16 @@ Tree = Any
 def leaves(tree: Tree) -> list[torch.Tensor]:
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for node in tree for leaf in leaves(node)]
     return [tree]
 
 
 def _build(node: Tree, it) -> Tree:
     if isinstance(node, dict):
         return {key: _build(node[key], it) for key in sorted(node)}
+    if isinstance(node, (tuple, list)):
+        return type(node)(_build(child, it) for child in node)
     return next(it)
 
 
@@ -34,4 +39,7 @@ def map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:  # noqa: A001
     if isinstance(tree, dict):
         return {key: map(fn, tree[key], *(r[key] for r in rest))
                 for key in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map(fn, node, *(r[i] for r in rest))
+                          for i, node in enumerate(tree))
     return fn(tree, *rest)

@@ -6,6 +6,7 @@ Every test here skips without one.
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.core import dispatch, gbp_cs as core_gbp
 from repro_torch.kernels import (agg_weighted, conv_fused, corrupt, gbp_cs,
                                  robust_agg, ssd_scan)
@@ -197,6 +198,77 @@ def test_agg_kernel_matches_plain(cuda):
         torch.testing.assert_close(agg_weighted.agg(x, w),
                                    agg_weighted.agg_plain(x, w),
                                    rtol=1e-5, atol=1e-6)
+
+
+def test_weighted_average_tree_at_k100_matches_plain(cuda):
+    """A baselines server average: K = 100 stacked client models (the
+    smoke CNN's leaves and a leaf whose size pads P to a multiple of 4)
+    through one kernel launch, against the same tree on the CPU (the plain
+    version)."""
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import prng
+    from repro_torch.models import cnn
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(), cuda)
+    params["odd"] = torch.zeros(3, device=cuda)
+    stack = {name: ({k: v[None] + torch.randn((100,) + tuple(v.shape),
+                                               generator=gen, device=cuda)
+                     for k, v in layer.items()} if isinstance(layer, dict)
+                    else torch.randn(100, 3, generator=gen, device=cuda))
+             for name, layer in params.items()}
+    w = torch.rand(100, generator=gen, device=cuda)
+    dispatch.reset_launch_counts()
+    out = agg_weighted.weighted_average_tree(stack, w)
+    assert dispatch.launch_counts()["agg_weighted"] == 1
+    ref = agg_weighted.weighted_average_tree(
+        tree.map(lambda v: v.cpu(), stack), w.cpu())
+    for a, b in zip(tree.leaves(out), tree.leaves(ref), strict=True):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+def _baseline_graph_against_eager(cuda, name):
+    """The smoke CNN's fused baseline run (16 clients, 3 local steps, R =
+    3 read back two at a time) eagerly and as one CUDA graph per round:
+    (eager, graphed) each as (state leaves, records), and the graphed
+    run's round function."""
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import baselines, engine, prng
+    from repro_torch.data import (DeviceStream, PartitionConfig,
+                                  make_client_pool, make_partition)
+    from repro_torch.models import cnn
+    part = make_partition(PartitionConfig(num_factories=4,
+                                          devices_per_factory=8, seed=0))
+    pool = make_client_pool(DeviceStream.from_partition(
+        part, batch_size=8, seed=0, device=cuda), 16, 3)
+    model = cnn.make_model_api(femnist_cnn.smoke_config(), cuda)
+    cfg = baselines.BaselineConfig(clients_per_round=16, local_steps=3,
+                                   lr=0.05, rounds=3, seed=0)
+    runs = []
+    for graph in (False, True):
+        exp = baselines.make_baseline_experiment(
+            model, baselines.all_strategies(model)[name], pool, cfg,
+            params=cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(),
+                                cuda), graph=graph)
+        state, logs = engine.run_experiment(exp, cfg.rounds, chunk=2)
+        runs.append((tree.leaves(state), logs, exp.round_fn))
+    (eager, elogs, _), (graphed, glogs, rf) = runs
+    for a, b in zip(eager, graphed, strict=True):
+        assert torch.equal(a, b)
+    assert [r.to_dict() for r in elogs] == [r.to_dict() for r in glogs]
+    assert rf.replays == 3 and len(rf.segments.graphs) == 1
+    return rf
+
+
+@pytest.mark.parametrize("name", ["fedavg", "fedyogi"])
+def test_baseline_graph_replay_equals_eager(cuda, name):
+    """A baseline round captured as one CUDA graph (no segment break)
+    replays its eager run bit for bit, FedYogi's server state and int32
+    step count included; the capture counts one round: two grouped conv
+    launches per local step and two for the last batch's accuracy, and
+    one server average."""
+    rf = _baseline_graph_against_eager(cuda, name)
+    assert {k: v for k, v in rf.captured.items() if v} == {
+        "conv_fused": 2 * 3 + 2, "agg_weighted": 1}
 
 
 def test_wrappers_count_launches_and_check_inputs(cuda):
