@@ -946,10 +946,11 @@ def smoke_card_vs_cpu(label, flags) -> None:
 
 
 def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
-                corrupt: str | None = None):
+                corrupt: str | None = None, drift=None):
     """The fused engine at the paper's traffic and full CNN width, through
-    the library, with the CLI's fault schedule of mode(s) ``corrupt`` if
-    given: (experiment, sampler)."""
+    the library, with the CLI's fault schedule of mode(s) ``corrupt`` and
+    the sampler drifting under ``drift`` (a ``DriftConfig``) if given:
+    (experiment, sampler)."""
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import fedgs, prng
     from repro_torch.data import (CorruptionConfig, DeviceStream,
@@ -960,7 +961,7 @@ def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
     part = make_partition(PartitionConfig(num_factories=10,
                                           devices_per_factory=35, seed=0))
     sampler = make_device_sampler(DeviceStream.from_partition(
-        part, batch_size=32, seed=0, device=dev))
+        part, batch_size=32, seed=0, device=dev), drift=drift)
     params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
     cfg = fedgs.FedGSConfig(num_groups=10, devices_per_group=35,
                             num_selected=10, num_presampled=2,
@@ -1005,23 +1006,27 @@ BASELINE_SMOKE = ("fedavg", "fedmmd", "fedfusion_conv", "ida_intrac",
 BASELINE_PROFILED = "fedavg"     # one traced replayed round
 
 
-def baseline_round_launches(name: str) -> dict:
+def baseline_round_launches(name: str, draws: bool = False) -> dict:
     """One baseline round's wrapper launches, from ``core/baselines.py``:
     per local step one grouped ``conv_fused`` per conv layer (the clients'
     forward; the backward is PyTorch), two more for the global features of
     FedMMD and FedFusion; two for the last batch's accuracy; one
-    ``agg_weighted`` per averaged tree."""
+    ``agg_weighted`` per averaged tree; with a Dirichlet drift (``draws``)
+    one ``dirichlet_rows`` for the pool's draw."""
     conv = 2 * BASELINE_STEPS * (1 + (name in GLOBAL_FEATURES)) + 2
-    return {"conv_fused": conv, "agg_weighted": 1 + (name in TWO_AVERAGES)}
+    out = {"conv_fused": conv, "agg_weighted": 1 + (name in TWO_AVERAGES)}
+    if draws:
+        out["dirichlet_rows"] = 1
+    return out
 
 
-def baseline_expect(name: str, fused: bool) -> dict:
+def baseline_expect(name: str, fused: bool, draws: bool = False) -> dict:
     """The CLI run's wrapper counts: R rounds on the host loop; on the
     fused engine the eager warm-up round and the capture (a replay calls no
     wrapper); the eval's two conv launches every ``BASELINE_EVERY``
     rounds."""
     from repro_torch.core import dispatch
-    per = baseline_round_launches(name)
+    per = baseline_round_launches(name, draws)
     times = 2 if fused else BASELINE_ROUNDS
     out = {k: 0 for k in dispatch.KERNELS}
     out.update({k: v * times for k, v in per.items()})
@@ -1029,7 +1034,8 @@ def baseline_expect(name: str, fused: bool) -> dict:
     return out
 
 
-def baseline_strategy(torch, dev, name: str) -> dict:
+def baseline_strategy(torch, dev, name: str, extra: tuple = (),
+                      iters: int = 1, draws: bool = False) -> dict:
     """One strategy at full width through the CLI, on the host loop and on
     the fused engine, each with its launch counts set to 0 before and read
     after and held to :func:`baseline_expect` (the fused capture to one
@@ -1041,13 +1047,16 @@ def baseline_strategy(torch, dev, name: str) -> dict:
     whole states (server state included) and records bit for bit, and
     their times. Peak device memory of the
     host loop's run (eager) and of the fused run (warm-up and capture
-    included)."""
+    included). ``extra`` flags (a drift schedule, its clock ``iters``
+    internal iterations a round; ``draws``: it draws Dirichlet rows) go to
+    both CLI runs."""
     from repro_torch import tree
     from repro_torch.core import baselines, dispatch
 
-    argv = main_flags(BASELINE_ROUNDS, 1, BASELINE_EVERY) + [
+    argv = main_flags(BASELINE_ROUNDS, iters, BASELINE_EVERY) + [
         "--strategy", name, "--clients-per-round", str(BASELINE_CLIENTS),
-        "--local-steps", str(BASELINE_STEPS)]
+        "--local-steps", str(BASELINE_STEPS)] + list(extra)
+    label = " ".join(("baselines", name) + tuple(extra))
     out = {"strategy": name}
     runs, exps = {}, []
     make, run = baselines.make_baseline_experiment, baselines.run_baseline
@@ -1076,16 +1085,16 @@ def baseline_strategy(torch, dev, name: str) -> dict:
             baselines.run_baseline = run
         torch.cuda.synchronize()
         counts = dispatch.launch_counts()
-        expect = baseline_expect(name, engine_name == "fused")
+        expect = baseline_expect(name, engine_name == "fused", draws)
         if counts != expect:
-            fail(f"baselines {name} {engine_name}: launch counts {counts} "
+            fail(f"{label} {engine_name}: launch counts {counts} "
                  f"!= the formula's {expect}")
         if len(logs) != BASELINE_ROUNDS or not all(
                 math.isfinite(rec["loss"]) for rec in logs):
-            fail(f"baselines {name} {engine_name}: round records {logs}")
+            fail(f"{label} {engine_name}: round records {logs}")
         acc = logs[-1]["test_accuracy"]
         if acc is None or not 0.0 <= acc <= 1.0:
-            fail(f"baselines {name} {engine_name}: no valid test accuracy "
+            fail(f"{label} {engine_name}: no valid test accuracy "
                  f"in the last round: {acc}")
         walls = [b - a for a, b in zip([t0] + tee.stamps, tee.stamps)]
         out[engine_name] = dict(
@@ -1095,15 +1104,16 @@ def baseline_strategy(torch, dev, name: str) -> dict:
             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     rf = exps[0].round_fn
     per = {k: v for k, v in rf.captured.items() if v}
-    if per != baseline_round_launches(name) or rf.replays != BASELINE_ROUNDS:
-        fail(f"baselines {name}: the capture counted {per} for "
+    if per != baseline_round_launches(name, draws) or \
+            rf.replays != BASELINE_ROUNDS:
+        fail(f"{label}: the capture counted {per} for "
              f"{rf.replays} replays, one round being "
-             f"{baseline_round_launches(name)}")
+             f"{baseline_round_launches(name, draws)}")
     if out["host"]["records"] != out["fused"]["records"] or not all(
             torch.equal(a, b) for a, b in zip(tree.leaves(runs["host"]),
                                               tree.leaves(runs["fused"]),
                                               strict=True)):
-        fail(f"baselines {name}: the fused engine's graph rounds differ "
+        fail(f"{label}: the fused engine's graph rounds differ "
              f"from the host loop's eager rounds: {out['host']['records']} "
              f"vs {out['fused']['records']}")
     del runs
@@ -1126,16 +1136,16 @@ def baseline_strategy(torch, dev, name: str) -> dict:
     if mets[True] != mets[False] or not all(
             torch.equal(a, b) for a, b in zip(finals[True], finals[False],
                                               strict=True)):
-        fail(f"baselines {name}: two replayed rounds differ from the same "
+        fail(f"{label}: two replayed rounds differ from the same "
              f"rounds run eagerly: {mets[True]} vs {mets[False]}")
     del snap, finals
     out.update(host_ms=1e3 * out["host"]["round_s"][-1],
                replayed_ms=1e3 * secs[True][-1],
                eager_ms=1e3 * secs[False][-1])
-    if name == BASELINE_PROFILED:
+    if name == BASELINE_PROFILED and not extra:
         rf.graph = True
         baseline_profile(torch, rf, name, out["replayed_ms"])
-    print(f"baselines {name}: host loop round {out['host_ms']:.1f} ms (CLI "
+    print(f"{label}: host loop round {out['host_ms']:.1f} ms (CLI "
           f"rounds {[round(1e3 * t, 1) for t in out['host']['round_s']]} "
           f"ms, the first with the CLI's set-up, the last with its eval), "
           f"fused replayed {out['replayed_ms']:.1f} ms, eager "
@@ -1187,25 +1197,37 @@ def baseline_profile(torch, rf, name: str, replayed_ms: float) -> None:
           "the replayed round)", flush=True)
 
 
-def baseline_smoke_card_vs_cpu(name: str, engine_name: str) -> None:
-    """The smoke configuration of one strategy, kernels on the card vs
-    plain versions on the CPU: the round records' loss, test loss and
-    accuracy (the numbers the round lines print) to 1e-4."""
-    flags = SMOKE_FLAGS + ["--strategy", name, "--engine", engine_name]
-    logs = [run_cli(flags + ["--device", d])[0] for d in ("cuda", "cpu")]
+def records_card_vs_cpu(label: str, flags: list, keys: tuple = (
+        "loss", "test_loss", "test_accuracy"), counted: tuple = ()) -> None:
+    """The smoke configuration plus ``flags``, kernels on the card vs plain
+    versions on the CPU: the round records' ``keys`` (the unrounded
+    numbers the round lines print) to 1e-4, ``counted`` ones equal."""
+    logs = [run_cli(SMOKE_FLAGS + flags + ["--device", d])[0]
+            for d in ("cuda", "cpu")]
     worst = 0.0
     for rg, rc in zip(*logs, strict=True):
-        for key in ("loss", "test_loss", "test_accuracy"):
-            if (rg[key] is None) != (rc[key] is None):
-                fail(f"baselines {name} {engine_name} smoke: {key} "
-                     f"{rg[key]} vs {rc[key]}")
+        for key in keys + counted:
+            if (rg[key] is None) != (rc[key] is None) or (
+                    key in counted and rg[key] != rc[key]):
+                fail(f"{label} smoke: {key} {rg[key]} vs {rc[key]}")
             if rg[key] is not None:
                 worst = max(worst, abs(rg[key] - rc[key]))
     if len(logs[0]) != 3 or worst > 1e-4:
-        fail(f"baselines {name} {engine_name} smoke run on the card "
-             f"differs from the CPU run by {worst}")
-    print(f"baselines {name} {engine_name} smoke config: card vs CPU round "
-          f"records agree to {worst:.2g}", flush=True)
+        fail(f"{label} smoke run on the card differs from the CPU run by "
+             f"{worst}")
+    print(f"{label} smoke config: card vs CPU round records agree to "
+          f"{worst:.2g}" + (f", {'/'.join(counted)} equal" if counted else ""),
+          flush=True)
+
+
+def baseline_smoke_card_vs_cpu(name: str, engine_name: str,
+                               extra: tuple = ()) -> None:
+    """The smoke configuration of one strategy, kernels on the card vs
+    plain versions on the CPU: the round records' loss, test loss and
+    accuracy (the numbers the round lines print) to 1e-4."""
+    records_card_vs_cpu(
+        " ".join(("baselines", name, engine_name) + tuple(extra)),
+        ["--strategy", name, "--engine", engine_name] + list(extra))
 
 
 def check_baseline_kernels(torch, dev) -> dict:
@@ -1321,7 +1343,8 @@ DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
                  "robust_agg": "robust_agg_kernel",
                  "topk_compress": "topk_hist0", "int8_quant": "int8_absmax",
                  "flash_attention": "flash_fwd", "ssd_scan": "ssd_chunk_scan",
-                 "corrupt_rows": "corrupt_rows_kernel"}
+                 "corrupt_rows": "corrupt_rows_kernel",
+                 "dirichlet_rows": "dirichlet_rows_kernel"}
 
 
 def device_launches(torch, argv) -> tuple[dict, dict]:
@@ -1520,6 +1543,261 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
     del runs, g_state, e_state, state
     torch.cuda.empty_cache()
     return run
+
+
+# ------------------------------------------------------------------ drift
+# The dynamic environments (DESIGN.md §13): the drift schedules and the
+# GBP-CS cadence on the host loop, the fused engine and the baselines.
+DRIFT_FLAGS = ["--drift", "redraw", "--drift-period", "2", "--reselect-every",
+               "2"]
+STEP_FLAGS = ["--drift", "step_shift", "--drift-t0", "3", "--reselect-every",
+              "0"]
+CHURN_FLAGS = ["--drift", "churn", "--drift-period", "3"]
+DRIFT_COUNTED = ("reselections",)
+DRIFT_KEYS = ("loss", "divergence", "group_discrepancy",
+              "selection_distance", "test_loss", "test_accuracy")
+
+
+def check_dirichlet_rows(torch, dev):
+    """The Dirichlet redraw against its plain version at the drift's
+    shape, the paper's 350 devices of 62 classes: a ``redraw`` trace of
+    epoch 1 (every row drawn) and a ``churn`` one (a quarter drawn, the
+    rest kept), α = 0.3. Kept rows bit-equal, drawn rows to 1e-6. The
+    bound counts this draw's work, from the plain version: ~74 integer
+    operations (``THREEFRY_INT_OPS``) per threefry hash, 4 hashes per
+    element (its key, ``split``, the exponential), 4 per outer pass, 3
+    per inner normal draw."""
+    import numpy as np
+
+    from repro_torch.core import prng
+    from repro_torch.data import (DriftConfig, PartitionConfig,
+                                  make_drift_fn, make_partition)
+    from repro_torch.kernels import dirichlet as kd
+
+    part = make_partition(PartitionConfig(num_factories=10,
+                                          devices_per_factory=35, seed=0))
+    r, f = 350, 62
+    base = torch.as_tensor(part.class_probs.reshape(r, f), device=dev)
+    ids = np.arange(r)
+    tol, res = 1e-6, {}
+    for sched in ("redraw", "churn"):
+        fn = make_drift_fn(DriftConfig(schedule=sched, period=2), 0, f)
+        trace = fn.device_trace(2, ids, dev)
+        out = kd.drift_rows(base, trace, fn.config.alpha)
+        ref = kd.drift_rows_plain(base, trace, fn.config.alpha)
+        drawn = trace[:, 1] != 0
+        err = float((out[drawn] - ref[drawn]).abs().max())
+        exact = int((out[drawn] == ref[drawn]).all(dim=1).sum())
+        if not torch.equal(out[~drawn], ref[~drawn]) or err > tol:
+            fail(f"dirichlet_rows {sched}: drawn rows err {err} > {tol} or "
+                 "kept rows differ")
+        stats = {}
+        prng.dirichlet_t(trace[drawn, 2:], fn.config.alpha, f, stats)
+        hashes = 4 * stats["elements"] + 4 * stats["passes"] \
+            + 3 * stats["draws"]
+        ms = time_ms(lambda: kd.drift_rows(base, trace, fn.config.alpha),
+                     reps=50)
+        plain_ms = time_ms(lambda: kd.drift_rows_plain(
+            base, trace, fn.config.alpha), reps=3, warmup=1)
+        b_ms, b_by = bound(8 * r * f + 32 * r, THREEFRY_INT_OPS * hashes,
+                           INT32_OPS)
+        res[sched] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, drawn=int(drawn.sum()))
+        print(f"dirichlet_rows {sched} (R={r}, F={f}, alpha "
+              f"{fn.config.alpha}, {int(drawn.sum())} rows drawn: "
+              f"{stats['elements']} elements, {stats['passes']} outer "
+              f"passes, {stats['draws']} normal draws): kept rows "
+              f"bit-equal, drawn max err {err:.3g} (tol {tol}), {exact} "
+              f"drawn rows bit-equal; {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+              f"plain, bound {b_ms:.5f} ms ({b_by}); library: none (no "
+              "PyTorch call draws JAX's threefry gamma)", flush=True)
+    red = res["redraw"]
+    return dict(name=kd.NAME, route="cuda", source=kd.SOURCE,
+                replaces=kd.REPLACES, max_abs_err=max(v["err"] for v in
+                                                      res.values()),
+                tol=tol, ms=red["ms"], plain_ms=red["plain_ms"],
+                bound_ms=red["bound_ms"], bound_by=red["bound_by"],
+                library_ms=None, churn_ms=res["churn"]["ms"],
+                churn_plain_ms=res["churn"]["plain_ms"],
+                shape=f"R={r} F={f}, redraw all rows / churn "
+                      f"{res['churn']['drawn']} rows drawn")
+
+
+def fedgs_expect(rounds: int, iters: int, every: int, reselect: int,
+                 draws: bool, fused: bool) -> dict:
+    """A FEDGS CLI run's wrapper counts under a cadence: per round, one
+    ``gbp_cs`` per rebuild iteration of its pattern
+    (``fedgs.round_pattern``), two ``conv_fused`` an iteration, one
+    ``agg_weighted`` (Eq. 5), with a Dirichlet drift (``draws``) one
+    ``dirichlet_rows`` an iteration; the eval's two conv launches every
+    ``every`` rounds. The host loop runs every round; the fused engine
+    warms up and captures each distinct pattern once (a replay calls no
+    wrapper)."""
+    from repro_torch.core import dispatch, fedgs
+
+    cfg = fedgs.FedGSConfig(iters_per_round=iters, reselect_every=reselect)
+    patterns = [fedgs.round_pattern(cfg, r) for r in range(rounds)]
+    if fused:
+        patterns = [p for p in dict.fromkeys(patterns) for _ in range(2)]
+    out = {k: 0 for k in dispatch.KERNELS}
+    for p in patterns:
+        out["gbp_cs"] += sum(p)
+        out["conv_fused"] += 2 * iters
+        out["agg_weighted"] += 1
+        out["dirichlet_rows"] += iters if draws else 0
+    out["conv_fused"] += 2 * (rounds // every)
+    return out
+
+
+def drift_fused(label, flags, drift, reselect, draws, torch, dev) -> dict:
+    """One fused drift path at full width (R=2, T=3): the CLI driven with
+    the counts set to 0 before and read after, held to
+    :func:`fedgs_expect` and each pattern's capture to one round of it,
+    with the peak device memory of the run (each pattern's graphs hold a
+    memory pool of their own); then through the library, graph against
+    eager over 4 rounds (states bit-equal, records equal) and ms per
+    internal iteration replayed and eager. Returns the CLI's counts."""
+    from repro_torch.core import fedgs
+
+    rounds, iters, every = 2, 3, 2
+    argv = main_flags(rounds, iters, every) + ["--engine", "fused"] + flags
+    seen, make = [], fedgs.make_fedgs_experiment
+
+    def spy(*args, **kw):      # keep the CLI's round function in view
+        seen.append(make(*args, **kw))
+        return seen[-1]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fedgs.make_fedgs_experiment = spy
+    try:
+        logs, counts, cli_ms = drive(
+            label, argv, fedgs_expect(rounds, iters, every, reselect, draws,
+                                      True), torch)
+    finally:
+        fedgs.make_fedgs_experiment = make
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rf = seen[0].round_fn
+    cfg = fedgs.FedGSConfig(iters_per_round=iters, reselect_every=reselect)
+    for pattern, captured in rf.captures.items():
+        one = fedgs_expect(1, iters, rounds + 1, reselect, draws, False)
+        one["gbp_cs"] = sum(pattern)
+        if captured != one:
+            fail(f"{label}: pattern {pattern} captured {captured}, one "
+                 f"round being {one}")
+    patterns = {fedgs.round_pattern(cfg, r) for r in range(rounds)}
+    if set(rf.captures) != patterns or rf.replays != rounds:
+        fail(f"{label}: captures {list(rf.captures)} for {rf.replays} "
+             f"replays, the rounds' patterns being {patterns}")
+    resel = [rec["reselections"] for rec in logs]
+    print(f"{label}: {len(rf.graphs)} patterns captured "
+          + ", ".join(f"{p}: {len(g.graphs)} graph segments"
+                      for p, (g, _) in rf.graphs.items())
+          + f"; reselections per round {resel}; peak device memory of the "
+          f"CLI run {peak:.2f} GB", flush=True)
+    del seen, rf
+
+    drift_graph_vs_eager(label, {"reselect_every": reselect}, drift, None,
+                         torch, dev)
+    print(f"{label}: the CLI's last round, eval included: {cli_ms:.1f} ms "
+          "per internal iteration", flush=True)
+    return counts
+
+
+def drift_graph_vs_eager(label, extra, drift, corrupt, torch, dev) -> float:
+    """Through the library at full width, 4 rounds of T = 3 as CUDA graphs
+    (one per pattern, each captured at its first round) and eagerly:
+    states bit-equal and records equal; ms per internal iteration of the
+    rounds after every pattern's capture (rounds 2 and 3), replayed and
+    eager. Returns the replayed ms per iteration."""
+    from repro_torch import tree
+
+    t_rounds, iters = 4, 3
+    runs = {}
+    for graph in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        exp, _ = fused_setup(torch, dev, extra, t_rounds, graph, corrupt,
+                             drift)
+        runs[graph] = fused_rounds(torch, exp, t_rounds)
+        del exp
+    (g_secs, g_mets, g_state), (e_secs, e_mets, e_state) = runs[True], \
+        runs[False]
+    leaves = lambda st: tree.leaves(st[0]) + list(st[1])
+    if not all(torch.equal(a, b) for a, b in zip(leaves(g_state),
+                                                  leaves(e_state))):
+        fail(f"{label}: graph and eager states differ after {t_rounds} "
+             "rounds")
+    if g_mets != e_mets:
+        fail(f"{label}: graph and eager records differ:\n{g_mets}\n{e_mets}")
+    replay_ms = 1e3 * sum(g_secs[2:]) / (iters * (t_rounds - 2))
+    eager_ms = 1e3 * sum(e_secs[2:]) / (iters * (t_rounds - 2))
+    print(f"{label}: graph == eager over {t_rounds} rounds (states "
+          f"bit-equal, records equal; reselections "
+          f"{[m['reselections'] for m in g_mets]}); ms per internal "
+          f"iteration over rounds 2-3: replayed {replay_ms:.2f}, eager "
+          f"{eager_ms:.2f} (rounds replayed "
+          f"{[round(1e3 * t / iters, 2) for t in g_secs]}, eager "
+          f"{[round(1e3 * t / iters, 2) for t in e_secs]}, rounds 0-1 "
+          "with their captures, no eval)", flush=True)
+    del runs, g_state, e_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return replay_ms
+
+
+def drift_phase(torch, dev) -> dict:
+    """The dynamic environments at full width and the paper's traffic:
+    ``--drift redraw --drift-period 2 --reselect-every 2`` on the host
+    loop (driven and counted: one ``dirichlet_rows`` an iteration, one
+    ``gbp_cs`` per rebuild) and the fused engine (:func:`drift_fused`: two
+    patterns, graph == eager), ``--drift step_shift --drift-t0 3
+    --reselect-every 0`` on the fused engine (no draw, two patterns, one
+    without a rebuild), ``--strategy fedavg --drift churn --drift-period
+    3`` on both engines (:func:`baseline_strategy`, the FEDGS clock of T =
+    3); then the smoke configurations card vs CPU, records to 1e-4 with
+    ``reselections`` equal. Returns each path's counts."""
+    from repro_torch.data import DriftConfig
+
+    t0 = time.perf_counter()
+    rounds, iters, every = 2, 3, 2
+    out = {}
+    _, out["drift_host"], _ = drive(
+        "drift host path", main_flags(rounds, iters, every) + DRIFT_FLAGS,
+        fedgs_expect(rounds, iters, every, 2, True, False), torch)
+    out["drift_fused"] = drift_fused(
+        "drift fused path", DRIFT_FLAGS,
+        DriftConfig(schedule="redraw", period=2), 2, True, torch, dev)
+    out["drift_step_fused"] = drift_fused(
+        "drift step_shift fused path", STEP_FLAGS,
+        DriftConfig(schedule="step_shift", t0=3), 0, False, torch, dev)
+    # the robust path's cadence with quarantine: keep iterations run
+    # GBP-CS too (the device predicate picks); without quarantine they
+    # skip it, so the difference is what the predicate costs
+    redraw = DriftConfig(schedule="redraw", period=2)
+    robust = {"reselect_every": 2, "robust_agg": ROBUST_FLAGS[3]}
+    q_ms = drift_graph_vs_eager("drift fused robust path, quarantine 3",
+                                robust, redraw, ROBUST_FLAGS[1], torch, dev)
+    o_ms = drift_graph_vs_eager("drift fused robust path, quarantine off",
+                                dict(robust, quarantine_limit=0), redraw,
+                                ROBUST_FLAGS[1], torch, dev)
+    print(f"drift fused robust path: the quarantine cadence's keep "
+          f"iterations (1 of 3 at N = 2, T = 3) cost {q_ms - o_ms:.2f} ms "
+          f"per iteration on average, {3 * (q_ms - o_ms):.2f} ms per keep "
+          "iteration (a GBP-CS solve and its pinv break)", flush=True)
+    res = baseline_strategy(torch, dev, "fedavg", tuple(CHURN_FLAGS), iters,
+                            draws=True)
+    out["drift_baselines_host"] = dict(res["host"]["counts"])
+    out["drift_baselines_fused"] = dict(res["fused"]["counts"])
+    for flags in (DRIFT_FLAGS, DRIFT_FLAGS + ["--engine", "fused"],
+                  STEP_FLAGS + ["--engine", "fused"]):
+        records_card_vs_cpu("drift " + " ".join(flags), flags, DRIFT_KEYS,
+                            DRIFT_COUNTED)
+    for engine_name in ("host", "fused"):
+        baseline_smoke_card_vs_cpu("fedavg", engine_name, tuple(CHURN_FLAGS))
+    print(f"drift phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 LM_ARCH = "granite-3-2b"
@@ -2115,7 +2393,8 @@ def main() -> None:
     kernels = [check_gbp_cs(torch, dev, probe), check_conv(torch, dev),
                check_agg(torch, dev), check_robust_agg(torch, dev),
                check_topk_compress(torch, dev), check_int8(torch, dev),
-               check_corrupt_rows(torch, dev)]
+               check_corrupt_rows(torch, dev),
+               check_dirichlet_rows(torch, dev)]
     torch.cuda.synchronize()
 
     # each path at full width: R rounds of T iterations, eval every E
@@ -2125,7 +2404,7 @@ def main() -> None:
                    "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
                    "agg_weighted": rounds, "robust_agg": 0,
                    "topk_compress": 0, "int8_quant": 0, "flash_attention": 0,
-                   "ssd_scan": 0, "corrupt_rows": 0}
+                   "ssd_scan": 0, "corrupt_rows": 0, "dirichlet_rows": 0}
     _, main_counts, main_ms = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
     smoke_card_vs_cpu("main path", [])
@@ -2211,6 +2490,11 @@ def main() -> None:
     # at the path's shapes (K = 100 client models, G = 100 client CNNs)
     base_host, base_fused, base_kernels = baselines_phase(torch, dev)
 
+    # the dynamic environments (DESIGN.md §13): drift schedules and the
+    # GBP-CS cadence on both engines and the baselines, the Dirichlet
+    # redraw through dirichlet_rows
+    drift_counts = drift_phase(torch, dev)
+
     # LM path (the dense-LM serving slice): the kernel at the prefill
     # shape, then the full-width prefill, decode and serve, then the smoke
     # config card vs CPU
@@ -2252,6 +2536,8 @@ def main() -> None:
                    "hybrid": hybrid_counts[k["name"]],
                    "baselines_host": base_host[k["name"]],
                    "baselines_fused": base_fused[k["name"]]}
+        by_path.update({p: c.get(k["name"], 0)
+                        for p, c in drift_counts.items()})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:

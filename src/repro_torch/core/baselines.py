@@ -418,7 +418,7 @@ class BaselineRound(engine.GraphedRound):
         self.round_step, self.pool = round_step, pool
         self.bytes_ext = bytes_ext
 
-    def step(self, carry, inputs, segs):
+    def step(self, carry, inputs, segs, variant=None):
         batches, weights = self.pool.draw(inputs)
         params, extras, server_state, loss = self.round_step(
             *carry, batches, weights)

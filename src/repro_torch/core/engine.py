@@ -252,68 +252,81 @@ class SegmentedGraph:
 
 
 class GraphedRound:
-    """One round of an experiment, :meth:`step` ``(carry, inputs, segs) ->
-    (carry', metrics)``, run eagerly or (``graph``) as CUDA graphs.
+    """One round of an experiment, :meth:`step` ``(carry, inputs, segs,
+    variant) -> (carry', metrics)``, run eagerly or (``graph``) as CUDA
+    graphs.
 
     :meth:`run` copies the round's host-staged ``material`` (int64 words:
-    keys, ids) into the static ``inputs`` buffer and runs the step. With
-    ``graph``, the first call runs one eager warm-up round on the capture
-    stream (outputs dropped), hands its cached blocks back, and captures
-    the step in a :class:`SegmentedGraph` (``segs``; None in eager runs):
-    the carry lives in static tensors that the capture overwrites with the
-    round's outputs, and every call replays it. Nothing reads back to the
-    host inside a round, so a capture that fails raises.
+    keys, ids) into the static ``inputs`` buffer and runs the step. A
+    round's ``variant`` (hashable, host-known: the FEDGS round's pattern of
+    rebuild and keep iterations, DESIGN.md §13) selects what the step
+    traces. With ``graph``, the first call of each variant runs one eager
+    warm-up round on the capture stream (outputs dropped), hands its
+    cached blocks back, and captures the step in a :class:`SegmentedGraph`
+    of its own (``segs``; None in eager runs), with its own memory pool:
+    the carry lives in static tensors that every variant's graphs read and
+    overwrite with the round's outputs, and every call replays its
+    variant's graphs. Nothing reads back to the host inside a round, so a
+    capture that fails raises.
 
     Kernel launch counters move where a wrapper launches, so in a graphed
-    run they count the warm-up and the capture only: :attr:`captured`
-    holds the capture's counts, and a run's launches are those times
-    :attr:`replays`."""
+    run they count the warm-ups and the captures only: :attr:`captures`
+    holds each variant's capture counts (:attr:`captured` and
+    :attr:`segments` are the last run variant's), and a run's launches
+    are those times each variant's replays."""
 
     def __init__(self, size: int, device, graph: bool):
         self.graph = graph
         self.inputs = torch.zeros(size, dtype=torch.int64, device=device)
         self.static = None
+        self.graphs: dict[Any, tuple[SegmentedGraph, dict]] = {}
+        self.captures: dict[Any, dict[str, int]] = {}
         self.segments: SegmentedGraph | None = None
         self.captured: dict[str, int] | None = None
         self.replays = 0
 
-    def step(self, carry, inputs: torch.Tensor, segs):
+    def step(self, carry, inputs: torch.Tensor, segs, variant):
         raise NotImplementedError
 
-    def run(self, carry, material: np.ndarray):
+    def run(self, carry, material: np.ndarray, variant=None):
         self.inputs.copy_(torch.from_numpy(material), non_blocking=True)
         if not self.graph:
-            return self.step(carry, self.inputs, None)
+            return self.step(carry, self.inputs, None, variant)
         if self.static is None:
-            self._capture(carry)
+            self.static = (tree.map(torch.clone, carry), None)
         else:
             for dst, src in zip(tree.leaves(self.static[0]),
                                 tree.leaves(carry)):
                 if dst is not src:
                     dst.copy_(src)
+        if variant not in self.graphs:
+            self._capture(variant)
+        self.segments, mets = self.graphs[variant]
+        self.captured = self.captures[variant]
         self.segments.replay()
         self.replays += 1
-        carry, mets = self.static
-        return carry, {name: v.clone() for name, v in mets.items()}
+        self.static = (self.static[0], mets)
+        return self.static[0], {name: v.clone() for name, v in mets.items()}
 
-    def _capture(self, carry) -> None:
-        static = tree.map(torch.clone, carry)
+    def _capture(self, variant) -> None:
+        static = self.static[0]
         side = capture_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):        # warm-up, outputs dropped
-            self.step(static, self.inputs, None)
+            self.step(static, self.inputs, None, variant)
         torch.cuda.current_stream().wait_stream(side)
         # the warm-up's cached blocks cannot serve the graph's private
         # pool: hand them back first (the robust round's member stacks
         # are 2.64 GB each at full width)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        self.segments = SegmentedGraph()
+        segments = SegmentedGraph()
         before = dispatch.launch_counts()
-        with self.segments.capture() as segs:
-            out, mets = self.step(static, self.inputs, segs)
+        with segments.capture() as segs:
+            out, mets = self.step(static, self.inputs, segs, variant)
             for dst, src in zip(tree.leaves(static), tree.leaves(out)):
                 dst.copy_(src)
         after = dispatch.launch_counts()
-        self.captured = {name: after[name] - before[name] for name in after}
-        self.static = (static, mets)
+        self.captures[variant] = {name: after[name] - before[name]
+                                  for name in after}
+        self.graphs[variant] = (segments, mets)

@@ -31,8 +31,11 @@ and no host read inside; :func:`make_fedgs_experiment` and
 :func:`run_fedgs_fused` drive it through ``engine.run_experiment``, on the
 card as a CUDA graph per round, the robust layer of §15 included (the
 fault trace staged with the keys, applied by the ``corrupt_rows`` kernel).
-Availability (§14), drift (§13) and the sharded engine are not part of the
-port yet.
+Both engines take the dynamic environments of §13: a drifting sampler
+(its drift trace staged with the keys in the fused round) and the GBP-CS
+cadence ``reselect_every`` (:func:`selection.select_or_keep`; in the fused
+round one CUDA graph per pattern of rebuild and keep iterations).
+Availability (§14) and the sharded engine are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -467,17 +470,12 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                 do = selection.reselect_predicate(t, cfg.reselect_every)
                 if avail is not None and cfg.reselect_every != 1:
                     do = selection.reselect_trigger(do, mask_c, avail, l)
-                if do:
-                    sel = selection.select_for_groups(
-                        keys, counts, p_real, l, cfg.num_presampled,
-                        avail=avail, method=cfg.selection, init=cfg.init,
-                        max_iters=cfg.gbp_max_iters)
-                    mask_c, dist_c = sel.mask, sel.distance
-                    div = sel.divergence
-                    resel += 1
-                else:
-                    ce = counts if avail is None else counts * avail[..., None]
-                    div = distributions.mask_divergence(ce, mask_c, p_real)
+                mask_c, div, dist_c = selection.select_or_keep(
+                    do, keys, counts, p_real, l, cfg.num_presampled,
+                    prev_mask=mask_c, prev_distance=dist_c, avail=avail,
+                    method=cfg.selection, init=cfg.init,
+                    max_iters=cfg.gbp_max_iters)
+                resel += int(do)
                 host_mask = mask_c.cpu().numpy()
             with span("fedgs.fetch"):
                 imgs, labs = streams.fetch_selected(host_mask, l)
@@ -570,16 +568,12 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
 # read, so on the card it is captured once as a CUDA graph and replayed.
 # ---------------------------------------------------------------------------
 
-def _fused_unported(cfg: FedGSConfig, avail_fn, mesh) -> None:
+def _fused_unported(avail_fn, mesh) -> None:
     """Raise for the fused-round branches the port does not have yet."""
     if avail_fn is not None:
         raise NotImplementedError(
             "availability and bounded-async sync in the fused round "
             "(DESIGN.md §14) are ROADMAP item 12")
-    if cfg.reselect_every != 1:
-        raise NotImplementedError(
-            "reselect_every != 1 in the fused round (DESIGN.md §13) is "
-            "ROADMAP item 11")
     if mesh is not None:
         raise NotImplementedError(
             "the group-sharded engine (DESIGN.md §8) is ROADMAP item 17")
@@ -617,10 +611,12 @@ class RoundKeys:
     a ``data.CorruptionFn``) the fault trace of all M·K devices — codes
     (T, M, K) and, when the mix draws noise, each leaf's noise keys
     (T, M, K, S, 2) for the model's S = ``num_leaves`` leaves — at the
-    dense ids gid·K + slot; with ``compress_ext`` the round's Eq. 5 keys
-    (M, 2). :meth:`host` advances the key chain exactly as the host loop
-    does (the trace hashes its own keys and leaves the chain alone);
-    :meth:`views` names the parts of a buffer."""
+    dense ids gid·K + slot; with a drifting sampler (``sampler.drift``,
+    DESIGN.md §13) the drift trace of all M·K devices (T, M, K, 4); with
+    ``compress_ext`` the round's Eq. 5 keys (M, 2). :meth:`host` advances
+    the key chain exactly as the host loop does (the traces hash their own
+    keys and leave the chain alone); :meth:`views` names the parts of a
+    buffer."""
 
     def __init__(self, cfg: FedGSConfig, sampler, corrupt_fn=None,
                  num_leaves: int = 0):
@@ -637,6 +633,8 @@ class RoundKeys:
             self.shapes["ccode"] = (t, m, k)
             if corrupt_fn.noisy:
                 self.shapes["cnoise"] = (t, m, k, num_leaves, 2)
+        if sampler.drift is not None:
+            self.shapes["drift"] = (t, m, k, 4)
         if self.spec_ext is not None:
             self.shapes["cext"] = (m, 2)
         self.size = sum(math.prod(s) for s in self.shapes.values())
@@ -663,6 +661,9 @@ class RoundKeys:
                 parts["ccode"].append(code)
                 if noise is not None:
                     parts["cnoise"].append(noise)
+            if "drift" in parts:
+                parts["drift"].append(self.sampler.drift_trace(
+                    t0 + i, np.arange(m)))
         if self.spec_ext is not None:
             key, esub = prng.split(key)
             parts["cext"] = prng.split(esub, m)
@@ -679,17 +680,27 @@ class RoundKeys:
         return out
 
 
+def round_pattern(cfg: FedGSConfig, r: int) -> tuple[bool, ...]:
+    """Round r's iterations that rebuild the super nodes on the cadence
+    alone (``reselect_predicate(r·T + i, N)``): all of them at N = 1."""
+    t0 = r * cfg.iters_per_round
+    return tuple(selection.reselect_predicate(t0 + i, cfg.reselect_every)
+                 for i in range(cfg.iters_per_round))
+
+
 def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
                     avail_fn=None, corrupt_fn=None, mesh=None):
     """The one-round body of the device-resident engine:
-    ``body(gp, sel, keys, p_real, pinv_fn=None) -> (gp', sel', metrics)``.
+    ``body(gp, sel, keys, p_real, pinv_fn=None, pattern=None) -> (gp',
+    sel', metrics)``.
 
     ``keys`` are :meth:`RoundKeys.views` of the round's staged material and
     ``sel`` the carried state of :func:`init_selection_state`. Each of the
     T iterations draws the devices' labels, counts and (for the selected
     devices only) images on the device (``sampler``, a
-    ``data.DeviceSampler``), runs GBP-CS for all groups from the staged
-    permutations, and takes the all-groups superbatch step
+    ``data.DeviceSampler``, drifting under the staged drift trace when it
+    drifts), runs GBP-CS for all groups from the staged permutations, and
+    takes the all-groups superbatch step
     (:func:`_train_all_groups`, or the ``model_avg`` step), with the §18
     Eq. 4 compression and its EF residual in the carry; the round ends with
     the Eq. 5 compression of the round delta, the Eq. 5 average and the
@@ -701,15 +712,23 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
     all devices, and the per-member step, the NaN guard and the counters'
     update follow, as in the host loop.
 
+    ``pattern`` (:func:`round_pattern`; None = every iteration) says which
+    iterations rebuild on the cadence (DESIGN.md §13): the others keep the
+    carried masks and only re-score them (``selection.select_or_keep``),
+    unless quarantine can force a rebuild (``reselect_trigger``, read from
+    the device): then they run GBP-CS too, and ``torch.where`` on the
+    device predicate picks the branch — ``lax.cond``'s results, with no
+    read-back, at the cost of a solve (and its pinv) on every iteration.
+
     ``metrics`` holds (T,) tensors ``loss``, ``divergence``,
     ``group_discrepancy``, ``selection_distance``, ``reselected``,
     ``bytes_int`` (and ``compress_error_int``; on the robust layer also
     :data:`ROBUST_METRICS`), and the round's ``bytes_ext`` (and
     ``compress_error_ext``). Nothing reads back to the host or copies from
     it; ``pinv_fn`` is handed to the mpinv initializer (a captured round
-    breaks its graph there). Availability, ``reselect_every != 1`` and
-    ``mesh`` raise ``NotImplementedError``."""
-    _fused_unported(cfg, avail_fn, mesh)
+    breaks its graph there). Availability and ``mesh`` raise
+    ``NotImplementedError``."""
+    _fused_unported(avail_fn, mesh)
     m, k, l = cfg.num_groups, cfg.devices_per_group, cfg.num_selected
     robust = corrupt_fn is not None or cfg.robust_agg != "mean"
     if robust and cfg.train_step != "grad_avg":
@@ -737,7 +756,8 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
                 m, l, s, 2))
         return code, noise
 
-    def body(gp, sel, keys, p_real, pinv_fn=None):
+    def body(gp, sel, keys, p_real, pinv_fn=None, pattern=None):
+        pattern = pattern or (True,) * cfg.iters_per_round
         n_par = sum(leaf[0].numel() for leaf in tree.leaves(gp))
         payload_int = compress.payload_bytes(n_par, spec_int)
         gp_round0 = gp
@@ -748,17 +768,25 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
                  "selection_distance") + (ROBUST_METRICS + ("bytes_int",)
                                           if robust else ())
         rows = {name: [] for name in names}
-        cerrs = []
+        cerrs, resel = [], []
         for i in range(cfg.iters_per_round):
-            labels = sampler.labels(keys["data"][i], gids)
+            labels = sampler.labels(keys["data"][i], gids,
+                                    keys["drift"][i] if "drift" in keys
+                                    else None)
             counts = sampler.counts(labels)
             avail = selection.quarantine_mask(
                 quar, cfg.quarantine_limit) if quarantined else None
-            res = selection.select_presampled(
-                keys["perm"][i], keys["opt"][i], counts, p_real, l,
-                cfg.num_presampled, avail=avail, method=cfg.selection,
-                init=cfg.init, max_iters=cfg.gbp_max_iters, pinv_fn=pinv_fn)
-            mask, dist = res.mask, res.distance
+            do = pattern[i]
+            if not do and avail is not None:
+                do = selection.reselect_trigger(
+                    torch.zeros((), dtype=torch.bool, device=gids.device),
+                    mask, avail, l)
+            mask, div, dist = selection.select_or_keep(
+                do, (keys["perm"][i], keys["opt"][i]), counts, p_real, l,
+                cfg.num_presampled, prev_mask=mask, prev_distance=dist,
+                avail=avail, method=cfg.selection, init=cfg.init,
+                max_iters=cfg.gbp_max_iters, pinv_fn=pinv_fn)
+            resel.append(do)
             batches = sampler.selected_batch(labels, keys["data"][i], gids,
                                              mask, l)
             tx = None if spec_int is None else Compressor(
@@ -781,13 +809,18 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
             if tx is not None:
                 cerrs.append(errs.mean())
             rows["loss"].append(loss.mean())
-            rows["divergence"].append(res.divergence.mean())
+            rows["divergence"].append(div.mean())
             rows["group_discrepancy"].append(
                 distributions.group_discrepancy(counts, p_real).mean())
             rows["selection_distance"].append(dist.mean())
         mets = {name: torch.stack(v) for name, v in rows.items()}
         t = cfg.iters_per_round
         mets["reselected"] = torch.ones(t, device=gids.device)
+        for i, do in enumerate(resel):      # device ops only (a capture)
+            if isinstance(do, torch.Tensor):
+                mets["reselected"][i].copy_(do)
+            elif not do:
+                mets["reselected"][i].fill_(0.0)
         if not robust:
             mets["bytes_int"] = torch.full((t,), 2.0 * payload_int * m * l,
                                            device=gids.device)
@@ -846,7 +879,10 @@ class FusedRound(engine.GraphedRound):
     selection state and EF residuals in static tensors. The round breaks
     around ``torch.linalg.pinv``, whose SVD reads a status back to the host
     and cannot be captured (``engine.SegmentedGraph``): one eager pinv per
-    iteration between two graph segments."""
+    iteration between two graph segments. Each round's
+    :func:`round_pattern` is its variant: one capture per pattern of
+    rebuild and keep iterations, at its first use (a keep iteration has no
+    pinv, so no break)."""
 
     def __init__(self, body, layout: RoundKeys, cfg: FedGSConfig, p_real,
                  device, graph: bool):
@@ -855,16 +891,18 @@ class FusedRound(engine.GraphedRound):
         self.p_real = p_real
         self.keys = layout.views(self.inputs)
 
-    def step(self, carry, inputs, segs):
+    def step(self, carry, inputs, segs, variant):
         pinv_fn = None if segs is None else lambda A: segs.eager(
             gbp_cs.pinv, A, A.shape[:-2] + (A.shape[-1], A.shape[-2]))
-        gp, sel, mets = self.body(*carry, self.keys, self.p_real, pinv_fn)
+        gp, sel, mets = self.body(*carry, self.keys, self.p_real, pinv_fn,
+                                  variant)
         return (gp, sel), _round_record_metrics(mets, self.cfg)
 
     def __call__(self, state, r: int):
         gp, sel, key = state
         key, material = self.layout.host(key, r * self.cfg.iters_per_round)
-        (gp, sel), mets = self.run((gp, sel), material)
+        (gp, sel), mets = self.run((gp, sel), material,
+                                   round_pattern(self.cfg, r))
         return (gp, sel, key), mets
 
 

@@ -1,10 +1,12 @@
 """Threefry-2x32 counter-based PRNG, bit-compatible with ``jax.random``.
 
 The trainer's key chain (per-iteration ``split``, the per-group pre-sample
-``permutation``), the CNN initialiser (``normal``) and the fault trace of
+``permutation``), the CNN initialiser (``normal``), the fault trace of
 DESIGN.md §15 (``fold_in``, ``bernoulli``, ``randint``, per-member
-``normal`` noise) must draw the same bits as the JAX reference so that
-both CLIs print the same lines from the same ``--seed``. This module
+``normal`` noise) and the drift schedules of §13 (the same hashes, and
+``loggamma``/``dirichlet`` by JAX's rejection loops) must draw the same
+bits as the JAX reference so that both CLIs print the same lines from the
+same ``--seed``. This module
 reproduces those calls in numpy (keys, bits) and PyTorch (the float
 transforms, and the ``*_t`` tensor forms, which draw on the run's
 device), following the ``jax_threefry_partitionable=True`` mode (every
@@ -243,6 +245,128 @@ def normal_t(key, shape: tuple, device=None) -> torch.Tensor:
     on ``device``, a key tensor on its own); same numbers as
     :func:`normal`."""
     return _normal_from_bits(random_bits_t(key, shape, device))
+
+
+def _scalar_t(draw, keys: torch.Tensor) -> torch.Tensor:
+    """One ``shape=()`` draw per key of an int64 key tensor (..., 2)."""
+    return draw(random_bits_t(keys, ()))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a·b + c with one rounding (the product and the sum in
+    float64, which holds the product exactly)."""
+    return (a.double() * b + c).float()
+
+
+def exponential_t(keys: torch.Tensor) -> torch.Tensor:
+    """``jax.random.exponential(key, ())`` per key of an int64 key tensor
+    (..., 2): −log1p(−u)."""
+    u = _scalar_t(lambda b: _uniform_from_bits(b, 0.0, 1.0), keys)
+    return -torch.log1p(-u)
+
+
+_THIRD = float(np.float32(1.0 / 3.0))
+_SQUEEZE = float(np.float32(0.0331))
+
+
+def loggamma_t(keys: torch.Tensor, alpha: torch.Tensor,
+               stats: dict | None = None) -> torch.Tensor:
+    """``jax.random.loggamma`` of one element per key: keys (N, 2) int64
+    words (each element's own key, as ``_gamma_impl`` splits them), alpha
+    (N,) float32 → (N,) float32 log Gamma(α) samples.
+
+    Marsaglia–Tsang in log space as ``jax._src.random._gamma_one`` runs
+    it: ``key, subkey = split(key)``; while the (X, V, U) state rejects,
+    ``key, x_key, U_key = split(key, 3)`` and the inner loop redraws
+    ``normal`` (``x_key, sub = split(x_key)``) until v = 1 + x·c > 0; then
+    log d + log V plus, for α < 1, the boost log1p(−u)·(1/α) from
+    ``subkey``'s exponential. The loops run vectorised over the elements,
+    each while any element is active (one host read per pass: this form
+    is the plain version, the card runs ``kernels.dirichlet``). The
+    multiply-adds are single roundings, as XLA on the CPU contracts them;
+    ``log`` and ``log1p`` are PyTorch's, so a result can differ from JAX's
+    in its last bits (tests/test_torch_drift.py states by how much).
+    ``stats``, if given, accumulates the work the draw took: ``elements``,
+    outer ``passes`` and inner normal ``draws``, summed over elements."""
+    alpha = alpha.float()
+    n = alpha.shape[0]
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - _THIRD
+    c = torch.full_like(d, _THIRD) / torch.sqrt(d)
+    ks = split_t(keys)
+    key, sub = ks[:, 0].clone(), ks[:, 1]
+    X = torch.zeros(n, device=alpha.device)
+    V = torch.ones(n, device=alpha.device)
+    U = torch.full((n,), 2.0, device=alpha.device)
+    one = torch.ones((), dtype=torch.float64, device=alpha.device)
+
+    def rejects(X, V, U, d):
+        return (U >= _fma(X * X, -_SQUEEZE, one)) & (
+            torch.log(U) >= _fma(X, 0.5, (d * ((1.0 - V) + torch.log(V)))
+                                 .double()))
+
+    active = rejects(X, V, U, d)
+    work = {"elements": n, "passes": 0, "draws": 0}
+    while bool(active.any()):
+        idx = torch.nonzero(active).flatten()
+        work["passes"] += idx.numel()
+        k3 = split_t(key[idx], 3)
+        key[idx] = k3[:, 0]
+        x_key, u_key = k3[:, 1].clone(), k3[:, 2]
+        ci = c[idx].double()
+        x = torch.zeros(idx.numel(), device=alpha.device)
+        v = torch.full((idx.numel(),), -1.0, device=alpha.device)
+        redraw = v <= 0
+        while bool(redraw.any()):
+            j = torch.nonzero(redraw).flatten()
+            work["draws"] += j.numel()
+            k2 = split_t(x_key[j])
+            x_key[j] = k2[:, 0]
+            xj = _scalar_t(_normal_from_bits, k2[:, 1])
+            x[j] = xj
+            v[j] = _fma(xj, ci[j], one)
+            redraw = v <= 0
+        X[idx] = x * x
+        V[idx] = (v * v) * v
+        U[idx] = _scalar_t(lambda b: _uniform_from_bits(b, 0.0, 1.0), u_key)
+        active = torch.zeros_like(active)
+        active[idx] = rejects(X[idx], V[idx], U[idx], d[idx])
+    if stats is not None:
+        for name, v in work.items():
+            stats[name] = stats.get(name, 0) + v
+    log_u = -exponential_t(sub)
+    log_boost = torch.where(boost | (log_u == 0), 0.0,
+                            log_u * (torch.ones_like(alpha) / alpha))
+    return torch.log(d) + torch.log(V) + log_boost
+
+
+def softmax_rows(x: torch.Tensor) -> torch.Tensor:
+    """Row softmax of (R, F), F <= 64, in the order the ``dirichlet_rows``
+    kernel sums: exp(x − max), the row padded to 64 with zeros and its
+    halves added until one column is left (a warp's butterfly), then each
+    element divided by that sum."""
+    r, f = x.shape
+    if f > 64:
+        raise ValueError(f"softmax_rows: {f} > 64 columns")
+    e = torch.exp(x - x.max(dim=1, keepdim=True).values)
+    s = torch.nn.functional.pad(e, (0, 64 - f))
+    while s.shape[1] > 1:
+        h = s.shape[1] // 2
+        s = s[:, :h] + s[:, h:]
+    return e / s
+
+
+def dirichlet_t(keys: torch.Tensor, alpha: float, f: int,
+                stats: dict | None = None) -> torch.Tensor:
+    """``jax.random.dirichlet(key, full((f,), alpha))`` per row key: keys
+    (R, 2) int64 words → (R, f) float32 rows, the row softmax
+    (:func:`softmax_rows`) of ``loggamma_t`` (and its ``stats``) over each
+    row's ``split(key, f)``."""
+    ek = split_t(keys, f).reshape(-1, 2)
+    a = torch.full((ek.shape[0],), float(np.float32(alpha)),
+                   device=keys.device)
+    return softmax_rows(loggamma_t(ek, a, stats).reshape(-1, f))
 
 
 def normal_segments_t(keys, sizes: list[int], device) -> torch.Tensor:

@@ -195,12 +195,17 @@ def quarantine_mask(quarantine: torch.Tensor, limit: int) -> torch.Tensor:
     return (q < limit).float()
 
 
-def reselect_trigger(do_reselect: bool, mask: torch.Tensor,
-                     avail: torch.Tensor, l: int) -> bool:
+def reselect_trigger(do_reselect, mask: torch.Tensor, avail: torch.Tensor,
+                     l: int):
     """Force a rebuild when a carried committee member became ineligible,
-    or a committee is under-strength (fewer than ``l`` members)."""
+    or a committee is under-strength (fewer than ``l`` members). A Python
+    ``do_reselect`` gives a bool (one read back); a 0-d bool tensor gives
+    the predicate as a 0-d tensor on the device, read by nothing (the
+    fused round's form)."""
     dark = torch.sum(mask * (1.0 - avail))
     under = torch.sum(torch.clamp_min(l - mask.sum(-1), 0.0))
+    if isinstance(do_reselect, torch.Tensor):
+        return do_reselect | ((dark + under) > 0)
     return bool(do_reselect or (dark + under) > 0)
 
 
@@ -210,3 +215,42 @@ def reselect_predicate(t: int, reselect_every: int) -> bool:
     if reselect_every == 0:
         return t == 0
     return t % reselect_every == 0
+
+
+def select_or_keep(do_reselect, keys, counts: torch.Tensor,
+                   p_real: torch.Tensor, l: int, l_rnd: int, *,
+                   prev_mask: torch.Tensor, prev_distance: torch.Tensor,
+                   avail: torch.Tensor | None = None,
+                   method: str = "gbp_cs", init: str = gbp_cs.MPINV,
+                   max_iters: int = 64, pinv_fn=None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Periodic reselection (DESIGN.md §13): run GBP-CS for all M groups
+    (fresh), or keep the carried masks and re-score them against the
+    current counts (``mask_divergence``; with ``avail``, against the
+    availability-masked counts), carrying the distance of the last
+    rebuild. Returns (mask (M, K), divergence (M,), distance (M,)).
+
+    ``keys`` are the groups' threefry keys (M, 2) (pre-sampled on the host,
+    :func:`select_for_groups`) or the staged ``(perm, opt_keys)`` tensors
+    of :func:`select_presampled`. A Python ``do_reselect`` runs one branch;
+    a 0-d bool tensor runs both and picks with ``torch.where`` on the
+    device, which is what ``lax.cond`` returns, with no read-back."""
+    def fresh():
+        kw = dict(avail=avail, method=method, init=init,
+                  max_iters=max_iters)
+        if isinstance(keys, tuple):
+            sel = select_presampled(*keys, counts, p_real, l, l_rnd,
+                                    pinv_fn=pinv_fn, **kw)
+        else:
+            sel = select_for_groups(keys, counts, p_real, l, l_rnd, **kw)
+        return sel.mask, sel.divergence, sel.distance
+
+    def keep():
+        c = counts if avail is None else counts * avail[..., None]
+        return prev_mask, mask_divergence(c, prev_mask, p_real), \
+            prev_distance
+
+    if not isinstance(do_reselect, torch.Tensor):
+        return fresh() if do_reselect else keep()
+    return tuple(torch.where(do_reselect, a, b)
+                 for a, b in zip(fresh(), keep()))

@@ -55,46 +55,6 @@ struct Layout {
   int nseg, nmodes;
 };
 
-// Giles' single-precision erfinv as XLA evaluates it (core/prng.py erfinv)
-__device__ __forceinline__ float erfinv_giles(float x) {
-  const float w = -log1pf(__fmul_rn(-x, x));
-  float p;
-  if (w < 5.f) {
-    const float t = __fsub_rn(w, 2.5f);
-    p = 0x1.e2cb1p-26f;
-    p = fmaf(p, t, 0x1.70966cp-22f);
-    p = fmaf(p, t, -0x1.d8e6aep-19f);
-    p = fmaf(p, t, -0x1.26b582p-18f);
-    p = fmaf(p, t, 0x1.ca65b6p-13f);
-    p = fmaf(p, t, -0x1.48a81p-10f);
-    p = fmaf(p, t, -0x1.11c9dep-8f);
-    p = fmaf(p, t, 0x1.f91ec6p-3f);
-    p = fmaf(p, t, 0x1.805c5ep+0f);
-  } else {
-    const float t = __fsub_rn(sqrtf(w), 3.f);
-    p = -0x1.a3e136p-13f;
-    p = fmaf(p, t, 0x1.a76ad6p-14f);
-    p = fmaf(p, t, 0x1.61b8e4p-10f);
-    p = fmaf(p, t, -0x1.e17bcep-9f);
-    p = fmaf(p, t, 0x1.7824f6p-8f);
-    p = fmaf(p, t, -0x1.f38baep-8f);
-    p = fmaf(p, t, 0x1.354afcp-7f);
-    p = fmaf(p, t, 0x1.006db6p+0f);
-    p = fmaf(p, t, 0x1.6a9efcp+1f);
-  }
-  return fabsf(x) == 1.f ? __fmul_rn(x, __int_as_float(0x7f800000))
-                         : __fmul_rn(p, x);
-}
-
-// jax.random.normal of one coordinate's threefry bits
-__device__ __forceinline__ float normal_from_bits(unsigned bits) {
-  const float lo = -0x1.fffffep-1f;          // nextafter(-1, 0)
-  // (maxval - minval) rounds to 2 in float32
-  const float u = fmaxf(__fadd_rn(__fmul_rn(threefry::unit_uniform(bits),
-                                            2.f), lo), lo);
-  return __fmul_rn(0x1.6a09e6p+0f, erfinv_giles(u));   // float32(sqrt 2)
-}
-
 __global__ void __launch_bounds__(kThreads)
 corrupt_rows_kernel(float* __restrict__ X, const int* __restrict__ code,
                     const unsigned* __restrict__ keys, int R, long long P4,
@@ -160,8 +120,8 @@ corrupt_rows_kernel(float* __restrict__ X, const int* __restrict__ code,
               while (off[s + 1] <= i) ++s;
               const unsigned bits = threefry::threefry_bits(
                   kr[2 * s], kr[2 * s + 1], (unsigned)(i - off[s]));
-              e[j] = __fadd_rn(e[j],
-                               __fmul_rn(sigma, normal_from_bits(bits)));
+              e[j] = __fadd_rn(
+                  e[j], __fmul_rn(sigma, threefry::normal_from_bits(bits)));
             }
           }
         }

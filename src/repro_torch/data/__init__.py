@@ -1,8 +1,9 @@
 from . import femnist, partition, streaming  # noqa: F401
 from .partition import Partition, PartitionConfig, make_partition  # noqa: F401
-from .streaming import (CORRUPTION_MODES, LAZY_POOL_THRESHOLD,  # noqa: F401
-                        ClientPool, CorruptionConfig, DeviceBackedStreams,
-                        DeviceSampler, DeviceStream, FactoryStreams,
-                        HostClientPool, make_client_pool, make_corruption_fn,
-                        make_device_sampler)
+from .streaming import (CORRUPTION_MODES, DRIFT_SCHEDULES,  # noqa: F401
+                        LAZY_POOL_THRESHOLD, ClientPool, CorruptionConfig,
+                        DeviceBackedStreams, DeviceSampler, DeviceStream,
+                        DriftConfig, DriftFn, FactoryStreams, HostClientPool,
+                        make_client_pool, make_corruption_fn,
+                        make_device_sampler, make_drift_fn)
 from .lm_data import MarkovLMStream  # noqa: F401

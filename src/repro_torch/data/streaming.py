@@ -1,6 +1,6 @@
 """FIFO streaming device data (paper §I: rapidly changing streaming data),
-and the gradient-corruption schedule of the robustness layer (DESIGN.md
-§15).
+the gradient-corruption schedule of the robustness layer (DESIGN.md §15)
+and the drift schedules of the dynamic environments (DESIGN.md §13).
 
 Every device holds only its *next* mini-batch (labels pre-drawn so the
 class-count vector a_t^{m,k} is reportable to the BS before selection);
@@ -24,7 +24,7 @@ import torch
 
 from .. import tree
 from ..core import prng
-from ..kernels import agg_weighted, corrupt
+from ..kernels import agg_weighted, corrupt, dirichlet
 from . import femnist
 from .partition import Partition
 
@@ -262,6 +262,133 @@ def make_corruption_fn(corrupt: CorruptionConfig | None, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# Drift schedules (DESIGN.md §13): the per-device class distributions are a
+# pure function of (iteration t, flat device id gid·K + k, seed), so the
+# host loop, the fused round and the baselines' pool see one environment.
+# ---------------------------------------------------------------------------
+
+DRIFT_SCHEDULES = ("static", "step_shift", "rotate", "redraw", "churn")
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftConfig:
+    """Parameterized drift of the per-device class distributions.
+
+    schedule:
+      * ``static``     — no drift (an exact no-op).
+      * ``step_shift`` — at t >= ``t0`` every device's distribution is
+        cyclically shifted by a per-device offset drawn once from the seed.
+      * ``rotate``     — all distributions rotate by ``(t // period) % F``
+        classes.
+      * ``redraw``     — every ``period`` iterations each device's
+        distribution is re-drawn from Dirichlet(``alpha``) (epoch e > 0;
+        epoch 0 keeps the base partition).
+      * ``churn``      — every ``period`` iterations a ``churn_rate``
+        fraction of devices (Bernoulli per device per epoch) is replaced by
+        a fresh device with a Dirichlet(``alpha``) distribution; the rest
+        keep the base partition.
+    """
+    schedule: str = "static"
+    t0: int = 50            # step_shift: first shifted iteration
+    period: int = 50        # rotate / redraw / churn: iterations per epoch
+    alpha: float = 0.3      # redraw / churn Dirichlet concentration
+    churn_rate: float = 0.25  # churn: expected fraction replaced per epoch
+
+    def __post_init__(self):
+        if self.schedule not in DRIFT_SCHEDULES:
+            raise ValueError(f"unknown drift schedule: {self.schedule!r} "
+                             f"(expected one of {DRIFT_SCHEDULES})")
+        if self.period < 1:
+            raise ValueError(f"drift period must be >= 1, got {self.period}")
+        if self.alpha <= 0:
+            raise ValueError("drift alpha (Dirichlet concentration) must be "
+                             f"> 0, got {self.alpha}")
+        if not 0.0 <= self.churn_rate <= 1.0:
+            raise ValueError("churn_rate must be a probability in [0, 1], "
+                             f"got {self.churn_rate}")
+
+
+# words of one device's drift trace: class shift, drawn flag, Dirichlet key
+DRIFT_WORDS = 4
+
+
+class DriftFn:
+    """One drift schedule (DESIGN.md §13), split into a host trace and a
+    device apply, as :class:`CorruptionFn` is.
+
+    :meth:`trace` hashes, in numpy, the JAX package's ``fold_in`` keys (404
+    off the seed, then 1 ``step_shift`` / 2 ``redraw`` / 3 ``churn``) for
+    any array of flat device ids at iteration t: (..., 4) int64 words per
+    device — the class shift (``step_shift``'s ``randint(fold_in(k, id), 1,
+    F)`` from t0 on, ``rotate``'s ``(t // period) % F``), whether the row
+    is drawn (``redraw`` in epochs e > 0, ``churn`` where also
+    ``bernoulli(fold_in(ke, 1), churn_rate)``), and the draw's key
+    (``fold_in(fold_in(k, id), e)``; ``churn``'s ``fold_in(ke, 2)``).
+    :meth:`apply` turns the base rows (R, F) into the drifted rows on their
+    device from such a trace, reading nothing back: each row rolled by its
+    shift, a drawn row replaced by its Dirichlet draw
+    (``kernels.dirichlet.drift_rows``, the kernel on the card).
+    ``drift_fn(base, t, ids)`` is the two together, the JAX package's
+    ``make_drift_fn`` contract."""
+
+    def __init__(self, config: DriftConfig, seed: int, num_classes: int):
+        self.config, self.num_classes = config, num_classes
+        self.draws = config.schedule in ("redraw", "churn")
+        fold = {"step_shift": 1, "redraw": 2, "churn": 3}
+        base_key = prng.fold_in(prng.PRNGKey(seed), 404)
+        self._key = prng.fold_in(base_key, fold.get(config.schedule, 0))
+
+    def trace(self, t: int, ids) -> np.ndarray:
+        """(..., 4) int64 trace of the devices ``ids`` (any shape (...,))
+        at iteration ``t``."""
+        c, f = self.config, self.num_classes
+        ids = np.asarray(ids, np.int64)
+        out = np.zeros(ids.shape + (DRIFT_WORDS,), np.int64)
+        if c.schedule == "step_shift":
+            if t >= c.t0:
+                out[..., 0] = prng.randint(prng.fold_in(self._key, ids), (),
+                                           1, f)
+        elif c.schedule == "rotate":
+            out[..., 0] = (t // c.period) % f
+        else:
+            e = t // c.period
+            ke = prng.fold_in(prng.fold_in(self._key, ids), e)
+            if c.schedule == "redraw":
+                drawn = np.full(ids.shape, e > 0)
+            else:
+                drawn = (e > 0) & prng.bernoulli(prng.fold_in(ke, 1),
+                                                 c.churn_rate)
+                ke = prng.fold_in(ke, 2)
+            out[..., 1] = drawn
+            out[..., 2:] = ke
+        return out
+
+    def device_trace(self, t: int, ids, device) -> torch.Tensor:
+        return torch.as_tensor(self.trace(t, ids), device=device)
+
+    def apply(self, base: torch.Tensor, trace: torch.Tensor) -> torch.Tensor:
+        """Drifted rows of ``base`` (R, F) from an (R, 4) trace on its
+        device."""
+        if self.draws:
+            return dirichlet.drift_rows(base, trace, self.config.alpha)
+        return dirichlet.roll_rows(base, trace[:, 0])
+
+    def __call__(self, base: torch.Tensor, t: int, ids) -> torch.Tensor:
+        ids = np.asarray(torch.as_tensor(ids).cpu(), np.int64)
+        return self.apply(base, self.device_trace(t, ids, base.device))
+
+
+def make_drift_fn(drift: DriftConfig | None, seed: int,
+                  num_classes: int) -> DriftFn | None:
+    """The schedule's :class:`DriftFn`; ``drift=None`` and ``static``
+    return None, and callers keep the precomputed distributions — the
+    bit-identical no-op of the JAX package's identity ``probs_fn``."""
+    if drift is None or drift.schedule == "static":
+        return None
+    return DriftFn(drift, seed, num_classes)
+
+
+# ---------------------------------------------------------------------------
 # Device-resident streams (DESIGN.md §7): the stream is a pure function of
 # (iteration t, group id). Every key of an iteration depends on nothing the
 # device computes, so the host derives them (:meth:`DeviceSampler.keys`,
@@ -297,12 +424,38 @@ def xla_cumsum(p: np.ndarray, base: int = 16) -> np.ndarray:
     return out.reshape(p.shape[:-1] + (nb * base,))[..., :f]
 
 
+def xla_cumsum_t(p: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """:func:`xla_cumsum` on a float32 tensor on its device, the same adds
+    in the same order, each an elementwise tensor add (never
+    ``torch.cumsum``, whose scan may associate them otherwise): the cdf of
+    drifted rows, bit-equal to the numpy form."""
+    f = p.shape[-1]
+    nb = -(-f // base)
+    if nb > base:
+        raise ValueError(f"xla_cumsum_t: {f} > {base * base} classes")
+    q = torch.nn.functional.pad(p.float(), (0, nb * base - f))
+    q = q.reshape(p.shape[:-1] + (nb, base))
+    acc = q[..., 0]
+    within = [acc]
+    for i in range(1, base):
+        acc = acc + q[..., i]
+        within.append(acc)
+    within = torch.stack(within, dim=-1)
+    acc = torch.zeros_like(within[..., 0, 0])
+    before = [acc]
+    for b in range(1, nb):
+        acc = acc + within[..., b - 1, base - 1]
+        before.append(acc)
+    out = within + torch.stack(before, dim=-1)[..., None]
+    return out.reshape(p.shape[:-1] + (nb * base,))[..., :f]
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceStream:
     """All M×K streams on one device: the per-device class distributions,
     their cumulative sums (:func:`xla_cumsum`, once, on the host) and the
     persistent writer styles. The dense population view of DESIGN.md §17
-    (``cdf_for``/``styles_for`` by flat device id)."""
+    (``probs_for``/``cdf_for``/``styles_for`` by flat device id)."""
     class_probs: torch.Tensor   # (M, K, F)
     cdf: torch.Tensor           # (M, K, F)
     styles: torch.Tensor        # (M, K, 6)
@@ -331,9 +484,26 @@ class DeviceStream:
     def num_classes(self) -> int:
         return self.class_probs.shape[2]
 
+    def probs_for(self, ids: torch.Tensor) -> torch.Tensor:
+        """(...,) flat device ids -> (..., F) class distributions."""
+        return self.class_probs.reshape(-1, self.num_classes)[ids]
+
     def cdf_for(self, ids: torch.Tensor) -> torch.Tensor:
         """(...,) flat device ids -> (..., F) cumulative distributions."""
         return self.cdf.reshape(-1, self.num_classes)[ids]
+
+    def drifted_cdf(self, ids: torch.Tensor, drift: DriftFn | None,
+                    trace: torch.Tensor | None) -> torch.Tensor:
+        """(...,) flat device ids -> (..., F) cumulative distributions under
+        a drift ``trace`` (..., 4) on the device (:meth:`DriftFn.trace`):
+        the drifted rows' :func:`xla_cumsum_t`. Without a drift, the
+        precomputed table (:meth:`cdf_for`)."""
+        if drift is None:
+            return self.cdf_for(ids)
+        f = self.num_classes
+        rows = drift.apply(self.probs_for(ids).reshape(-1, f),
+                           trace.reshape(-1, DRIFT_WORDS))
+        return xla_cumsum_t(rows).reshape(ids.shape + (f,))
 
     def styles_for(self, ids: torch.Tensor) -> torch.Tensor:
         """(...,) flat device ids -> (..., 6) writer-style rows."""
@@ -345,11 +515,15 @@ class DeviceSampler:
 
     ``keys(t, gids)`` derives on the host each group's (label, image) key
     of iteration t, (G, 2, 2) uint32 words: the JAX package's
-    ``fold_in(fold_in(base ⊕ 101 | 202, t), gid)``. The device side takes
-    them as an int64 tensor:
+    ``fold_in(fold_in(base ⊕ 101 | 202, t), gid)``; under a drift schedule
+    (``drift``, a :class:`DriftFn`) ``drift_trace(t, gids)`` is the (G, K,
+    4) trace of the groups' devices. The device side takes them as int64
+    tensors:
 
-    * ``labels(keys, gids)`` → (G, K, n) next-batch labels, ``u > cdf``
-      summed over classes from one ``uniform`` draw per group;
+    * ``labels(keys, gids, trace=None)`` → (G, K, n) next-batch labels,
+      ``u > cdf`` summed over classes from one ``uniform`` draw per group,
+      the cdf that of the drifted distributions when a trace is given
+      (:meth:`DeviceStream.drifted_cdf`);
     * ``counts(labels)`` → (G, K, F) int32 class counts;
     * ``selected_batch(labels, keys, gids, masks, l)`` → (images (G, l, n,
       28, 28), labels (G, l, n)) of the selected devices, in the order
@@ -359,8 +533,8 @@ class DeviceSampler:
     :class:`DeviceBackedStreams` and the fused round see identical data.
     """
 
-    def __init__(self, stream: DeviceStream):
-        self.stream = stream
+    def __init__(self, stream: DeviceStream, drift: DriftFn | None = None):
+        self.stream, self.drift = stream, drift
         self.num_groups = stream.num_factories
         self.devices_per_group = stream.devices_per_factory
         self.num_classes = stream.num_classes
@@ -380,15 +554,24 @@ class DeviceSampler:
                          prng.fold_in(prng.fold_in(self._img_key, t), g)],
                         axis=1)
 
+    def drift_trace(self, t: int, gids) -> np.ndarray:
+        """(G, K, 4) int64 drift trace of the groups' devices at iteration
+        ``t`` (dense ids gid·K + slot)."""
+        k = self.devices_per_group
+        ids = np.asarray(gids, np.int64)[:, None] * k + np.arange(k)
+        return self.drift.trace(t, ids)
+
     def device_ids(self, gids: torch.Tensor) -> torch.Tensor:
         """(G, K) flat population ids of each group's K slots (dense)."""
         k = self.devices_per_group
         return gids[:, None] * k + torch.arange(k, device=gids.device)
 
-    def labels(self, keys: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+    def labels(self, keys: torch.Tensor, gids: torch.Tensor,
+               trace: torch.Tensor | None = None) -> torch.Tensor:
         k, n, f = self.devices_per_group, self.batch_size, self.num_classes
         u = prng.uniform_t(keys[:, 0], (k, n, 1))               # (G, K, n, 1)
-        cdf = self.stream.cdf_for(self.device_ids(gids))[:, :, None, :]
+        cdf = self.stream.drifted_cdf(self.device_ids(gids), self.drift,
+                                      trace)[:, :, None, :]
         return torch.clamp_max((u > cdf).sum(-1), f - 1)
 
     def counts(self, labels: torch.Tensor) -> torch.Tensor:
@@ -410,19 +593,19 @@ class DeviceSampler:
                             femnist.IMAGE_SIZE), lab
 
 
-def make_device_sampler(stream: DeviceStream, drift=None, *,
+def make_device_sampler(stream: DeviceStream,
+                        drift: DriftConfig | None = None, *,
                         candidates: int | None = None,
                         candidate_every: int = 0) -> DeviceSampler:
-    """The dense device sampler over ``stream``. Drift schedules and
-    candidate committees are not ported yet."""
-    if drift is not None:
-        raise NotImplementedError("drift schedules on the device stream "
-                                  "(DESIGN.md §13) are ROADMAP item 11")
+    """The dense device sampler over ``stream``, its class distributions
+    drifting with t under ``drift`` (DESIGN.md §13; None and ``static``
+    keep the precomputed cdf). Candidate committees are not ported yet."""
     if candidates is not None or candidate_every:
         raise NotImplementedError("candidate committees over a lazy "
                                   "population (DESIGN.md §17) are ROADMAP "
                                   "item 14")
-    return DeviceSampler(stream)
+    return DeviceSampler(stream, make_drift_fn(drift, stream.seed,
+                                               stream.num_classes))
 
 
 class DeviceBackedStreams:
@@ -436,19 +619,25 @@ class DeviceBackedStreams:
         self.sampler = sampler
         self._t = 0
         self._gids = torch.arange(sampler.num_groups, device=sampler.device)
+        self._labels = None     # (t, keys, labels) of the last draw
 
-    def _keys(self) -> torch.Tensor:
-        keys = self.sampler.keys(self._t, np.arange(self.sampler.num_groups))
-        return torch.as_tensor(keys.astype(np.int64),
-                               device=self.sampler.device)
+    def _draw(self):
+        """Iteration t's keys and labels, drawn once (with the drift trace
+        of t when the sampler drifts) and reused until t advances."""
+        if self._labels is None or self._labels[0] != self._t:
+            s, gids = self.sampler, np.arange(self.sampler.num_groups)
+            keys = torch.as_tensor(s.keys(self._t, gids).astype(np.int64),
+                                   device=s.device)
+            trace = None if s.drift is None else torch.as_tensor(
+                s.drift_trace(self._t, gids), device=s.device)
+            self._labels = (self._t, keys, s.labels(keys, self._gids, trace))
+        return self._labels[1:]
 
     def next_counts(self) -> torch.Tensor:
-        return self.sampler.counts(self.sampler.labels(self._keys(),
-                                                       self._gids))
+        return self.sampler.counts(self._draw()[1])
 
     def fetch_selected(self, masks, l: int):
-        keys = self._keys()
-        labels = self.sampler.labels(keys, self._gids)
+        keys, labels = self._draw()
         masks = torch.as_tensor(masks, dtype=torch.float32,
                                 device=self.sampler.device)
         imgs, labs = self.sampler.selected_batch(labels, keys, self._gids,
@@ -484,9 +673,15 @@ class ClientPool:
     ``randint`` above :data:`LAZY_POOL_THRESHOLD`), the labels from
     ``uniform(k_lab, (C, S, n, 1)) > cdf`` and all C·S·n images from one
     key ``k_img``. :meth:`material` stages those on the host as C + 4
-    int64 words; :meth:`draw` runs the rest on the device from them."""
+    int64 words; :meth:`draw` runs the rest on the device from them.
 
-    def __init__(self, stream: DeviceStream, clients: int, steps: int):
+    Under a ``drift`` schedule (DESIGN.md §13) round r sits at environment
+    time t = r·``iters_per_round`` (the FEDGS clock of T iterations a
+    round): the material carries the C clients' drift trace (C·4 more
+    words) and the draw's cdf is that of their drifted distributions."""
+
+    def __init__(self, stream: DeviceStream, clients: int, steps: int,
+                 drift: DriftConfig | None = None, iters_per_round: int = 1):
         self.stream = stream
         self.pool_size = stream.num_factories * stream.devices_per_factory
         if clients > self.pool_size:
@@ -496,30 +691,40 @@ class ClientPool:
         self.batch_size = stream.batch_size
         self.num_classes = stream.num_classes
         self.device = stream.class_probs.device
-        self.material_size = clients + 4
+        self.drift = make_drift_fn(drift, stream.seed, stream.num_classes)
+        self.iters_per_round = iters_per_round
+        self.material_size = clients + 4 + (
+            0 if self.drift is None else DRIFT_WORDS * clients)
         self.protos = torch.as_tensor(femnist.class_prototypes(),
                                       device=self.device)
         self._key = prng.fold_in(prng.PRNGKey(stream.seed), 303)
 
     def material(self, r: int) -> np.ndarray:
         """Round r's client ids (C,) then its label and image keys (2 + 2
-        words), as one int64 array."""
+        words), and under drift the clients' (C, 4) drift trace at t =
+        r·T, as one int64 array."""
         k_sel, k_lab, k_img = prng.split(prng.fold_in(self._key, r), 3)
         if self.pool_size <= LAZY_POOL_THRESHOLD:
             ids = prng.permutation(k_sel, self.pool_size)[:self.num_clients]
         else:
             ids = prng.randint(k_sel, (self.num_clients,), 0, self.pool_size)
-        return np.concatenate([np.asarray(ids, np.int64),
-                               k_lab.astype(np.int64),
-                               k_img.astype(np.int64)])
+        ids = np.asarray(ids, np.int64)
+        parts = [ids, k_lab.astype(np.int64), k_img.astype(np.int64)]
+        if self.drift is not None:
+            parts.append(self.drift.trace(r * self.iters_per_round,
+                                          ids).reshape(-1))
+        return np.concatenate(parts)
 
     def draw(self, material: torch.Tensor):
         """The round's batches from its staged :meth:`material` on the
         device (no host copy: the form a CUDA graph captures)."""
         c, s, n = self.num_clients, self.local_steps, self.batch_size
-        ids, k_lab, k_img = material[:c], material[c:c + 2], material[c + 2:]
+        ids, k_lab, k_img = material[:c], material[c:c + 2], \
+            material[c + 2:c + 4]
         u = prng.uniform_t(k_lab, (c, s, n, 1))
-        cdf = self.stream.cdf_for(ids)[:, None, None, :]
+        trace = None if self.drift is None else material[c + 4:].view(
+            c, DRIFT_WORDS)
+        cdf = self.stream.drifted_cdf(ids, self.drift, trace)[:, None, None, :]
         labels = torch.clamp_max((u > cdf).sum(-1), self.num_classes - 1)
         sty = torch.repeat_interleave(self.stream.styles_for(ids), s * n,
                                       dim=0)
@@ -536,13 +741,12 @@ class ClientPool:
 
 
 def make_client_pool(stream: DeviceStream, clients: int, steps: int,
-                     drift=None) -> ClientPool:
-    """The baselines' pool over a dense ``stream``. Drift schedules are not
-    ported yet."""
-    if drift is not None:
-        raise NotImplementedError("drift schedules on the client pool "
-                                  "(DESIGN.md §13) are ROADMAP item 11")
-    return ClientPool(stream, clients, steps)
+                     drift: DriftConfig | None = None,
+                     iters_per_round: int = 1) -> ClientPool:
+    """The baselines' pool over a dense ``stream``; ``drift`` evolves its
+    devices' distributions with round r at t = r·``iters_per_round``
+    (DESIGN.md §13)."""
+    return ClientPool(stream, clients, steps, drift, iters_per_round)
 
 
 class HostClientPool:

@@ -38,6 +38,7 @@ SIGNATURES = {
     "topk_compress_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _L, _P],
     "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
     "corrupt_rows_f32": [_P, _P, _P, _I, _L, _P, _I, _P, _I, _F, _F, _P],
+    "dirichlet_rows_f32": [_P, _P, _P, _I, _I, _F, _P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9
     + [_I, _I, _F, _P],
     "ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P],

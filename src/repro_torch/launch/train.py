@@ -55,14 +55,27 @@ one CUDA graph per round on the card. FedGS-only flags draw a warning:
   PYTHONPATH=src python -m repro_torch.launch.train --strategy fedyogi \
       --engine fused --rounds 20
 
+Dynamic environments (DESIGN.md §13): ``--drift`` evolves every device's
+class distribution with the internal iteration t (``step_shift`` at
+``--drift-t0``, ``rotate``, ``redraw`` and ``churn`` every
+``--drift-period`` iterations, the last two drawing Dirichlet
+(``--drift-alpha``) rows, ``churn`` for a ``--drift-churn`` fraction of
+devices), on both engines and for the baselines (round r at t = r·T);
+``--reselect-every N`` rebuilds the super nodes every N iterations (0 =
+once, at t = 0) and re-scores the carried ones between rebuilds:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --engine fused \
+      --drift redraw --drift-period 2 --reselect-every 2
+
 ``--engine sharded`` raises for FEDGS. The JAX CLI's other scenario flags
-(availability, drift, populations) are not ported yet and are rejected.
+(availability, populations) are not ported yet and are rejected.
 
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
 averages, the fault injection, the robust order statistics, the top-k
-selection (DESIGN.md §18.2) and the stochastic int8 quantizer run as the
-port's CUDA kernels; ``--device cpu`` runs their plain PyTorch versions
-instead. Asking for ``cuda`` without a card is an error.
+selection (DESIGN.md §18.2), the stochastic int8 quantizer and the drift's
+Dirichlet draws run as the port's CUDA kernels; ``--device cpu`` runs
+their plain PyTorch versions instead. Asking for ``cuda`` without a card
+is an error.
 """
 from __future__ import annotations
 
@@ -76,7 +89,8 @@ import torch
 
 from ..configs import femnist_cnn
 from ..core import baselines, fedgs, prng, sync
-from ..data import (CORRUPTION_MODES, CorruptionConfig, DeviceStream,
+from ..data import (CORRUPTION_MODES, DRIFT_SCHEDULES, CorruptionConfig,
+                    DeviceBackedStreams, DeviceStream, DriftConfig,
                     FactoryStreams, HostClientPool, PartitionConfig, femnist,
                     make_client_pool, make_corruption_fn, make_device_sampler,
                     make_partition)
@@ -85,8 +99,9 @@ from ..models import cnn
 STRATEGIES = ("fedgs",) + tuple(sorted(baselines.all_strategies(
     cnn.make_model_api(femnist_cnn.CONFIG))))
 # flags of the FEDGS path that a baseline strategy ignores (with a warning)
-FEDGS_ONLY = ("train_step", "selection", "init", "corrupt", "robust_agg",
-              "quarantine_limit", "compress_int", "compress_ext")
+FEDGS_ONLY = ("train_step", "selection", "init", "reselect_every",
+              "corrupt", "robust_agg", "quarantine_limit", "compress_int",
+              "compress_ext")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -133,6 +148,23 @@ def build_parser() -> argparse.ArgumentParser:
                     default="grad_avg",
                     help="Eq. 4 in gradient space (one update per group) / "
                          "the paper's literal L one-step models (oracle)")
+    ap.add_argument("--drift", choices=DRIFT_SCHEDULES, default="static",
+                    help="dynamic environment: drift schedule of the "
+                         "per-device class distributions (DESIGN.md §13)")
+    ap.add_argument("--drift-t0", type=int, default=50,
+                    help="step_shift: first shifted internal iteration")
+    ap.add_argument("--drift-period", type=int, default=50,
+                    help="rotate/redraw/churn: iterations per drift epoch")
+    ap.add_argument("--drift-alpha", type=float, default=0.3,
+                    help="redraw/churn: Dirichlet concentration of re-drawn "
+                         "device distributions")
+    ap.add_argument("--drift-churn", type=float, default=0.25,
+                    help="churn: expected fraction of devices replaced "
+                         "per epoch")
+    ap.add_argument("--reselect-every", type=int, default=1,
+                    help="GBP-CS rebuild cadence in internal iterations "
+                         "(1 = every iteration, N = every N, 0 = static "
+                         "super nodes; fedgs only, DESIGN.md §13)")
     ap.add_argument("--corrupt", default="none",
                     help="gradient corruption mode(s), '+'-joined from "
                          f"{CORRUPTION_MODES} (DESIGN.md §15.1; 'none' "
@@ -202,6 +234,15 @@ def format_record(rec: fedgs.RoundRecord) -> str:
     return msg
 
 
+def drift_config(args) -> DriftConfig | None:
+    """The ``--drift*`` flags' schedule (None for ``static``)."""
+    if args.drift == "static":
+        return None
+    return DriftConfig(schedule=args.drift, t0=args.drift_t0,
+                       period=args.drift_period, alpha=args.drift_alpha,
+                       churn_rate=args.drift_churn)
+
+
 def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
     """Alg. 1 on the host loop or the fused engine."""
     fcfg = fedgs.FedGSConfig(
@@ -209,6 +250,7 @@ def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
         num_selected=args.selected, num_presampled=args.presampled,
         iters_per_round=args.iters, rounds=args.rounds, lr=args.lr,
         selection=args.selection, init=args.init, seed=args.seed,
+        reselect_every=args.reselect_every,
         train_step=args.train_step, robust_agg=args.robust_agg,
         robust_clip=args.robust_clip, robust_trim=args.robust_trim,
         quarantine_limit=args.quarantine_limit,
@@ -222,17 +264,24 @@ def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
     if args.engine == "sharded":
         raise NotImplementedError("--engine sharded (the group-sharded "
                                   "engine, DESIGN.md §8) is ROADMAP item 17")
+    drift = drift_config(args)
+    make_sampler = lambda: make_device_sampler(DeviceStream.from_partition(
+        part, batch_size=args.batch_size, seed=args.seed, device=device),
+        drift=drift)
     if args.engine == "fused":
-        sampler = make_device_sampler(DeviceStream.from_partition(
-            part, batch_size=args.batch_size, seed=args.seed, device=device))
+        sampler = make_sampler()
         fedgs.run_fedgs_fused(params, sampler, part.p_real, fcfg,
                               group_loss_fn=cnn.make_group_loss_fn(),
                               corrupt_fn=corrupt_fn, eval_fn=eval_fn,
                               eval_every=args.eval_every, log_fn=log_fn,
                               chunk=args.eval_chunk)
     else:
+        # a drifting environment lives on the device stream (pure in (t,
+        # id)); the host loop replays it through DeviceBackedStreams, as
+        # the JAX CLI does
         streams = FactoryStreams(part, batch_size=args.batch_size,
-                                 seed=args.seed)
+                                 seed=args.seed) if drift is None else \
+            DeviceBackedStreams(make_sampler())
         fedgs.run_fedgs(params, streams, part.p_real, fcfg,
                         group_loss_fn=cnn.make_group_loss_fn(),
                         corrupt_fn=corrupt_fn, eval_fn=eval_fn,
@@ -254,10 +303,12 @@ def run_strategy(args, part, params, mcfg, device, eval_fn, log_fn) -> None:
     bcfg = baselines.BaselineConfig(
         clients_per_round=clients, local_steps=args.local_steps, lr=args.lr,
         rounds=args.rounds, seed=args.seed)
+    # the baselines share FEDGS's environment clock: round r sits at t = r·T
     pool = make_client_pool(
         DeviceStream.from_partition(part, batch_size=args.batch_size,
                                     seed=args.seed, device=device),
-        clients=clients, steps=args.local_steps)
+        clients=clients, steps=args.local_steps, drift=drift_config(args),
+        iters_per_round=args.iters)
     data = HostClientPool(pool) if args.engine == "host" else pool
     baselines.run_baseline(model, strategy, data, bcfg,
                            eval_fn=lambda pe: eval_fn(pe[0]),

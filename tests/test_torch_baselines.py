@@ -27,7 +27,8 @@ from repro_torch import convert, optim, tree
 from repro_torch.configs import femnist_cnn
 from repro_torch.core import baselines, engine
 from repro_torch.data import (LAZY_POOL_THRESHOLD, DeviceStream,
-                              FactoryStreams, HostClientPool, Partition,
+                              DriftConfig, FactoryStreams, HostClientPool,
+                              Partition,
                               PartitionConfig, make_client_pool,
                               make_partition)
 from repro_torch.launch import train
@@ -135,9 +136,14 @@ def test_client_pool_matches_reference(part, lazy):
 
 
 def test_client_pool_refuses_drift_and_oversize(part):
+    """A drift schedule the JAX package does not know is refused by its
+    config (drift itself is ported: tests/test_torch_drift.py), ``static``
+    keeps the no-drift pool, and a pool smaller than C raises."""
     stream = DeviceStream.from_partition(part, batch_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_client_pool(stream, 4, 2, drift=object())
+    with pytest.raises(ValueError, match="schedule"):
+        make_client_pool(stream, 4, 2, drift=DriftConfig(schedule="sudden"))
+    static = make_client_pool(stream, 4, 2, drift=DriftConfig())
+    assert static.drift is None and static.material_size == 4 + 4
     with pytest.raises(ValueError, match="exceeds"):
         make_client_pool(stream, 33, 2)
 

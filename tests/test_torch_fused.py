@@ -351,11 +351,7 @@ def test_unported_branches_raise(setup):
                      (dict(mesh=object()), "17")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             run(**kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run(dict(CFG, reselect_every=2))
     stream = DeviceStream.from_partition(part, batch_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_device_sampler(stream, drift=object())
     with pytest.raises(NotImplementedError, match="item 14"):
         make_device_sampler(stream, candidates=4)
     with pytest.raises(ValueError, match="card"):

@@ -73,10 +73,13 @@ def test_gbp_cs_warp_kernel_sweep(cuda):
     assert stopped == len(shapes) and capped > 0
 
 
-def _fused_graph_against_eager(cuda, corrupt_fn=None, **extra):
-    """The smoke config's fused run eager and as one CUDA graph per round,
-    R = 3 rounds read back two at a time: (eager, graphed) each as (state
-    leaves, records), and the graphed run's round function."""
+def _fused_graph_against_eager(cuda, corrupt_fn=None, drift=None,
+                               iters=5, **extra):
+    """The smoke config's fused run eager and as one CUDA graph per round
+    (per pattern of rebuild and keep iterations), R = 3 rounds of ``iters``
+    iterations read back two at a time, the sampler drifting under
+    ``drift``: (eager, graphed) each as (state leaves, records), and the
+    graphed run's round function."""
     from repro_torch import tree
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import engine, fedgs, prng
@@ -86,11 +89,12 @@ def _fused_graph_against_eager(cuda, corrupt_fn=None, **extra):
     part = make_partition(PartitionConfig(num_factories=4,
                                           devices_per_factory=8, seed=0))
     sampler = make_device_sampler(DeviceStream.from_partition(
-        part, batch_size=8, seed=0, device=cuda))
+        part, batch_size=8, seed=0, device=cuda), drift=drift)
     params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(), cuda)
     cfg = fedgs.FedGSConfig(num_groups=4, devices_per_group=8,
                             num_selected=4, num_presampled=1,
-                            iters_per_round=5, rounds=3, lr=0.05, **extra)
+                            iters_per_round=iters, rounds=3, lr=0.05,
+                            **extra)
     runs = []
     for graph in (False, True):
         exp = fedgs.make_fedgs_experiment(
@@ -104,8 +108,63 @@ def _fused_graph_against_eager(cuda, corrupt_fn=None, **extra):
     for a, b in zip(eager, graphed, strict=True):
         assert torch.equal(a, b)
     assert [r.to_dict() for r in elogs] == [r.to_dict() for r in glogs]
-    assert rf.replays == 3 and len(rf.segments.graphs) == 6
+    assert rf.replays == 3
+    if cfg.reselect_every == 1:
+        assert len(rf.segments.graphs) == iters + 1
     return elogs, rf
+
+
+def test_fused_cadence_graph_replay_equals_eager(cuda):
+    """Under ``--drift redraw --drift-period 2 --reselect-every 2`` at T = 3
+    the rounds alternate two patterns, (rebuild, keep, rebuild) and (keep,
+    rebuild, keep): one capture each, in its own memory pool, both
+    replaying the eager run bit for bit; each capture counts one
+    ``dirichlet_rows`` launch per iteration and one ``gbp_cs`` per
+    rebuild, and has one graph segment more than it has rebuilds."""
+    from repro_torch.data import DriftConfig
+    logs, rf = _fused_graph_against_eager(
+        cuda, drift=DriftConfig(schedule="redraw", period=2), iters=3,
+        reselect_every=2)
+    assert [r.reselections for r in logs] == [2.0, 1.0, 2.0]
+    patterns = {(True, False, True): 2, (False, True, False): 1}
+    assert set(rf.graphs) == set(patterns)
+    for pattern, rebuilds in patterns.items():
+        assert len(rf.graphs[pattern][0].graphs) == rebuilds + 1
+        assert {k: v for k, v in rf.captures[pattern].items() if v} == {
+            "gbp_cs": rebuilds, "conv_fused": 6, "agg_weighted": 1,
+            "dirichlet_rows": 3}
+
+
+@pytest.mark.parametrize("alpha,rows", [(0.3, 350), (2.5, 353), (0.1, 5)])
+def test_dirichlet_rows_kernel_matches_plain(cuda, alpha, rows):
+    """The Dirichlet redraw against its plain version on the card: α < 1
+    (the boost) and α ≥ 1, R a multiple of the 8-row block and not, drawn
+    and rolled rows mixed (shifts 0 to F − 1). Rolled rows are bit-equal;
+    drawn rows are held to 1e-6 (the kernel's logf/expf are the library
+    calls PyTorch makes on the card, the plain softmax sums in the
+    kernel's order; the erfinv's Horner steps round through double in the
+    plain version); one launch per call."""
+    from repro_torch.kernels import dirichlet
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    base = torch.rand(rows, 62, generator=gen, device=cuda)
+    base = base / base.sum(-1, keepdim=True)
+    trace = torch.stack([
+        torch.randint(0, 62, (rows,), generator=gen, device=cuda),
+        torch.randint(0, 2, (rows,), generator=gen, device=cuda),
+        torch.randint(0, 2 ** 32, (rows,), generator=gen, device=cuda),
+        torch.randint(0, 2 ** 32, (rows,), generator=gen, device=cuda)],
+        dim=1)
+    trace[0, 1] = 1
+    dispatch.reset_launch_counts()
+    out = dirichlet.drift_rows(base, trace, alpha)
+    assert dispatch.launch_counts()["dirichlet_rows"] == 1
+    ref = dirichlet.drift_rows_plain(base, trace, alpha)
+    drawn = trace[:, 1] != 0
+    assert torch.equal(out[~drawn], ref[~drawn])
+    assert float((out[drawn] - ref[drawn]).abs().max()) <= 1e-6
+    torch.testing.assert_close(out.sum(-1), torch.ones(rows, device=cuda))
+    with pytest.raises(ValueError, match="trace"):
+        dirichlet.drift_rows(base, trace[:-1], alpha)
 
 
 def test_fused_graph_replay_equals_eager(cuda):

@@ -74,7 +74,7 @@ def test_scenario_cli_matches_reference(flags, capsys, monkeypatch):
 
 def test_cli_rejects_flags_outside_the_port():
     for flags in (["--sync", "bounded_async"], ["--avail", "markov"],
-                  ["--population-per-group", "64"], ["--drift", "rotate"]):
+                  ["--population-per-group", "64"], ["--gamma", "0.5"]):
         with pytest.raises(SystemExit):
             train.build_parser().parse_args(flags)
 
