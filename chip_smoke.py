@@ -946,16 +946,18 @@ def smoke_card_vs_cpu(label, flags) -> None:
 
 
 def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
-                corrupt: str | None = None, drift=None):
+                corrupt: str | None = None, drift=None, avail=None):
     """The fused engine at the paper's traffic and full CNN width, through
-    the library, with the CLI's fault schedule of mode(s) ``corrupt`` and
-    the sampler drifting under ``drift`` (a ``DriftConfig``) if given:
+    the library, with the CLI's fault schedule of mode(s) ``corrupt``, the
+    sampler drifting under ``drift`` (a ``DriftConfig``) and the devices'
+    availability under ``avail`` (an ``AvailabilityConfig``) if given:
     (experiment, sampler)."""
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import fedgs, prng
     from repro_torch.data import (CorruptionConfig, DeviceStream,
-                                  PartitionConfig, make_corruption_fn,
-                                  make_device_sampler, make_partition)
+                                  PartitionConfig, make_availability_fn,
+                                  make_corruption_fn, make_device_sampler,
+                                  make_partition)
     from repro_torch.models import cnn
 
     part = make_partition(PartitionConfig(num_factories=10,
@@ -971,7 +973,7 @@ def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
     return fedgs.make_fedgs_experiment(
         params, sampler, part.p_real, cfg,
         group_loss_fn=cnn.make_group_loss_fn(), corrupt_fn=cfn,
-        graph=graph), sampler
+        avail_fn=make_availability_fn(avail, 0), graph=graph), sampler
 
 
 def fused_rounds(torch, exp, rounds: int) -> tuple[list, list, list]:
@@ -1344,7 +1346,8 @@ DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
                  "topk_compress": "topk_hist0", "int8_quant": "int8_absmax",
                  "flash_attention": "flash_fwd", "ssd_scan": "ssd_chunk_scan",
                  "corrupt_rows": "corrupt_rows_kernel",
-                 "dirichlet_rows": "dirichlet_rows_kernel"}
+                 "dirichlet_rows": "dirichlet_rows_kernel",
+                 "avail_rows": "avail_rows_kernel"}
 
 
 def device_launches(torch, argv) -> tuple[dict, dict]:
@@ -1624,12 +1627,14 @@ def check_dirichlet_rows(torch, dev):
 
 
 def fedgs_expect(rounds: int, iters: int, every: int, reselect: int,
-                 draws: bool, fused: bool) -> dict:
+                 draws: bool, fused: bool, avail: bool = False) -> dict:
     """A FEDGS CLI run's wrapper counts under a cadence: per round, one
     ``gbp_cs`` per rebuild iteration of its pattern
     (``fedgs.round_pattern``), two ``conv_fused`` an iteration, one
     ``agg_weighted`` (Eq. 5), with a Dirichlet drift (``draws``) one
-    ``dirichlet_rows`` an iteration; the eval's two conv launches every
+    ``dirichlet_rows`` an iteration, with an availability schedule
+    (``avail``; no churn trigger: cadence 1 or ``bounded_async``) one
+    ``avail_rows`` an iteration; the eval's two conv launches every
     ``every`` rounds. The host loop runs every round; the fused engine
     warms up and captures each distinct pattern once (a replay calls no
     wrapper)."""
@@ -1645,18 +1650,22 @@ def fedgs_expect(rounds: int, iters: int, every: int, reselect: int,
         out["conv_fused"] += 2 * iters
         out["agg_weighted"] += 1
         out["dirichlet_rows"] += iters if draws else 0
+        out["avail_rows"] += iters if avail else 0
     out["conv_fused"] += 2 * (rounds // every)
     return out
 
 
-def drift_fused(label, flags, drift, reselect, draws, torch, dev) -> dict:
-    """One fused drift path at full width (R=2, T=3): the CLI driven with
-    the counts set to 0 before and read after, held to
-    :func:`fedgs_expect` and each pattern's capture to one round of it,
-    with the peak device memory of the run (each pattern's graphs hold a
-    memory pool of their own); then through the library, graph against
-    eager over 4 rounds (states bit-equal, records equal) and ms per
-    internal iteration replayed and eager. Returns the CLI's counts."""
+def drift_fused(label, flags, drift, reselect, draws, torch, dev,
+                avail=None, extra: dict | None = None) -> dict:
+    """One fused drift (or, with ``avail``, availability) path at full
+    width (R=2, T=3): the CLI driven with the counts set to 0 before and
+    read after, held to :func:`fedgs_expect` and each pattern's capture to
+    one round of it, with the peak device memory of the run (each
+    pattern's graphs hold a memory pool of their own); then through the
+    library (``extra`` config fields), graph against eager over 4 rounds
+    (states bit-equal, records equal) and ms per internal iteration
+    replayed and eager. Returns (the CLI's counts, its ms per internal
+    iteration, its peak GB, the replayed and eager ms)."""
     from repro_torch.core import fedgs
 
     rounds, iters, every = 2, 3, 2
@@ -1674,14 +1683,15 @@ def drift_fused(label, flags, drift, reselect, draws, torch, dev) -> dict:
     try:
         logs, counts, cli_ms = drive(
             label, argv, fedgs_expect(rounds, iters, every, reselect, draws,
-                                      True), torch)
+                                      True, avail is not None), torch)
     finally:
         fedgs.make_fedgs_experiment = make
     peak = torch.cuda.max_memory_allocated() / 1e9
     rf = seen[0].round_fn
     cfg = fedgs.FedGSConfig(iters_per_round=iters, reselect_every=reselect)
     for pattern, captured in rf.captures.items():
-        one = fedgs_expect(1, iters, rounds + 1, reselect, draws, False)
+        one = fedgs_expect(1, iters, rounds + 1, reselect, draws, False,
+                           avail is not None)
         one["gbp_cs"] = sum(pattern)
         if captured != one:
             fail(f"{label}: pattern {pattern} captured {captured}, one "
@@ -1698,19 +1708,21 @@ def drift_fused(label, flags, drift, reselect, draws, torch, dev) -> dict:
           f"CLI run {peak:.2f} GB", flush=True)
     del seen, rf
 
-    drift_graph_vs_eager(label, {"reselect_every": reselect}, drift, None,
-                         torch, dev)
+    replay_ms, eager_ms = drift_graph_vs_eager(
+        label, dict(extra or {}, reselect_every=reselect), drift, None,
+        torch, dev, avail)
     print(f"{label}: the CLI's last round, eval included: {cli_ms:.1f} ms "
           "per internal iteration", flush=True)
-    return counts
+    return counts, cli_ms, peak, replay_ms, eager_ms
 
 
-def drift_graph_vs_eager(label, extra, drift, corrupt, torch, dev) -> float:
+def drift_graph_vs_eager(label, extra, drift, corrupt, torch, dev,
+                         avail=None) -> tuple[float, float]:
     """Through the library at full width, 4 rounds of T = 3 as CUDA graphs
     (one per pattern, each captured at its first round) and eagerly:
     states bit-equal and records equal; ms per internal iteration of the
     rounds after every pattern's capture (rounds 2 and 3), replayed and
-    eager. Returns the replayed ms per iteration."""
+    eager. Returns (replayed, eager) ms per iteration."""
     from repro_torch import tree
 
     t_rounds, iters = 4, 3
@@ -1719,7 +1731,7 @@ def drift_graph_vs_eager(label, extra, drift, corrupt, torch, dev) -> float:
         gc.collect()
         torch.cuda.empty_cache()
         exp, _ = fused_setup(torch, dev, extra, t_rounds, graph, corrupt,
-                             drift)
+                             drift, avail)
         runs[graph] = fused_rounds(torch, exp, t_rounds)
         del exp
     (g_secs, g_mets, g_state), (e_secs, e_mets, e_state) = runs[True], \
@@ -1744,7 +1756,7 @@ def drift_graph_vs_eager(label, extra, drift, corrupt, torch, dev) -> float:
     del runs, g_state, e_state
     gc.collect()
     torch.cuda.empty_cache()
-    return replay_ms
+    return replay_ms, eager_ms
 
 
 def drift_phase(torch, dev) -> dict:
@@ -1768,20 +1780,21 @@ def drift_phase(torch, dev) -> dict:
         fedgs_expect(rounds, iters, every, 2, True, False), torch)
     out["drift_fused"] = drift_fused(
         "drift fused path", DRIFT_FLAGS,
-        DriftConfig(schedule="redraw", period=2), 2, True, torch, dev)
+        DriftConfig(schedule="redraw", period=2), 2, True, torch, dev)[0]
     out["drift_step_fused"] = drift_fused(
         "drift step_shift fused path", STEP_FLAGS,
-        DriftConfig(schedule="step_shift", t0=3), 0, False, torch, dev)
+        DriftConfig(schedule="step_shift", t0=3), 0, False, torch, dev)[0]
     # the robust path's cadence with quarantine: keep iterations run
     # GBP-CS too (the device predicate picks); without quarantine they
     # skip it, so the difference is what the predicate costs
     redraw = DriftConfig(schedule="redraw", period=2)
     robust = {"reselect_every": 2, "robust_agg": ROBUST_FLAGS[3]}
     q_ms = drift_graph_vs_eager("drift fused robust path, quarantine 3",
-                                robust, redraw, ROBUST_FLAGS[1], torch, dev)
+                                robust, redraw, ROBUST_FLAGS[1], torch,
+                                dev)[0]
     o_ms = drift_graph_vs_eager("drift fused robust path, quarantine off",
                                 dict(robust, quarantine_limit=0), redraw,
-                                ROBUST_FLAGS[1], torch, dev)
+                                ROBUST_FLAGS[1], torch, dev)[0]
     print(f"drift fused robust path: the quarantine cadence's keep "
           f"iterations (1 of 3 at N = 2, T = 3) cost {q_ms - o_ms:.2f} ms "
           f"per iteration on average, {3 * (q_ms - o_ms):.2f} ms per keep "
@@ -1798,6 +1811,208 @@ def drift_phase(torch, dev) -> dict:
         baseline_smoke_card_vs_cpu("fedavg", engine_name, tuple(CHURN_FLAGS))
     print(f"drift phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# ------------------------------------------------------------ availability
+# The availability layer (DESIGN.md §14): devices drop out and straggle,
+# bounded-async sync keeps missed members at γ^staleness.
+AVAIL_FLAGS = ["--avail", "markov", "--avail-up-prob", "0.6", "--sync",
+               "bounded_async"]
+AVAIL_SMOKE = [(["--avail", "bernoulli"], ("host",)),
+               (["--avail", "straggler_tail", "--avail-selection", "blind"],
+                ("host",)),
+               (AVAIL_FLAGS + ROBUST_SMOKE_FLAGS, ("host", "fused")),
+               (AVAIL_FLAGS + ROBUST_SMOKE_FLAGS + COMPRESS_FLAGS,
+                ("host", "fused"))]
+AVAIL_KEYS = DRIFT_KEYS + ("participation", "staleness_mean",
+                           "staleness_max", "agg_residual")
+AVAIL_COUNTED = ("reselections", "dark_selected", "corrupted_selected",
+                 "rollbacks", "bytes_int", "bytes_ext")
+
+
+def check_avail_rows(torch, dev):
+    """The availability trace against its plain version on the card, bit
+    for bit, for the three schedules at the CLI's shape (up_prob 0.6, the
+    straggler tail 0.15): the 350 dense ids and 350 shuffled ids up to
+    2³¹ − 1, at t = 0, 5 and 4,095 (the default horizon's longest markov
+    chain), t read from a device tensor (the plain version on the card,
+    but on the CPU for the shuffled ids at t = 4,095: its markov chain is
+    a Python loop of key-tensor threefry passes, ~13 s there on the card).
+    Times on the dense ids at t = 5 and 4,095: per launch inside a CUDA
+    graph (the device's time, as the fused round pays it; the headline)
+    and eager (CUDA events over back-to-back calls, host wrapper
+    included), and the plain version's on the card. The bound counts the
+    draw's hashes (``kernels.avail.hashes``) at ~74 integer operations
+    (``THREEFRY_INT_OPS``) each against 16 bytes per id."""
+    from repro_torch.data import AvailabilityConfig, make_availability_fn
+    from repro_torch.kernels import avail as ka
+
+    r = 350
+    gen = torch.Generator(device=dev).manual_seed(0)
+    id_sets = {"dense": torch.arange(r, device=dev),
+               "shuffled": torch.randint(0, 2 ** 31 - 1, (r,), generator=gen,
+                                         device=dev)}
+    res = {}
+    for kind in ka.SCHEDULES:
+        fn = make_availability_fn(AvailabilityConfig(
+            schedule=kind, up_prob=0.6), 0)
+        times = {}
+        for name, ids in id_sets.items():
+            for t in (0, 5, 4095):
+                tt = torch.full((), t, dtype=torch.int64, device=dev)
+                mask, lat = fn(tt, ids)
+                on = ids.cpu() if (name, t) == ("shuffled", 4095) else ids
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = ka.avail_rows_plain(on, t, fn.schedule)
+                torch.cuda.synchronize()
+                times[(name, t)] = 1e3 * (time.perf_counter() - t0)
+                if not (torch.equal(mask.cpu(), ref[0].cpu())
+                        and torch.equal(lat.cpu(), ref[1].cpu())):
+                    fail(f"avail_rows {kind} {name} t={t}: the kernel "
+                         "differs from its plain version")
+        ids = id_sets["dense"]
+        for t in (5, 4095):
+            tt = torch.full((), t, dtype=torch.int64, device=dev)
+            call = lambda: fn(tt, ids)
+            ms, eager = graph_ms(torch, call), time_ms(call, reps=50)
+            b_ms, b_by = bound(16 * r + 8, THREEFRY_INT_OPS * ka.hashes(
+                kind, r, t % fn.config.horizon), INT32_OPS)
+            res[(kind, t)] = dict(ms=ms, eager_ms=eager,
+                                  plain_ms=times[("dense", t)],
+                                  bound_ms=b_ms, bound_by=b_by)
+        up = float(fn(torch.full((), 5, dtype=torch.int64, device=dev),
+                      ids)[0].mean())
+        print(f"avail_rows {kind} (R={r}, dense and shuffled ids, t = 0, 5, "
+              f"4095): kernel == plain bit for bit; up at t=5 {up:.3f}; "
+              + "; ".join(f"t={t}: {res[(kind, t)]['ms']:.4f} ms kernel "
+                          "per launch in a graph, "
+                          f"{res[(kind, t)]['eager_ms']:.4f} eager, "
+                          f"{res[(kind, t)]['plain_ms']:.3f} ms plain, bound "
+                          f"{res[(kind, t)]['bound_ms']:.5f} ms "
+                          f"({res[(kind, t)]['bound_by']})"
+                          for t in (5, 4095))
+              + "; library: none (no PyTorch call draws JAX's threefry "
+              "bernoulli)", flush=True)
+    worst = res[("markov", 4095)]
+    return dict(name=ka.NAME, route="cuda", source=ka.SOURCE,
+                replaces=ka.REPLACES, max_abs_err=0.0, tol=0.0,
+                ms=worst["ms"], eager_ms=worst["eager_ms"],
+                plain_ms=worst["plain_ms"], bound_ms=worst["bound_ms"],
+                bound_by=worst["bound_by"], library_ms=None,
+                ms_t5={k: v["ms"] for (k, t), v in res.items() if t == 5},
+                shape=f"R={r}, markov at t = 4095, per launch in a CUDA "
+                      "graph (the headline); each schedule at t = 5 in "
+                      "ms_t5")
+
+
+def avail_host_vs_fused(torch, dev, extra: dict, avail) -> None:
+    """Through the library at full width, R = 2 rounds of T = 3: the host
+    loop over ``DeviceBackedStreams`` of the fused engine's sampler against
+    the fused engine (CUDA graphs): records to 1e-4, the rebuilds and dark
+    members equal, the byte ledger to float32's rounding (the fused
+    round sums its metrics in float32 on the device, as the JAX package's
+    fused engine does; the host loop in float64)."""
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import fedgs, prng
+    from repro_torch.data import (DeviceBackedStreams, DeviceStream,
+                                  PartitionConfig, make_availability_fn,
+                                  make_device_sampler, make_partition)
+    from repro_torch.models import cnn
+
+    part = make_partition(PartitionConfig(num_factories=10,
+                                          devices_per_factory=35, seed=0))
+    sampler = make_device_sampler(DeviceStream.from_partition(
+        part, batch_size=32, seed=0, device=dev))
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
+    cfg = fedgs.FedGSConfig(num_groups=10, devices_per_group=35,
+                            num_selected=10, num_presampled=2,
+                            iters_per_round=3, rounds=2, **extra)
+    kw = dict(group_loss_fn=cnn.make_group_loss_fn(),
+              avail_fn=make_availability_fn(avail, 0))
+    _, host = fedgs.run_fedgs(params, DeviceBackedStreams(sampler),
+                              part.p_real, cfg, **kw)
+    _, fused = fedgs.run_fedgs_fused(params, sampler, part.p_real, cfg,
+                                     graph=True, **kw)
+    worst = 0.0
+    for h, f in zip(host, fused, strict=True):
+        h, f = h.to_dict(), f.to_dict()
+        for key in ("loss", "divergence", "participation", "staleness_mean",
+                    "staleness_max") + AVAIL_COUNTED[:2]:
+            if key in AVAIL_COUNTED and h[key] != f[key]:
+                fail(f"avail fused vs host loop: {key} {f[key]} vs {h[key]}")
+            worst = max(worst, abs(h[key] - f[key]))
+        for key in AVAIL_COUNTED[4:]:
+            if abs(h[key] - f[key]) > 2.0 ** -22 * h[key]:
+                fail(f"avail fused vs host loop: {key} {f[key]} vs {h[key]}")
+    if worst > 1e-4:
+        fail(f"avail fused vs host loop: records differ by {worst}")
+    print(f"avail path at full width, {extra}: the fused engine (graphs) "
+          "equals the "
+          f"host loop over its sampler, records to {worst:.2g} (rebuilds, "
+          "dark members equal, the byte ledgers to float32's rounding: "
+          f"bytes_int host {host[-1].bytes_int:.0f}, fused "
+          f"{fused[-1].bytes_int:.0f}); participation "
+          + ", ".join(f"{rec.participation:.3f}" for rec in host)
+          + "; dark members " + ", ".join(f"{rec.dark_selected:.0f}"
+                                          for rec in host), flush=True)
+
+
+def avail_phase(torch, dev) -> tuple[dict, dict]:
+    """The availability layer at full width and the paper's traffic:
+    ``avail_rows`` against its plain version (:func:`check_avail_rows`);
+    ``--avail markov --avail-up-prob 0.6 --sync bounded_async`` driven on
+    the host loop (one ``avail_rows`` an iteration; peak memory) and the
+    fused engine (:func:`drift_fused`: the capture held to one round; then
+    through the library with blind selection, graph == eager and ms per
+    iteration replayed and eager); the fused engine against the host loop
+    over the same sampler, blind too (:func:`avail_host_vs_fused`); then
+    four smoke configurations card vs CPU, records to 1e-4 with the
+    counted fields equal. Returns (each path's counts, the kernel's
+    entry)."""
+    from repro_torch.data import AvailabilityConfig
+
+    t0 = time.perf_counter()
+    entry = check_avail_rows(torch, dev)
+    rounds, iters, every = 2, 3, 2
+    markov = AvailabilityConfig(schedule="markov", up_prob=0.6)
+    # the library runs select blind, so that dark members are seated and
+    # their stale mass enters Eq. 4 inside the graphs (aware selection at
+    # cadence 1 seats none: the CLI run's S is 0)
+    extra = {"sync": "bounded_async", "avail_selection": "blind"}
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    logs, out["avail_host"], host_ms = drive(
+        "avail host path", main_flags(rounds, iters, every) + AVAIL_FLAGS,
+        fedgs_expect(rounds, iters, every, 1, False, False, True), torch)
+    host_peak = torch.cuda.max_memory_allocated() / 1e9
+    print("avail host path telemetry: " + "; ".join(
+        f"round {rec['round']} part {rec['participation']:.3f} dark "
+        f"{rec['dark_selected']:.0f} stale {rec['staleness_mean']:.2f}/"
+        f"{rec['staleness_max']:.0f}" for rec in logs)
+        + f"; peak device memory {host_peak:.2f} GB ({base:.2f} GB "
+        "allocated before the run)", flush=True)
+    out["avail_fused"], cli_ms, peak, replay_ms, eager_ms = drift_fused(
+        "avail fused path", AVAIL_FLAGS, None, 1, False, torch, dev, markov,
+        extra)
+    print(f"avail ms per internal iteration: host loop {host_ms:.1f} (the "
+          f"CLI's last round, eval included), fused CLI {cli_ms:.1f}; the "
+          f"library's blind run replayed {replay_ms:.2f}, eager "
+          f"{eager_ms:.2f}; peak device memory of the CLI runs: host "
+          f"{host_peak:.2f} GB, fused {peak:.2f} GB", flush=True)
+    avail_host_vs_fused(torch, dev, extra, markov)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for flags, engines in AVAIL_SMOKE:
+        for engine_name in engines:
+            records_card_vs_cpu(
+                f"avail {engine_name} " + " ".join(flags),
+                flags + ["--engine", engine_name], AVAIL_KEYS, AVAIL_COUNTED)
+    print(f"avail phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, entry
 
 
 LM_ARCH = "granite-3-2b"
@@ -2404,7 +2619,8 @@ def main() -> None:
                    "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
                    "agg_weighted": rounds, "robust_agg": 0,
                    "topk_compress": 0, "int8_quant": 0, "flash_attention": 0,
-                   "ssd_scan": 0, "corrupt_rows": 0, "dirichlet_rows": 0}
+                   "ssd_scan": 0, "corrupt_rows": 0, "dirichlet_rows": 0,
+                   "avail_rows": 0}
     _, main_counts, main_ms = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
     smoke_card_vs_cpu("main path", [])
@@ -2495,6 +2711,12 @@ def main() -> None:
     # redraw through dirichlet_rows
     drift_counts = drift_phase(torch, dev)
 
+    # the availability layer (DESIGN.md §14): the trace through avail_rows,
+    # markov churn under bounded-async sync on both engines, composed with
+    # the robust and compressed paths in the smoke configurations
+    avail_counts, avail_entry = avail_phase(torch, dev)
+    kernels.append(avail_entry)
+
     # LM path (the dense-LM serving slice): the kernel at the prefill
     # shape, then the full-width prefill, decode and serve, then the smoke
     # config card vs CPU
@@ -2538,6 +2760,8 @@ def main() -> None:
                    "baselines_fused": base_fused[k["name"]]}
         by_path.update({p: c.get(k["name"], 0)
                         for p, c in drift_counts.items()})
+        by_path.update({p: c.get(k["name"], 0)
+                        for p, c in avail_counts.items()})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:

@@ -15,6 +15,7 @@ There is no backend switch and no fallback.
 | stochastic int8 of §18 compression | ``kernels.int8_quant.quantize`` | ``kernels.int8_quant.quantize_plain`` |
 | §15 fault injection (the fault trace applied) | ``kernels.corrupt.corrupt_rows`` | ``kernels.corrupt.corrupt_rows_plain`` |
 | §13 drifted class distributions (Dirichlet redraw) | ``kernels.dirichlet.drift_rows`` | ``kernels.dirichlet.drift_rows_plain`` |
+| §14 availability trace (up-mask and latency) | ``kernels.avail.avail_rows`` | ``kernels.avail.avail_rows_plain`` |
 | LM attention (``attend(impl="pallas")``) | ``kernels.flash_attention.flash_attention`` | ``kernels.flash_attention.attention_plain`` |
 | Mamba2 SSD scan (``models.ssm.mamba_forward``) | ``kernels.ssd_scan.ssd_scan`` | ``kernels.ssd_scan.ssd_scan_plain`` |
 
@@ -26,14 +27,14 @@ from __future__ import annotations
 
 import functools
 
-from ..kernels import (agg_weighted, conv_fused, corrupt, dirichlet,
+from ..kernels import (agg_weighted, avail, conv_fused, corrupt, dirichlet,
                        flash_attention, gbp_cs, int8_quant, robust_agg,
                        ssd_scan, topk_compress)
 
 KERNELS = {mod.NAME: mod for mod in (gbp_cs, conv_fused, agg_weighted,
                                      robust_agg, topk_compress, int8_quant,
                                      flash_attention, ssd_scan, corrupt,
-                                     dirichlet)}
+                                     dirichlet, avail)}
 
 gbp_cs_loop = gbp_cs.minimize
 conv_block_grouped = conv_fused.conv_block_grouped

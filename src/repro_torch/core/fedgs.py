@@ -34,8 +34,16 @@ fault trace staged with the keys, applied by the ``corrupt_rows`` kernel).
 Both engines take the dynamic environments of §13: a drifting sampler
 (its drift trace staged with the keys in the fused round) and the GBP-CS
 cadence ``reselect_every`` (:func:`selection.select_or_keep`; in the fused
-round one CUDA graph per pattern of rebuild and keep iterations).
-Availability (§14) and the sharded engine are not part of the port yet.
+round one CUDA graph per pattern of rebuild and keep iterations); and the
+availability layer of §14: an ``avail_fn`` (``data.AvailFn``, the
+``avail_rows`` kernel on the card, t staged with the keys in the fused
+round) makes devices drop out and straggle, selection sees the up-mask
+(``avail_selection='aware'``), and ``sync`` drops missed committee members
+(``'sync'``, with the churn trigger of a cadence) or keeps them at weight
+γ^staleness through each group's carried gradient ḡ (``'bounded_async'``,
+:func:`_avail_weights`), composed with the robust layer and the
+compression as in the JAX package (:func:`_train_iteration`, shared by
+both engines). The sharded engine is not part of the port yet.
 """
 from __future__ import annotations
 
@@ -92,6 +100,15 @@ class FedGSConfig:
     gbp_max_iters: int = 64
     selection: str = "gbp_cs"     # 'gbp_cs' | 'random'
     reselect_every: int = 1       # GBP-CS cadence in internal iterations
+    sync: str = "sync"            # availability handling of Eq. 4 (§14.3):
+    #                               'sync' drops missed devices (weight 0),
+    #                               'bounded_async' keeps them at γ^s weight
+    #                               through the carried group gradient
+    gamma: float = 0.5            # bounded_async staleness decay γ ∈ (0, 1]
+    max_staleness: int = 4        # bounded_async staleness cap (≥ 1)
+    avail_selection: str = "aware"  # 'aware': GBP-CS never selects dark
+    #                               devices; 'blind': selection ignores
+    #                               availability (the ablation)
     seed: int = 0
     train_step: str = "grad_avg"  # 'grad_avg' (Eq. 4 in gradient space) |
     #                               'model_avg' (oracle: L one-step models)
@@ -120,6 +137,24 @@ class FedGSConfig:
         if self.train_step not in ("grad_avg", "model_avg"):
             raise ValueError(f"unknown train_step: {self.train_step!r} "
                              "(expected 'grad_avg' or 'model_avg')")
+        if self.sync not in ("sync", "bounded_async"):
+            raise ValueError(f"unknown sync mode: {self.sync!r} "
+                             "(expected 'sync' or 'bounded_async')")
+        if self.sync == "bounded_async":
+            if not 0.0 < self.gamma <= 1.0:
+                raise ValueError(f"gamma must be in (0, 1], got {self.gamma}")
+            if self.max_staleness < 1:
+                raise ValueError("max_staleness must be >= 1, got "
+                                 f"{self.max_staleness}")
+            if self.train_step == "model_avg":
+                raise ValueError(
+                    "sync='bounded_async' blends gradients and requires "
+                    "train_step='grad_avg' (model_avg has no per-group "
+                    "gradient to carry)")
+        if self.avail_selection not in ("aware", "blind"):
+            raise ValueError(
+                f"unknown avail_selection: {self.avail_selection!r} "
+                "(expected 'aware' or 'blind')")
         sync.check_robust_agg(self.robust_agg)
         if self.robust_agg != "mean" and self.train_step == "model_avg":
             raise ValueError(
@@ -174,28 +209,49 @@ class Compressor(NamedTuple):
 
 
 def _train_all_groups(gp, batches, group_loss_fn, cfg: FedGSConfig,
-                      tx: Compressor | None = None):
+                      tx: Compressor | None = None, weights=None,
+                      stale_sum=None, g_prev=None):
     """All-groups superbatch ``grad_avg`` step: ONE backward over the loss
     summed across every group. Group g's loss terms depend only on gp[g],
-    so the gradient of the summed (1/L-weighted) loss w.r.t. the stacked
-    params IS the stack of per-group Eq. (4) gradients. Returns
-    (gp', (M,) mean loss); with ``tx`` the gradients are flattened once,
-    EF-compressed, and the step applies the transmitted y, returning
-    (gp', loss, e', (M,) err)."""
+    so the gradient of the summed weighted loss w.r.t. the stacked params
+    IS the stack of per-group Eq. (4) gradients. Returns (gp', (M,) mean
+    loss).
+
+    ``weights`` (M, L) are the seats' Eq. 4 weights (1/L each if None);
+    the loss weights are ``weights / max(Σ weights + S, 1e-12)``. With the
+    §14.3 stale mass ``stale_sum`` S (M,) and the groups' carried gradient
+    ``g_prev`` ḡ (M, P4) the step is along g + (S/D)·ḡ (D that
+    denominator), and the blend (the transmitted gradient under ``tx``)
+    is returned as the next ḡ after the loss. With ``tx`` the gradients
+    are flattened once, EF-compressed, and the step applies the
+    transmitted y; (e', (M,) err) are appended."""
     leaves = [leaf.detach().requires_grad_(True) for leaf in tree.leaves(gp)]
     params = tree.unflatten(gp, leaves)
     losses = group_loss_fn(params, batches)               # (M, L)
-    wn = 1.0 / cfg.num_selected
+    if weights is None:
+        wn = 1.0 / cfg.num_selected
+    else:
+        denom = weights.sum(-1)
+        if stale_sum is not None:
+            denom = denom + stale_sum
+        denom = torch.clamp_min(denom, 1e-12)
+        wn = weights / denom[:, None]
     grads = torch.autograd.grad(torch.sum(losses * wn), leaves)
     with torch.no_grad():
         g = tree.unflatten(gp, list(grads))
-        if tx is None:
-            return (sync.apply_sgd(params, g, cfg.lr),
-                    losses.detach().mean(dim=-1))
-        y, e, err = tx(agg_weighted.flatten(g, len(losses)))
-        new = sync.apply_sgd(params, agg_weighted.unflatten(y, gp, 1),
+        loss = losses.detach().mean(dim=-1)
+        if tx is None and stale_sum is None:
+            return sync.apply_sgd(params, g, cfg.lr), loss
+        flat = agg_weighted.flatten(g, len(losses))
+        if stale_sum is not None:
+            flat = flat + (stale_sum / denom)[:, None] * g_prev
+        out = ()
+        if tx is not None:
+            flat, e, err = tx(flat)
+            out = (e, err)
+        new = sync.apply_sgd(params, agg_weighted.unflatten(flat, gp, 1),
                              cfg.lr)
-    return new, losses.detach().mean(dim=-1), e, err
+    return (new, loss) + ((flat,) if stale_sum is not None else ()) + out
 
 
 def member_grads(gp, batches, group_loss_fn):
@@ -216,18 +272,26 @@ def member_grads(gp, batches, group_loss_fn):
     return losses.detach().reshape(m, l), tree.unflatten(gp, list(grads))
 
 
-def _train_model_avg(gp, batches, group_loss_fn, cfg: FedGSConfig):
+def _train_model_avg(gp, batches, group_loss_fn, cfg: FedGSConfig,
+                     weights=None):
     """``train_step='model_avg'``: one SGD step on each of the L members,
-    then the uniform Eq. 4 average of the L one-step models per group
-    through the aggregation kernel."""
+    then the Eq. 4 average of the L one-step models per group through the
+    aggregation kernel, at the seats' ``weights`` (M, L) (uniform if
+    None); a group whose weights are all 0 (its committee went dark)
+    keeps its params."""
     losses, grads = member_grads(gp, batches, group_loss_fn)
     m, l = losses.shape
     with torch.no_grad():
         models = tree.map(
             lambda p, g: (p.repeat_interleave(l, dim=0) - cfg.lr * g)
             .reshape((m, l) + g.shape[1:]), gp, grads)
-        synced = dispatch.weighted_average_groups(
-            models, torch.ones(m, l, device=losses.device))
+        if weights is None:
+            return dispatch.weighted_average_groups(
+                models, torch.ones(m, l, device=losses.device)), \
+                losses.mean(dim=-1)
+        synced = _where_groups(weights.sum(-1) > 0,
+                               dispatch.weighted_average_groups(
+                                   models, weights), gp)
     return synced, losses.mean(dim=-1)
 
 
@@ -242,7 +306,8 @@ class RobustStep(NamedTuple):
 
 def _train_robust(gp, batches, fresh_w, trace, group_loss_fn,
                   cfg: FedGSConfig, corrupt_fn, agg_fn,
-                  tx: Compressor | None = None):
+                  tx: Compressor | None = None, stale_sum=None,
+                  g_prev=None):
     """Corruption-exposed Eq. (4) for all groups (DESIGN.md §15): the
     per-member gradients are materialised (fault injection and the order
     statistics need the stack), flattened ONCE into an (M·L, P4) buffer,
@@ -252,9 +317,14 @@ def _train_robust(gp, batches, fresh_w, trace, group_loss_fn,
     ``trace`` is (code (M, L), noise keys (M, L, S, 2) or None) on the
     device, ``CorruptionFn.device_trace``'s form, or None without
     corruption. The member stacks are freed before the step returns.
-    Returns (gp', (M,) mean loss, RobustStep); with ``tx`` the (M, P4)
-    aggregate is EF-compressed after robust aggregation (the compressor
-    never sees raw corrupted members) and (e', (M,) err) are appended."""
+    Returns (gp', (M,) mean loss, RobustStep). With the §14.3 stale mass
+    ``stale_sum`` S (M,) and carried gradient ``g_prev`` ḡ (M, P4) the
+    robust estimate ĝ, of surviving fresh mass W = Σ fresh_w·[finite],
+    is blended as (W·ĝ + S·ḡ)/max(W + S, EPS) and the blend is appended
+    (the next ḡ). With ``tx`` the (M, P4) aggregate (the blend) is
+    EF-compressed after robust aggregation (the compressor never sees raw
+    corrupted members), the transmitted gradient is the one appended, and
+    (e', (M,) err) follow."""
     with span("fedgs.train.member_backward"):
         losses, grads = member_grads(gp, batches, group_loss_fn)
     m, l = losses.shape
@@ -286,14 +356,20 @@ def _train_robust(gp, batches, fresh_w, trace, group_loss_fn,
                     clean, wf / torch.clamp_min(wf.sum(-1, keepdim=True),
                                                 sync.EPS))
                 residual = torch.sqrt(torch.sum((g - gm) ** 2, dim=-1))
+            if stale_sum is not None:
+                w_fresh = torch.sum(fresh_w * finite, dim=-1)[:, None]
+                s = stale_sum[:, None]
+                g = (w_fresh * g + s * g_prev) / torch.clamp_min(
+                    w_fresh + s, sync.EPS)
             del flat, clean, stats
+        out = ()
         if tx is not None:
             g, e, err = tx(g)
+            out = (e, err)
         new = sync.apply_sgd(gp, agg_weighted.unflatten(g, gp, 1), cfg.lr)
     step = RobustStep(hit, flags, residual)
-    if tx is None:
-        return new, losses.mean(dim=-1), step
-    return new, losses.mean(dim=-1), step, e, err
+    return (new, losses.mean(dim=-1), step) + (
+        (g,) if stale_sum is not None else ()) + out
 
 
 def _group_finite(group_tree) -> torch.Tensor:
@@ -322,43 +398,145 @@ def _seats(mask: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:
     return idx, mask.gather(1, idx)
 
 
+class AvailStep(NamedTuple):
+    """One iteration's availability bookkeeping (DESIGN.md §14.3), per
+    group."""
+    fresh_w: torch.Tensor     # (M, L) Eq. 4 weights of the fresh seats
+    stale_sum: torch.Tensor   # (M,) S = Σ γ^s over the stale members
+    staleness: torch.Tensor   # (M, K) int32 clock after the iteration
+    dark: torch.Tensor        # (M,) selected-but-dark count
+    stale_mean: torch.Tensor  # (M,) mean staleness of the stale members
+    stale_max: torch.Tensor   # (M,) max staleness of the stale members
+
+
+def _avail_weights(mask: torch.Tensor, avail: torch.Tensor,
+                   staleness: torch.Tensor, cfg: FedGSConfig) -> AvailStep:
+    """Split the committee ``mask`` (M, K) into fresh and stale members
+    under ``avail`` (M, K): ``fresh_w`` at the seats in :func:`_seats`'
+    order (the mask's value times the seat's availability), the γ^s mass
+    and telemetry from the clock ``staleness`` before the iteration, and
+    the clock advanced."""
+    idx, vals = _seats(mask, cfg.num_selected)
+    stale = mask * (1.0 - avail)
+    s_f = staleness.float()
+    n_stale = stale.sum(-1)
+    return AvailStep(
+        fresh_w=vals * avail.gather(1, idx),
+        stale_sum=torch.sum(
+            stale * sync.staleness_weights(staleness, cfg.gamma), dim=-1),
+        staleness=sync.update_staleness(staleness, mask * avail,
+                                        cfg.max_staleness),
+        dark=n_stale,
+        stale_mean=torch.sum(stale * s_f, dim=-1)
+        / torch.clamp_min(n_stale, 1.0),
+        stale_max=torch.amax(stale * s_f, dim=-1))
+
+
+class Carry(NamedTuple):
+    """What the internal iterations carry beside the models, None where a
+    run has none: the quarantine counters (M, K) int32 (§15.4), the Eq. 4
+    EF residual (M, P4) (§18.1), and under ``bounded_async`` the staleness
+    clock (M, K) int32 and the groups' carried gradient ḡ (M, P4)
+    (§14.3)."""
+    quar: torch.Tensor | None = None
+    e_int: torch.Tensor | None = None
+    staleness: torch.Tensor | None = None
+    g_prev: torch.Tensor | None = None
+
+
 ROBUST_METRICS = ("corrupted_selected", "clipped_fraction", "rollbacks",
                   "agg_residual")
+AVAIL_METRICS = ("participation", "dark_selected", "staleness_mean",
+                 "staleness_max")
 
 
-def _robust_iteration(gp, batches, idx, vals, trace, quar, tx,
-                      group_loss_fn, cfg: FedGSConfig, corrupt_fn, agg_fn):
-    """One internal iteration of the robust layer (DESIGN.md §15) on the
-    device, the same code in the host loop and the fused round: the robust
-    step at the seats ``idx`` with weights ``vals`` (:func:`_seats`), the
-    NaN-guard rollback of non-finite groups (and of their EF residual when
-    compressing), and the quarantine counters' update, out of place.
-    Returns (gp', (M,) loss, quar', e_int', (M,) err, metrics): e_int' and
-    err are None without ``tx``, quar' None without ``quar``, and metrics
-    maps :data:`ROBUST_METRICS` and ``uploads`` (seats of positive weight)
-    to 0-d tensors. Nothing reads back to the host."""
-    gp_old = gp
-    out = _train_robust(gp, batches, vals, trace, group_loss_fn, cfg,
-                        corrupt_fn, agg_fn, tx)
-    gp, loss, rs = out[:3]
-    e_int, errs = out[3:] if tx is not None else (None, None)
-    rb = torch.zeros((), device=vals.device)
-    if corrupt_fn is not None and cfg.nan_guard:
-        finite_m = _group_finite(gp)
-        if tx is not None:
-            finite_m &= torch.isfinite(e_int).all(dim=1)
-            e_int = torch.where(finite_m[:, None], e_int, tx.e)
-        gp = _where_groups(finite_m, gp, gp_old)
-        rb = torch.sum(~finite_m).float()
-    if quar is not None:
-        quar = quar.scatter_add(1, idx, (rs.flags * vals).int())
-    mets = {"corrupted_selected": torch.sum(rs.hit * vals),
-            "clipped_fraction": torch.sum(rs.flags * vals)
-            / torch.clamp_min(vals.sum(), 1.0),
-            "rollbacks": rb,
-            "agg_residual": rs.residual.mean(),
-            "uploads": torch.sum((vals > 0).float())}
-    return gp, loss, quar, e_int, errs, mets
+def _train_iteration(gp, batches, mask, avail, carry: Carry, trace_fn, tx,
+                     group_loss_fn, cfg: FedGSConfig, corrupt_fn, agg_fn):
+    """Lines 5–8 of one internal iteration, after selection: the same code
+    in the host loop and the fused round, on the device, reading nothing
+    back. ``mask`` (M, K) is the committee, ``avail`` (M, K) the up-mask
+    (None without an availability schedule), ``tx`` the Eq. 4 compressor
+    (its residual is ``carry.e_int``).
+
+    The seats' weights: the mask at the seats (:func:`_seats`) on the
+    robust layer, times each seat's availability under ``sync='sync'``
+    (a missed member has weight 0), :func:`_avail_weights`' ``fresh_w``
+    under ``bounded_async`` with its stale mass S and ``carry.g_prev``.
+    Then the train step: with ``agg_fn`` (the robust layer, DESIGN.md
+    §15) :func:`_train_robust` with the fault trace ``trace_fn(seats)``,
+    the NaN-guard rollback of non-finite groups (their ḡ, staleness clock
+    and EF residual roll back with them; a non-finite ḡ or residual marks
+    its group too) and the quarantine counters' update; otherwise
+    :func:`_train_all_groups` (``grad_avg``) or :func:`_train_model_avg`.
+    Returns (gp', (M,) loss, carry', (M,) compression error or None,
+    metrics): ``uploads`` (seats of positive weight; a float where every
+    seat counts), on the robust layer :data:`ROBUST_METRICS` and with
+    ``avail`` the :data:`AVAIL_METRICS` of the iteration (the staleness
+    ones under ``bounded_async``), as 0-d tensors."""
+    m, l = mask.shape[0], cfg.num_selected
+    robust = agg_fn is not None
+    quar, e_int, staleness, g_prev = carry
+    errs, st, fresh_w, stale = None, None, None, {}
+    if avail is not None or robust:
+        idx, vals = _seats(mask, l)
+        fresh_w = vals
+        if avail is not None and carry.staleness is not None:
+            st = _avail_weights(mask, avail, carry.staleness, cfg)
+            fresh_w = st.fresh_w
+            stale = dict(stale_sum=st.stale_sum, g_prev=carry.g_prev)
+        elif avail is not None:
+            fresh_w = vals * avail.gather(1, idx)
+    mets = {}
+    if robust:
+        out = _train_robust(gp, batches, fresh_w, trace_fn(idx),
+                            group_loss_fn, cfg, corrupt_fn, agg_fn, tx,
+                            **stale)
+        gp_new, loss, rs = out[:3]
+    elif cfg.train_step == "model_avg":
+        out = _train_model_avg(gp, batches, group_loss_fn, cfg, fresh_w)
+        gp_new, loss = out
+    else:
+        out = _train_all_groups(gp, batches, group_loss_fn, cfg, tx,
+                                fresh_w, **stale)
+        gp_new, loss = out[:2]
+    rest = out[3:] if robust else out[2:]
+    if st is not None:
+        g_prev, staleness, rest = rest[0], st.staleness, rest[1:]
+    if tx is not None:
+        e_int, errs = rest
+    if robust:
+        rb = torch.zeros((), device=mask.device)
+        if corrupt_fn is not None and cfg.nan_guard:
+            finite_m = _group_finite(gp_new)
+            if st is not None:
+                finite_m &= torch.isfinite(g_prev).all(dim=1)
+            if tx is not None:
+                finite_m &= torch.isfinite(e_int).all(dim=1)
+                e_int = torch.where(finite_m[:, None], e_int, carry.e_int)
+            gp_new = _where_groups(finite_m, gp_new, gp)
+            if st is not None:
+                g_prev = torch.where(finite_m[:, None], g_prev,
+                                     carry.g_prev)
+                staleness = torch.where(finite_m[:, None], staleness,
+                                        carry.staleness)
+            rb = torch.sum(~finite_m).float()
+        if quar is not None:
+            quar = quar.scatter_add(1, idx, (rs.flags * vals).int())
+        mets.update(corrupted_selected=torch.sum(rs.hit * vals),
+                    clipped_fraction=torch.sum(rs.flags * vals)
+                    / torch.clamp_min(vals.sum(), 1.0),
+                    rollbacks=rb, agg_residual=rs.residual.mean())
+    mets["uploads"] = float(m * l) if fresh_w is None else \
+        torch.sum((fresh_w > 0).float())
+    if avail is not None:
+        mets["participation"] = avail.mean()
+        if st is None:
+            mets["dark_selected"] = torch.sum(mask * (1.0 - avail))
+        else:
+            mets.update(dark_selected=st.dark.sum(),
+                        staleness_mean=st.stale_mean.mean(),
+                        staleness_max=st.stale_max.max())
+    return gp_new, loss, Carry(quar, e_int, staleness, g_prev), errs, mets
 
 
 def make_group_train_step(group_loss_fn, cfg: FedGSConfig):
@@ -392,8 +570,49 @@ def external_sync_and_broadcast(group_params):
     return replicate_for_groups(sync.external_average(group_params), m)
 
 
+def _unpack_state(sel: tuple, cfg: FedGSConfig, quarantined: bool):
+    """(mask, distance, :class:`Carry`, Eq. 5 EF residual or None) of a
+    carried selection state in :func:`init_selection_state`'s layout."""
+    bounded = cfg.sync == "bounded_async"
+    i_eint = 4 if bounded else 2
+    on_int = compress.parse_compress(cfg.compress_int) is not None
+    on_ext = compress.parse_compress(cfg.compress_ext) is not None
+    carry = Carry(quar=sel[-1] if quarantined else None,
+                  e_int=sel[i_eint] if on_int else None,
+                  staleness=sel[2] if bounded else None,
+                  g_prev=sel[3] if bounded else None)
+    return sel[0], sel[1], carry, sel[i_eint + on_int] if on_ext else None
+
+
+def _check_run(cfg: FedGSConfig, avail_fn, corrupt_fn) -> bool:
+    """Raise on the combinations the engines refuse; True when the run
+    takes the robust layer."""
+    if cfg.sync == "bounded_async" and avail_fn is None:
+        raise ValueError("sync='bounded_async' requires an availability "
+                         "schedule (avail_fn)")
+    robust = corrupt_fn is not None or cfg.robust_agg != "mean"
+    if robust and cfg.train_step != "grad_avg":
+        raise ValueError("corruption injection and robust_agg require "
+                         "train_step='grad_avg' (the per-member gradient "
+                         "stack)")
+    return robust
+
+
+def _avail_fields(rows: list, bounded: bool) -> dict:
+    """A round's :data:`AVAIL_METRICS` from its iterations' rows (stacked
+    tensors, read back once): participation and staleness averaged, dark
+    members summed, the staleness maximum taken."""
+    a = torch.stack(rows).cpu().numpy().astype(np.float64)
+    out = dict(participation=float(np.mean(a[:, 0])),
+               dark_selected=float(np.sum(a[:, 1])))
+    if bounded:
+        out.update(staleness_mean=float(np.mean(a[:, 2])),
+                   staleness_max=float(np.max(a[:, 3])))
+    return out
+
+
 def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
-              group_loss_fn, corrupt_fn=None,
+              group_loss_fn, avail_fn=None, corrupt_fn=None,
               eval_fn: Callable | None = None, eval_every: int = 10,
               log_fn: Callable[[RoundRecord], None] | None = None):
     """Alg. 1 end to end — the two-phase host loop.
@@ -405,42 +624,49 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
     (4) internal sync. External sync every T iterations. ``params`` and
     ``p_real`` live on the device the run uses.
 
+    ``avail_fn`` (``data.make_availability_fn``, DESIGN.md §14) gives each
+    iteration's up-mask of the devices (dense flat ids gid·K + slot):
+    GBP-CS sees it under ``avail_selection='aware'``; under ``sync``
+    missed committee members train at weight 0 and, with a cadence N ≠ 1,
+    a dark or under-strength committee forces a rebuild
+    (``reselect_trigger``); under ``bounded_async`` they stay in Eq. 4 at
+    γ^staleness through each group's carried gradient. The availability
+    telemetry (participation, dark members, staleness) joins the records.
+
     ``corrupt_fn`` (``data.make_corruption_fn``) injects gradient faults
     and, with ``cfg.robust_agg != 'mean'`` alone too, switches to the
     robust layer (DESIGN.md §15): members seated in ``argsort(-mask)``
     order, per-member gradients, robust Eq. 4 at weights ``fresh_w`` (the
-    mask values at the seats: 0 where quarantine left a group fewer than L
-    eligible devices), the NaN-guard rollback of non-finite groups, and
-    quarantine counters folded into selection.
+    mask values at the seats, times their availability: 0 where
+    quarantine left a group fewer than L eligible devices or a member
+    missed the iteration), the NaN-guard rollback of non-finite groups,
+    and quarantine counters folded into selection.
 
     ``cfg.compress_int`` / ``compress_ext`` (DESIGN.md §18.1) compress the
-    Eq. 4 gradient (after robust aggregation on the robust path) and the
+    Eq. 4 gradient (after robust aggregation and the stale blend) and the
     Eq. 5 round delta ω_t^m − ω_{t−1}, each with a per-group (M, P4) EF
-    residual. The int keys fold 909 off the iteration key and leave the
-    key chain alone; the external keys take one ``split`` of it per
-    round. The NaN guard also rolls back a non-finite internal residual.
-    With both specs ``'none'`` none of this runs. Returns (global params,
+    residual; the uploads of the byte ledger are the seats of positive
+    weight. The int keys fold 909 off the iteration key and leave the key
+    chain alone; the external keys take one ``split`` of it per round. The
+    NaN guard also rolls back a non-finite internal residual. With both
+    specs ``'none'`` none of this runs. Returns (global params,
     [RoundRecord]).
     """
     dev = tree.leaves(params)[0].device
     m, k, l = cfg.num_groups, cfg.devices_per_group, cfg.num_selected
-    robust = corrupt_fn is not None or cfg.robust_agg != "mean"
-    if robust and cfg.train_step != "grad_avg":
-        raise ValueError("corruption injection and robust_agg require "
-                         "train_step='grad_avg' (the per-member gradient "
-                         "stack)")
+    robust = _check_run(cfg, avail_fn, corrupt_fn)
+    bounded = cfg.sync == "bounded_async"
     quarantined = corrupt_fn is not None and cfg.quarantine_limit > 0
     agg_fn = dispatch.robust_agg_fn(cfg.robust_agg, clip=cfg.robust_clip,
-                                    trim=cfg.robust_trim)
-    train_step = make_group_train_step(group_loss_fn, cfg)
+                                    trim=cfg.robust_trim) if robust else None
     gp = replicate_for_groups(params, m)
     key = prng.PRNGKey(cfg.seed)
     p_real = torch.as_tensor(np.asarray(p_real), dtype=torch.float32,
                              device=dev)
-    mask_c = torch.zeros(m, k, dtype=torch.float32, device=dev)
-    dist_c = torch.zeros(m, dtype=torch.float32, device=dev)
-    quar = torch.zeros(m, k, dtype=torch.int32, device=dev)
+    mask_c, dist_c, carry, e_ext = _unpack_state(init_selection_state(
+        cfg, params, quarantine=quarantined), cfg, quarantined)
     gids = np.arange(m)[:, None]
+    flat_ids = torch.arange(m * k, device=dev)
     n_leaves = len(tree.leaves(params))
     # §18 compression: parsed specs, EF residuals, the Eq. 4/5 byte ledger
     # (one-direction payload of |θ| parameters, 4|θ| when dense)
@@ -449,12 +675,11 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
     n_par = sum(leaf.numel() for leaf in tree.leaves(params))
     payload_int = compress.payload_bytes(n_par, spec_int)
     payload_ext = compress.payload_bytes(n_par, spec_ext)
-    e_int = compress.zero_residual(gp) if spec_int is not None else None
-    e_ext = compress.zero_residual(gp) if spec_ext is not None else None
     logs: list[RoundRecord] = []
     t = 0
     for r in range(cfg.rounds):
-        stats, rstats, ups, cerrs, resel, uploads = [], [], [], [], 0, 0.0
+        stats, rstats, astats, ups, cerrs = [], [], [], [], []
+        resel, uploads = 0, 0.0
         gp_round0 = gp          # round-entry broadcast model (Eq. 5 Δ base)
         for _ in range(cfg.iters_per_round):
             with span("fedgs.select"):
@@ -462,17 +687,23 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                 counts = torch.as_tensor(streams.next_counts(), device=dev)
                 keys = prng.split(sub, m)
                 tx = None if spec_int is None else Compressor(
-                    spec_int, e_int, prng.split(prng.fold_in(
+                    spec_int, carry.e_int, prng.split(prng.fold_in(
                         sub, compress.FOLD_COMPRESS), m), n_par)
                 disc = distributions.group_discrepancy(counts, p_real).mean()
-                avail = selection.quarantine_mask(
-                    quar, cfg.quarantine_limit) if quarantined else None
+                avail = None if avail_fn is None else \
+                    avail_fn(t, flat_ids)[0].view(m, k)
+                sel_avail = avail if cfg.avail_selection == "aware" else None
+                if quarantined:
+                    ok = selection.quarantine_mask(carry.quar,
+                                                   cfg.quarantine_limit)
+                    sel_avail = ok if sel_avail is None else sel_avail * ok
                 do = selection.reselect_predicate(t, cfg.reselect_every)
-                if avail is not None and cfg.reselect_every != 1:
-                    do = selection.reselect_trigger(do, mask_c, avail, l)
+                if sel_avail is not None and not bounded \
+                        and cfg.reselect_every != 1:
+                    do = selection.reselect_trigger(do, mask_c, sel_avail, l)
                 mask_c, div, dist_c = selection.select_or_keep(
                     do, keys, counts, p_real, l, cfg.num_presampled,
-                    prev_mask=mask_c, prev_distance=dist_c, avail=avail,
+                    prev_mask=mask_c, prev_distance=dist_c, avail=sel_avail,
                     method=cfg.selection, init=cfg.init,
                     max_iters=cfg.gbp_max_iters)
                 resel += int(do)
@@ -482,33 +713,26 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                 batches = (torch.as_tensor(imgs, device=dev),
                            torch.as_tensor(labs, device=dev).long())
             with span("fedgs.train"):
+                # the fault trace of the seated devices, hashed on the host
+                # from their ids (seats as _seats orders them)
+                trace = None if corrupt_fn is None else \
+                    corrupt_fn.device_trace(
+                        t, gids * k + np.argsort(
+                            -host_mask, axis=1, kind="stable")[:, :l],
+                        n_leaves, dev)
+                gp, loss, carry, errs, mets = _train_iteration(
+                    gp, batches, mask_c, avail, carry, lambda idx: trace,
+                    tx, group_loss_fn, cfg, corrupt_fn, agg_fn)
                 if robust:
-                    # the fault trace of the seated devices, hashed on the
-                    # host from their ids (seats as _seats orders them)
-                    trace = None if corrupt_fn is None else \
-                        corrupt_fn.device_trace(
-                            t, gids * k + np.argsort(
-                                -host_mask, axis=1, kind="stable")[:, :l],
-                            n_leaves, dev)
-                    idx, vals = _seats(mask_c, l)
-                    gp, loss, quar_new, e_new, errs, rm = _robust_iteration(
-                        gp, batches, idx, vals, trace,
-                        quar if quarantined else None, tx, group_loss_fn,
-                        cfg, corrupt_fn, agg_fn)
-                    if quarantined:
-                        quar = quar_new
-                    if tx is not None:
-                        e_int = e_new
-                    rstats.append(torch.stack([rm[name] for name in
+                    rstats.append(torch.stack([mets[name] for name in
                                                ROBUST_METRICS]))
-                    ups.append(rm["uploads"])
-                elif tx is not None:
-                    gp, loss, e_int, errs = _train_all_groups(
-                        gp, batches, group_loss_fn, cfg, tx)
-                    uploads += float(m * l)
+                if avail is not None:
+                    astats.append(torch.stack([mets[name] for name in
+                                               AVAIL_METRICS if name in mets]))
+                if isinstance(mets["uploads"], float):
+                    uploads += mets["uploads"]
                 else:
-                    gp, loss = train_step(gp, batches)
-                    uploads += float(m * l)
+                    ups.append(mets["uploads"])
                 if tx is not None:
                     cerrs.append(errs.mean())
             stats.append(torch.stack([loss.mean(), div.mean(), disc,
@@ -531,10 +755,10 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
             torch.stack(stats).cpu().numpy().astype(np.float64), axis=0)
         if ups:
             uploads += float(torch.stack(ups).sum())
-        fields = {}
+        fields = _avail_fields(astats, bounded) if astats else {}
         if rstats:
             rs_np = torch.stack(rstats).cpu().numpy().astype(np.float64)
-            fields = dict(
+            fields.update(
                 corrupted_selected=float(np.sum(rs_np[:, 0])),
                 clipped_fraction=float(np.mean(rs_np[:, 1])),
                 rollbacks=float(np.sum(rs_np[:, 2])),
@@ -568,12 +792,8 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
 # read, so on the card it is captured once as a CUDA graph and replayed.
 # ---------------------------------------------------------------------------
 
-def _fused_unported(avail_fn, mesh) -> None:
+def _fused_unported(mesh) -> None:
     """Raise for the fused-round branches the port does not have yet."""
-    if avail_fn is not None:
-        raise NotImplementedError(
-            "availability and bounded-async sync in the fused round "
-            "(DESIGN.md §14) are ROADMAP item 12")
     if mesh is not None:
         raise NotImplementedError(
             "the group-sharded engine (DESIGN.md §8) is ROADMAP item 17")
@@ -582,21 +802,27 @@ def _fused_unported(avail_fn, mesh) -> None:
 def init_selection_state(cfg: FedGSConfig, params, *,
                          quarantine: bool = False) -> tuple:
     """Initial carried selection state of the round body, on the params'
-    device: ``(mask (M, K), distance (M,))``, all zero (iteration 0 always
-    selects), then the §18 error-feedback residuals — ``e_int`` then
+    device, as the JAX package lays the carry out: ``(mask (M, K),
+    distance (M,))``, all zero (iteration 0 always selects); under
+    ``sync='bounded_async'`` the (M, K) int32 staleness clock at
+    ``max_staleness`` and the groups' carried gradient ḡ, an (M, P4) zero
+    buffer (§14.3); then the §18 error-feedback residuals — ``e_int`` then
     ``e_ext``, each an (M, P4) zero buffer — where compression is on, and
     with ``quarantine`` (corruption injection and ``quarantine_limit`` >
-    0, DESIGN.md §15.4) the (M, K) int32 outlier-flag counters LAST, as
-    the JAX package lays the carry out."""
+    0, DESIGN.md §15.4) the (M, K) int32 outlier-flag counters LAST."""
     m, k = cfg.num_groups, cfg.devices_per_group
     dev = tree.leaves(params)[0].device
     sel = (torch.zeros(m, k, device=dev), torch.zeros(m, device=dev))
     on = [compress.parse_compress(spec) is not None
           for spec in (cfg.compress_int, cfg.compress_ext)]
-    if any(on):
+    bounded = cfg.sync == "bounded_async"
+    if bounded or any(on):
         p4 = compress.zero_residual(
             tree.map(lambda v: v[None], params)).shape[1]
-        sel += tuple(torch.zeros(m, p4, device=dev) for _ in range(sum(on)))
+    if bounded:
+        sel += (torch.full((m, k), cfg.max_staleness, dtype=torch.int32,
+                           device=dev), torch.zeros(m, p4, device=dev))
+    sel += tuple(torch.zeros(m, p4, device=dev) for _ in range(sum(on)))
     if quarantine:
         sel += (torch.zeros(m, k, dtype=torch.int32, device=dev),)
     return sel
@@ -613,13 +839,15 @@ class RoundKeys:
     (T, M, K, S, 2) for the model's S = ``num_leaves`` leaves — at the
     dense ids gid·K + slot; with a drifting sampler (``sampler.drift``,
     DESIGN.md §13) the drift trace of all M·K devices (T, M, K, 4); with
+    an availability schedule (``avail``, DESIGN.md §14) each iteration's
+    t (T,), which the trace's kernel reads on the device; with
     ``compress_ext`` the round's Eq. 5 keys (M, 2). :meth:`host` advances
     the key chain exactly as the host loop does (the traces hash their own
     keys and leave the chain alone); :meth:`views` names the parts of a
     buffer."""
 
     def __init__(self, cfg: FedGSConfig, sampler, corrupt_fn=None,
-                 num_leaves: int = 0):
+                 num_leaves: int = 0, avail: bool = False):
         t, m, k = cfg.iters_per_round, cfg.num_groups, cfg.devices_per_group
         self.cfg, self.sampler = cfg, sampler
         self.corrupt_fn, self.num_leaves = corrupt_fn, num_leaves
@@ -635,6 +863,8 @@ class RoundKeys:
                 self.shapes["cnoise"] = (t, m, k, num_leaves, 2)
         if sampler.drift is not None:
             self.shapes["drift"] = (t, m, k, 4)
+        if avail:
+            self.shapes["t"] = (t,)
         if self.spec_ext is not None:
             self.shapes["cext"] = (m, 2)
         self.size = sum(math.prod(s) for s in self.shapes.values())
@@ -664,6 +894,8 @@ class RoundKeys:
             if "drift" in parts:
                 parts["drift"].append(self.sampler.drift_trace(
                     t0 + i, np.arange(m)))
+            if "t" in parts:
+                parts["t"].append(t0 + i)
         if self.spec_ext is not None:
             key, esub = prng.split(key)
             parts["cext"] = prng.split(esub, m)
@@ -700,49 +932,54 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
     devices only) images on the device (``sampler``, a
     ``data.DeviceSampler``, drifting under the staged drift trace when it
     drifts), runs GBP-CS for all groups from the staged permutations, and
-    takes the all-groups superbatch step
-    (:func:`_train_all_groups`, or the ``model_avg`` step), with the §18
+    takes the train step of :func:`_train_iteration`, the host loop's: the
+    all-groups superbatch step (or the ``model_avg`` step), with the §18
     Eq. 4 compression and its EF residual in the carry; the round ends with
     the Eq. 5 compression of the round delta, the Eq. 5 average and the
     broadcast. With ``corrupt_fn`` (a ``data.CorruptionFn``) or
     ``cfg.robust_agg != 'mean'`` each iteration runs the robust layer
-    instead (DESIGN.md §15, :func:`_robust_iteration`): the quarantine
-    counters (the carry's last leaf) bar repeat offenders from selection,
-    the seated members' fault trace is gathered from the staged trace of
-    all devices, and the per-member step, the NaN guard and the counters'
-    update follow, as in the host loop.
+    instead (DESIGN.md §15): the quarantine counters (the carry's last
+    leaf) bar repeat offenders from selection, the seated members' fault
+    trace is gathered from the staged trace of all devices, and the
+    per-member step, the NaN guard and the counters' update follow, as in
+    the host loop. With ``avail_fn`` (a ``data.AvailFn``, DESIGN.md §14)
+    each iteration's up-mask of the M·K devices is drawn on the device at
+    the staged t (the ``avail_rows`` kernel reads it there) and enters
+    selection and Eq. 4 as in the host loop; under ``bounded_async`` the
+    staleness clock and ḡ ride in the carry.
 
     ``pattern`` (:func:`round_pattern`; None = every iteration) says which
     iterations rebuild on the cadence (DESIGN.md §13): the others keep the
     carried masks and only re-score them (``selection.select_or_keep``),
-    unless quarantine can force a rebuild (``reselect_trigger``, read from
-    the device): then they run GBP-CS too, and ``torch.where`` on the
-    device predicate picks the branch — ``lax.cond``'s results, with no
-    read-back, at the cost of a solve (and its pinv) on every iteration.
+    unless quarantine or (under ``sync``) availability can force a rebuild
+    (``reselect_trigger``, read from the device): then they run GBP-CS
+    too, and ``torch.where`` on the device predicate picks the branch —
+    ``lax.cond``'s results, with no read-back, at the cost of a solve (and
+    its pinv) on every iteration.
 
     ``metrics`` holds (T,) tensors ``loss``, ``divergence``,
     ``group_discrepancy``, ``selection_distance``, ``reselected``,
     ``bytes_int`` (and ``compress_error_int``; on the robust layer also
-    :data:`ROBUST_METRICS`), and the round's ``bytes_ext`` (and
-    ``compress_error_ext``). Nothing reads back to the host or copies from
-    it; ``pinv_fn`` is handed to the mpinv initializer (a captured round
-    breaks its graph there). Availability and ``mesh`` raise
-    ``NotImplementedError``."""
-    _fused_unported(avail_fn, mesh)
+    :data:`ROBUST_METRICS`, with availability its :data:`AVAIL_METRICS`),
+    and the round's ``bytes_ext`` (and ``compress_error_ext``). Nothing
+    reads back to the host or copies from it; ``pinv_fn`` is handed to the
+    mpinv initializer (a captured round breaks its graph there). ``mesh``
+    raises ``NotImplementedError``."""
+    _fused_unported(mesh)
     m, k, l = cfg.num_groups, cfg.devices_per_group, cfg.num_selected
-    robust = corrupt_fn is not None or cfg.robust_agg != "mean"
-    if robust and cfg.train_step != "grad_avg":
-        raise ValueError("corruption injection and robust_agg require "
-                         "train_step='grad_avg' (the per-member gradient "
-                         "stack)")
+    robust = _check_run(cfg, avail_fn, corrupt_fn)
+    bounded = cfg.sync == "bounded_async"
     quarantined = corrupt_fn is not None and cfg.quarantine_limit > 0
     agg_fn = dispatch.robust_agg_fn(cfg.robust_agg, clip=cfg.robust_clip,
                                     trim=cfg.robust_trim) if robust else None
     spec_int = compress.parse_compress(cfg.compress_int)
     spec_ext = compress.parse_compress(cfg.compress_ext)
-    i_eext = 2 + (spec_int is not None)
-    train_step = make_group_train_step(group_loss_fn, cfg)
     gids = torch.arange(m, device=sampler.device)
+    names = ("loss", "divergence", "group_discrepancy",
+             "selection_distance") + (ROBUST_METRICS if robust else ()) + (
+        AVAIL_METRICS[:4 if bounded else 2] if avail_fn is not None
+        else ())
+    per_seat = robust or avail_fn is not None   # uploads vary by iteration
 
     def seated_trace(keys, i, idx):
         """The staged trace of iteration i gathered at the seats idx."""
@@ -761,51 +998,46 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
         n_par = sum(leaf[0].numel() for leaf in tree.leaves(gp))
         payload_int = compress.payload_bytes(n_par, spec_int)
         gp_round0 = gp
-        mask, dist = sel[0], sel[1]
-        e_int = sel[2] if spec_int is not None else None
-        quar = sel[-1] if quarantined else None
-        names = ("loss", "divergence", "group_discrepancy",
-                 "selection_distance") + (ROBUST_METRICS + ("bytes_int",)
-                                          if robust else ())
+        mask, dist, carry, e_ext = _unpack_state(sel, cfg, quarantined)
+        ids = sampler.device_ids(gids).reshape(-1)
         rows = {name: [] for name in names}
+        bytes_int = []
         cerrs, resel = [], []
         for i in range(cfg.iters_per_round):
             labels = sampler.labels(keys["data"][i], gids,
                                     keys["drift"][i] if "drift" in keys
                                     else None)
             counts = sampler.counts(labels)
-            avail = selection.quarantine_mask(
-                quar, cfg.quarantine_limit) if quarantined else None
+            avail = None if avail_fn is None else \
+                avail_fn(keys["t"][i], ids)[0].view(m, k)
+            sel_avail = avail if cfg.avail_selection == "aware" else None
+            if quarantined:
+                ok = selection.quarantine_mask(carry.quar,
+                                               cfg.quarantine_limit)
+                sel_avail = ok if sel_avail is None else sel_avail * ok
             do = pattern[i]
-            if not do and avail is not None:
+            if not do and sel_avail is not None and not bounded:
                 do = selection.reselect_trigger(
                     torch.zeros((), dtype=torch.bool, device=gids.device),
-                    mask, avail, l)
+                    mask, sel_avail, l)
             mask, div, dist = selection.select_or_keep(
                 do, (keys["perm"][i], keys["opt"][i]), counts, p_real, l,
                 cfg.num_presampled, prev_mask=mask, prev_distance=dist,
-                avail=avail, method=cfg.selection, init=cfg.init,
+                avail=sel_avail, method=cfg.selection, init=cfg.init,
                 max_iters=cfg.gbp_max_iters, pinv_fn=pinv_fn)
             resel.append(do)
             batches = sampler.selected_batch(labels, keys["data"][i], gids,
                                              mask, l)
             tx = None if spec_int is None else Compressor(
-                spec_int, e_int, keys["cint"][i], n_par)
-            if robust:
-                idx, vals = _seats(mask, l)
-                gp, loss, quar, e_new, errs, rm = _robust_iteration(
-                    gp, batches, idx, vals, seated_trace(keys, i, idx), quar,
-                    tx, group_loss_fn, cfg, corrupt_fn, agg_fn)
-                for name in ROBUST_METRICS:
-                    rows[name].append(rm[name])
-                rows["bytes_int"].append(2.0 * payload_int * rm["uploads"])
-                if tx is not None:
-                    e_int = e_new
-            elif tx is not None:
-                gp, loss, e_int, errs = _train_all_groups(
-                    gp, batches, group_loss_fn, cfg, tx)
-            else:
-                gp, loss = train_step(gp, batches)
+                spec_int, carry.e_int, keys["cint"][i], n_par)
+            gp, loss, carry, errs, im = _train_iteration(
+                gp, batches, mask, avail, carry,
+                lambda idx: seated_trace(keys, i, idx), tx, group_loss_fn,
+                cfg, corrupt_fn, agg_fn)
+            for name in names[4:]:
+                rows[name].append(im[name])
+            if per_seat:
+                bytes_int.append(2.0 * payload_int * im["uploads"])
             if tx is not None:
                 cerrs.append(errs.mean())
             rows["loss"].append(loss.mean())
@@ -813,28 +1045,29 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
             rows["group_discrepancy"].append(
                 distributions.group_discrepancy(counts, p_real).mean())
             rows["selection_distance"].append(dist.mean())
-        mets = {name: torch.stack(v) for name, v in rows.items()}
         t = cfg.iters_per_round
+        mets = {name: torch.stack(v) for name, v in rows.items()}
+        mets["bytes_int"] = torch.stack(bytes_int) if per_seat else \
+            torch.full((t,), 2.0 * payload_int * m * l, device=gids.device)
         mets["reselected"] = torch.ones(t, device=gids.device)
         for i, do in enumerate(resel):      # device ops only (a capture)
             if isinstance(do, torch.Tensor):
                 mets["reselected"][i].copy_(do)
             elif not do:
                 mets["reselected"][i].fill_(0.0)
-        if not robust:
-            mets["bytes_int"] = torch.full((t,), 2.0 * payload_int * m * l,
-                                           device=gids.device)
         new_sel = (mask, dist)
+        if bounded:
+            new_sel += (carry.staleness, carry.g_prev)
         if spec_int is not None:
-            new_sel += (e_int,)
+            new_sel += (carry.e_int,)
             mets["compress_error_int"] = torch.stack(cerrs)
         if spec_ext is not None:
             gp, e_ext, err = _external_compress(
-                gp_round0, gp, sel[i_eext], keys["cext"], spec_ext, n_par)
+                gp_round0, gp, e_ext, keys["cext"], spec_ext, n_par)
             new_sel += (e_ext,)
             mets["compress_error_ext"] = err.mean()
         if quarantined:
-            new_sel += (quar,)
+            new_sel += (carry.quar,)
         mets["bytes_ext"] = torch.full(
             (), 2.0 * compress.payload_bytes(n_par, spec_ext) * m,
             device=gids.device)
@@ -852,6 +1085,12 @@ def _round_record_metrics(mets: dict, cfg: FedGSConfig) -> dict:
            "reselections": mets["reselected"].sum(),
            "bytes_int": mets["bytes_int"].sum(),
            "bytes_ext": mets["bytes_ext"]}
+    if "participation" in mets:
+        out["participation"] = mets["participation"].mean()
+        out["dark_selected"] = mets["dark_selected"].sum()
+    if "staleness_mean" in mets:
+        out["staleness_mean"] = mets["staleness_mean"].mean()
+        out["staleness_max"] = mets["staleness_max"].max()
     if "corrupted_selected" in mets:
         out["corrupted_selected"] = mets["corrupted_selected"].sum()
         out["clipped_fraction"] = mets["clipped_fraction"].mean()
@@ -925,7 +1164,8 @@ def make_fedgs_experiment(params, sampler, p_real, cfg: FedGSConfig, *,
         raise ValueError("a CUDA graph needs the params on a card")
     p_real = torch.as_tensor(np.asarray(p_real), dtype=torch.float32,
                              device=dev)
-    layout = RoundKeys(cfg, sampler, corrupt_fn, len(tree.leaves(params)))
+    layout = RoundKeys(cfg, sampler, corrupt_fn, len(tree.leaves(params)),
+                       avail=avail_fn is not None)
     round_fn = FusedRound(body, layout, cfg, p_real, dev, graph)
     state = (replicate_for_groups(params, cfg.num_groups),
              init_selection_state(cfg, params, quarantine=quarantine),
@@ -947,9 +1187,10 @@ def run_fedgs_fused(params, sampler, p_real, cfg: FedGSConfig, *,
     the same selections, images and steps as :func:`run_fedgs` over a
     ``data.DeviceBackedStreams`` of the same sampler, with ``chunk``
     rounds per host read-back (0 = ``engine.default_chunk``) and eval on
-    the device every ``eval_every`` rounds. ``graph=False`` is the eager
-    form (the CPU's); on the card a CUDA graph per round is the default.
-    Returns (global params, [RoundRecord])."""
+    the device every ``eval_every`` rounds, ``avail_fn`` and
+    ``corrupt_fn`` as there. ``graph=False`` is the eager form (the
+    CPU's); on the card a CUDA graph per round is the default. Returns
+    (global params, [RoundRecord])."""
     exp = make_fedgs_experiment(params, sampler, p_real, cfg,
                                 group_loss_fn=group_loss_fn,
                                 avail_fn=avail_fn, corrupt_fn=corrupt_fn,

@@ -224,6 +224,16 @@ def random_bits_t(key, shape: tuple, device=None) -> torch.Tensor:
     return (b1 ^ b2).reshape(lead + tuple(shape))
 
 
+def fold_in_t(key, data) -> torch.Tensor:
+    """:func:`fold_in` on the device: ``key`` an int64 tensor of keys
+    (..., 2) or a numpy key (moved to ``data``'s device), ``data`` an
+    integer tensor (or int) broadcasting against the keys → (..., 2)."""
+    if not isinstance(key, torch.Tensor):
+        key = torch.as_tensor(np.asarray(key, np.int64), device=data.device)
+    b1, b2 = threefry2x32_t(key, 0, data & _MASK)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def split_t(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """:func:`split` of an int64 tensor of keys (..., 2) on its device:
     (..., num, 2)."""

@@ -1,5 +1,6 @@
-"""Aggregation primitives of Alg. 1 (Eqs. 3–5) on parameter dicts, and the
-plain robust aggregators of DESIGN.md §15.2.
+"""Aggregation primitives of Alg. 1 (Eqs. 3–5) on parameter dicts, the
+staleness helpers of the bounded-async sync (DESIGN.md §14.3) and the plain
+robust aggregators of DESIGN.md §15.2.
 
 The functions here are the plain PyTorch forms of the JAX package's
 ``core/sync.py`` on one group's stacked (K, ...) member tree. The engine
@@ -9,6 +10,7 @@ to, and sorts like the JAX reference does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import tree
@@ -76,6 +78,48 @@ def external_average(group_params):
     w = torch.ones(m, dtype=torch.float32,
                    device=tree.leaves(group_params)[0].device)
     return dispatch.weighted_average_tree(group_params, w)
+
+
+# ---------------------------------------------------------------------------
+# Staleness-bounded asynchronous aggregation (DESIGN.md §14.3): a committee
+# member that misses an iteration contributes the group's carried blended
+# gradient at weight γ^s, s its staleness clock, saturated at max_staleness.
+# ---------------------------------------------------------------------------
+
+def staleness_weights(staleness: torch.Tensor, gamma: float) -> torch.Tensor:
+    """γ^s for the staleness clocks ``staleness``, in float32 (γ as
+    float32, each clock clamped to s ≥ 0 first: a negative clock would
+    amplify the stale gradient)."""
+    s = torch.clamp_min(staleness.float(), 0.0)
+    return torch.pow(torch.full_like(s, float(np.float32(gamma))), s)
+
+
+def update_staleness(staleness: torch.Tensor, contributed: torch.Tensor,
+                     max_staleness: int) -> torch.Tensor:
+    """Advance the int32 staleness clock one iteration: 0 where the device
+    delivered a fresh gradient (``contributed > 0``), else +1, saturating
+    at ``max_staleness``."""
+    s = staleness.to(torch.int32)
+    return torch.where(contributed > 0, torch.zeros_like(s),
+                       torch.clamp_max(s + 1, max_staleness))
+
+
+def bounded_async_sync(grads, fresh_w: torch.Tensor, g_prev,
+                       stale_w: torch.Tensor):
+    """The staleness-bounded Eq. (4) written out (the test oracle):
+
+        g = (Σ_k fresh_w_k g_k + (Σ_j stale_w_j) ḡ) / (Σ fresh_w + Σ stale_w)
+
+    over one group's stacked (K, ...) gradient tree ``grads``, the group's
+    carried gradient ``g_prev`` (unstacked) and the (K,) weights of the
+    fresh and the stale members."""
+    fw = fresh_w.float()
+    sw_total = torch.sum(stale_w.float())
+    denom = torch.clamp_min(torch.sum(fw) + sw_total, EPS)
+    return tree.map(
+        lambda g, p: ((torch.sum(g.float() * _bcast(fw, g), dim=0)
+                       + sw_total * p.float()) / denom).to(p.dtype),
+        grads, g_prev)
 
 
 # ---------------------------------------------------------------------------

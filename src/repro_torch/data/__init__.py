@@ -1,9 +1,12 @@
 from . import femnist, partition, streaming  # noqa: F401
 from .partition import Partition, PartitionConfig, make_partition  # noqa: F401
-from .streaming import (CORRUPTION_MODES, DRIFT_SCHEDULES,  # noqa: F401
-                        LAZY_POOL_THRESHOLD, ClientPool, CorruptionConfig,
-                        DeviceBackedStreams, DeviceSampler, DeviceStream,
-                        DriftConfig, DriftFn, FactoryStreams, HostClientPool,
-                        make_client_pool, make_corruption_fn,
-                        make_device_sampler, make_drift_fn)
+from .streaming import (AVAILABILITY_SCHEDULES,  # noqa: F401
+                        CORRUPTION_MODES, DRIFT_SCHEDULES,
+                        LAZY_POOL_THRESHOLD, AvailabilityConfig, AvailFn,
+                        ClientPool, CorruptionConfig, DeviceBackedStreams,
+                        DeviceSampler, DeviceStream, DriftConfig, DriftFn,
+                        FactoryStreams, HostClientPool,
+                        make_availability_fn, make_client_pool,
+                        make_corruption_fn, make_device_sampler,
+                        make_drift_fn)
 from .lm_data import MarkovLMStream  # noqa: F401

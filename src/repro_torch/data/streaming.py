@@ -1,6 +1,7 @@
 """FIFO streaming device data (paper §I: rapidly changing streaming data),
-the gradient-corruption schedule of the robustness layer (DESIGN.md §15)
-and the drift schedules of the dynamic environments (DESIGN.md §13).
+the gradient-corruption schedule of the robustness layer (DESIGN.md §15),
+the drift schedules of the dynamic environments (DESIGN.md §13) and the
+availability schedules (DESIGN.md §14).
 
 Every device holds only its *next* mini-batch (labels pre-drawn so the
 class-count vector a_t^{m,k} is reportable to the BS before selection);
@@ -24,7 +25,7 @@ import torch
 
 from .. import tree
 from ..core import prng
-from ..kernels import agg_weighted, corrupt, dirichlet
+from ..kernels import agg_weighted, avail, corrupt, dirichlet
 from . import femnist
 from .partition import Partition
 
@@ -386,6 +387,103 @@ def make_drift_fn(drift: DriftConfig | None, seed: int,
     if drift is None or drift.schedule == "static":
         return None
     return DriftFn(drift, seed, num_classes)
+
+
+# ---------------------------------------------------------------------------
+# Availability and straggler schedules (DESIGN.md §14): each device's up/down
+# state and latency are a pure function of (flat device id, iteration t,
+# seed), so every engine sees one trace; a latency above the deadline misses
+# the iteration, so the returned mask already folds the deadline in.
+# ---------------------------------------------------------------------------
+
+AVAILABILITY_SCHEDULES = ("always", "bernoulli", "markov", "straggler_tail")
+
+
+@dataclasses.dataclass(frozen=True)
+class AvailabilityConfig:
+    """Parameterized per-device availability and latency (DESIGN.md §14.1).
+
+    schedule:
+      * ``always``        — every device up, unit latency (callers pass
+        ``avail_fn=None``: the path without availability).
+      * ``bernoulli``     — each device up with probability ``up_prob``,
+        i.i.d. per (device, iteration).
+      * ``markov``        — a 2-state chain per device, P(up→down) =
+        (1 − up_prob)/dwell and P(down→up) = up_prob/dwell, started at its
+        stationary Bernoulli(up_prob); replayed per id from the start of
+        its ``horizon`` block, so the trace repeats with period
+        ``horizon``.
+      * ``straggler_tail``— every device up, but a fixed ``straggler_frac``
+        tail (hashed from the seed) runs ``slow_factor``× slower.
+
+    Latency draws are uniform in [0.5, 1.5) (× ``slow_factor`` for tail
+    devices); a draw above ``deadline`` misses the iteration.
+    """
+    schedule: str = "always"
+    up_prob: float = 0.9       # bernoulli / markov stationary up-probability
+    dwell: int = 8             # markov: mean sojourn time (iterations)
+    horizon: int = 4096        # markov: the trace's period in iterations
+    straggler_frac: float = 0.15  # straggler_tail: fraction of slow devices
+    slow_factor: float = 4.0   # straggler_tail: latency multiplier
+    deadline: float = 3.0      # latency budget; draws above it are missed
+
+    def __post_init__(self):
+        if self.schedule not in AVAILABILITY_SCHEDULES:
+            raise ValueError(
+                f"unknown availability schedule: {self.schedule!r} "
+                f"(expected one of {AVAILABILITY_SCHEDULES})")
+        if not 0.0 < self.up_prob <= 1.0:
+            raise ValueError(f"up_prob must be in (0, 1], got {self.up_prob}")
+        if self.dwell < 1:
+            raise ValueError(f"dwell must be >= 1, got {self.dwell}")
+        if self.horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {self.horizon}")
+        if not 0.0 <= self.straggler_frac <= 1.0:
+            raise ValueError("straggler_frac must be a probability in "
+                             f"[0, 1], got {self.straggler_frac}")
+        if self.slow_factor < 1.0:
+            raise ValueError(f"slow_factor must be >= 1, "
+                             f"got {self.slow_factor}")
+        if self.deadline <= 0.0:
+            raise ValueError(f"deadline must be > 0, got {self.deadline}")
+
+
+class AvailFn:
+    """One availability schedule (DESIGN.md §14): ``avail_fn(t, ids) ->
+    (mask, latency)``, the (R,) float32 effective up-mask and latency draws
+    of the flat device ids ``ids`` (R,) at iteration ``t``, on the ids'
+    device (the JAX package's ``make_availability_fn`` contract). ``t``
+    may be an int or a 0-d integer tensor on that device, read there (the
+    fused round stages it with the keys). The keys are derived once, on
+    the host: ``fold_in(PRNGKey(seed), 505)``, then 9 for the latency and
+    1 (``bernoulli``), 2 (``markov``) or 4 (``straggler_tail``) for the
+    schedule; the trace is one ``kernels.avail.avail_rows`` call (the
+    kernel on the card)."""
+
+    def __init__(self, config: AvailabilityConfig, seed: int):
+        c = self.config = config
+        base = prng.fold_in(prng.PRNGKey(seed), 505)
+        fold = {"bernoulli": 1, "markov": 2, "straggler_tail": 4}
+        tail = c.schedule == "straggler_tail"
+        self.schedule = avail.Schedule(
+            kind=c.schedule, key=prng.fold_in(base, fold[c.schedule]),
+            k_lat=prng.fold_in(base, 9),
+            prob=np.float32(c.straggler_frac if tail else c.up_prob),
+            p_ud=np.float32((1.0 - c.up_prob) / c.dwell),
+            p_du=np.float32(c.up_prob / c.dwell), horizon=c.horizon,
+            slow=np.float32(c.slow_factor), deadline=np.float32(c.deadline))
+
+    def __call__(self, t, ids: torch.Tensor):
+        return avail.avail_rows(ids, t, self.schedule)
+
+
+def make_availability_fn(config: AvailabilityConfig | None,
+                         seed: int) -> AvailFn | None:
+    """The schedule's :class:`AvailFn`; ``None`` and ``always`` return
+    None, the path without availability."""
+    if config is None or config.schedule == "always":
+        return None
+    return AvailFn(config, seed)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_F = ctypes.c_float
+_F, _U = ctypes.c_float, ctypes.c_uint
 # C entry points: name -> argtypes (every function returns cudaError_t as int)
 SIGNATURES = {
     "gbp_cs_minimize_f32": [_P] * 7 + [_I] * 4 + [_P],
@@ -39,6 +39,8 @@ SIGNATURES = {
     "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
     "corrupt_rows_f32": [_P, _P, _P, _I, _L, _P, _I, _P, _I, _F, _F, _P],
     "dirichlet_rows_f32": [_P, _P, _P, _I, _I, _F, _P],
+    "avail_rows_f32": [_P] * 4 + [_I, _I] + [_U] * 4 + [_F] * 3
+    + [_I, _F, _F, _P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9
     + [_I, _I, _F, _P],
     "ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P],

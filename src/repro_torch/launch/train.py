@@ -67,15 +67,30 @@ once, at t = 0) and re-scores the carried ones between rebuilds:
   PYTHONPATH=src python -m repro_torch.launch.train --engine fused \
       --drift redraw --drift-period 2 --reselect-every 2
 
-``--engine sharded`` raises for FEDGS. The JAX CLI's other scenario flags
-(availability, populations) are not ported yet and are rejected.
+Availability (DESIGN.md §14): ``--avail`` makes devices drop out
+(``bernoulli`` at ``--avail-up-prob``, ``markov`` churn with mean sojourn
+``--avail-dwell``) or straggle (``straggler_tail``: a
+``--avail-straggler-frac`` tail ``--avail-slow-factor``× slower), a
+latency above ``--avail-deadline`` missing the iteration;
+``--avail-selection blind`` hides the up-mask from GBP-CS; ``--sync
+bounded_async`` keeps missed committee members in Eq. 4 at
+``--gamma``^staleness (capped at ``--max-staleness``) through each group's
+carried gradient, on both engines and composed with the robust and
+compress flags; the round lines gain ``part`` and ``stale mean/max``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --engine fused \
+      --avail markov --avail-up-prob 0.6 --sync bounded_async
+
+``--engine sharded`` raises for FEDGS (ROADMAP item 17); the lazy
+population's ``--devices`` and ``--population-per-group`` are not ported
+yet (ROADMAP item 14) and are rejected.
 
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
 averages, the fault injection, the robust order statistics, the top-k
-selection (DESIGN.md §18.2), the stochastic int8 quantizer and the drift's
-Dirichlet draws run as the port's CUDA kernels; ``--device cpu`` runs
-their plain PyTorch versions instead. Asking for ``cuda`` without a card
-is an error.
+selection (DESIGN.md §18.2), the stochastic int8 quantizer, the drift's
+Dirichlet draws and the availability trace run as the port's CUDA
+kernels; ``--device cpu`` runs their plain PyTorch versions instead.
+Asking for ``cuda`` without a card is an error.
 """
 from __future__ import annotations
 
@@ -89,19 +104,29 @@ import torch
 
 from ..configs import femnist_cnn
 from ..core import baselines, fedgs, prng, sync
-from ..data import (CORRUPTION_MODES, DRIFT_SCHEDULES, CorruptionConfig,
+from ..data import (AVAILABILITY_SCHEDULES, CORRUPTION_MODES,
+                    DRIFT_SCHEDULES, AvailabilityConfig, CorruptionConfig,
                     DeviceBackedStreams, DeviceStream, DriftConfig,
                     FactoryStreams, HostClientPool, PartitionConfig, femnist,
-                    make_client_pool, make_corruption_fn, make_device_sampler,
-                    make_partition)
+                    make_availability_fn, make_client_pool,
+                    make_corruption_fn, make_device_sampler, make_partition)
 from ..models import cnn
 
 STRATEGIES = ("fedgs",) + tuple(sorted(baselines.all_strategies(
     cnn.make_model_api(femnist_cnn.CONFIG))))
 # flags of the FEDGS path that a baseline strategy ignores (with a warning)
-FEDGS_ONLY = ("train_step", "selection", "init", "reselect_every",
-              "corrupt", "robust_agg", "quarantine_limit", "compress_int",
-              "compress_ext")
+FEDGS_ONLY = ("train_step", "selection", "init", "reselect_every", "avail",
+              "sync", "corrupt", "robust_agg", "quarantine_limit",
+              "compress_int", "compress_ext")
+
+
+def unported(what: str, item: int):
+    """An argparse ``type`` that refuses a flag the port lacks, citing its
+    ROADMAP item (argparse exits with the message)."""
+    def refuse(_value):
+        raise argparse.ArgumentTypeError(
+            f"{what} is not ported yet (ROADMAP item {item})")
+    return refuse
 
 
 def resolve_device(name: str) -> torch.device:
@@ -165,6 +190,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="GBP-CS rebuild cadence in internal iterations "
                          "(1 = every iteration, N = every N, 0 = static "
                          "super nodes; fedgs only, DESIGN.md §13)")
+    ap.add_argument("--avail", choices=AVAILABILITY_SCHEDULES,
+                    default="always",
+                    help="device availability / straggler schedule "
+                         "(DESIGN.md §14; fedgs only)")
+    ap.add_argument("--avail-up-prob", type=float, default=0.9,
+                    help="bernoulli/markov: stationary up-probability")
+    ap.add_argument("--avail-dwell", type=int, default=8,
+                    help="markov: internal iterations per on/off epoch")
+    ap.add_argument("--avail-straggler-frac", type=float, default=0.15,
+                    help="straggler_tail: fraction of slow devices")
+    ap.add_argument("--avail-slow-factor", type=float, default=4.0,
+                    help="straggler_tail: latency multiplier of the tail")
+    ap.add_argument("--avail-deadline", type=float, default=3.0,
+                    help="latency budget; draws above it miss the iteration")
+    ap.add_argument("--sync", choices=("sync", "bounded_async"),
+                    default="sync",
+                    help="missed committee members: drop (sync, with "
+                         "churn-triggered reselection) or keep at "
+                         "gamma^staleness weight (bounded_async)")
+    ap.add_argument("--gamma", type=float, default=0.5,
+                    help="bounded_async staleness decay γ")
+    ap.add_argument("--max-staleness", type=int, default=4,
+                    help="bounded_async staleness cap")
+    ap.add_argument("--avail-selection", choices=("aware", "blind"),
+                    default="aware",
+                    help="whether GBP-CS sees the up-mask (aware) or "
+                         "ignores it (blind — the ablation baseline)")
     ap.add_argument("--corrupt", default="none",
                     help="gradient corruption mode(s), '+'-joined from "
                          f"{CORRUPTION_MODES} (DESIGN.md §15.1; 'none' "
@@ -203,6 +255,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-nan-guard", action="store_true",
                     help="disable the per-iteration NaN/Inf rollback guard "
                          "(DESIGN.md §15.3)")
+    for flag in ("--population-per-group", "--devices"):
+        ap.add_argument(flag, type=unported(
+            "the lazy population (DESIGN.md §17)", 14), default=0,
+            help="not ported yet (ROADMAP item 14)")
     ap.add_argument("--init", choices=("mpinv", "zero", "random"),
                     default="mpinv")
     ap.add_argument("--alpha", type=float, default=0.3, help="Dirichlet skew")
@@ -224,6 +280,11 @@ def format_record(rec: fedgs.RoundRecord) -> str:
     if not math.isnan(rec.group_discrepancy):
         msg += (f" | disc {rec.group_discrepancy:.4f}"
                 f" | resel {rec.reselections:.0f}")
+    if not math.isnan(rec.participation):
+        msg += f" | part {rec.participation:.2f}"
+    if not math.isnan(rec.staleness_mean):
+        msg += (f" | stale {rec.staleness_mean:.2f}"
+                f"/{rec.staleness_max:.0f}")
     if not math.isnan(rec.clipped_fraction):
         msg += (f" | corr {rec.corrupted_selected:.0f}"
                 f" | clip {rec.clipped_fraction:.2f}"
@@ -243,6 +304,15 @@ def drift_config(args) -> DriftConfig | None:
                        churn_rate=args.drift_churn)
 
 
+def avail_fn_of(args):
+    """The ``--avail*`` flags' schedule (None for ``always``)."""
+    return make_availability_fn(AvailabilityConfig(
+        schedule=args.avail, up_prob=args.avail_up_prob,
+        dwell=args.avail_dwell, straggler_frac=args.avail_straggler_frac,
+        slow_factor=args.avail_slow_factor, deadline=args.avail_deadline),
+        args.seed)
+
+
 def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
     """Alg. 1 on the host loop or the fused engine."""
     fcfg = fedgs.FedGSConfig(
@@ -250,7 +320,9 @@ def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
         num_selected=args.selected, num_presampled=args.presampled,
         iters_per_round=args.iters, rounds=args.rounds, lr=args.lr,
         selection=args.selection, init=args.init, seed=args.seed,
-        reselect_every=args.reselect_every,
+        reselect_every=args.reselect_every, sync=args.sync,
+        gamma=args.gamma, max_staleness=args.max_staleness,
+        avail_selection=args.avail_selection,
         train_step=args.train_step, robust_agg=args.robust_agg,
         robust_clip=args.robust_clip, robust_trim=args.robust_trim,
         quarantine_limit=args.quarantine_limit,
@@ -272,6 +344,7 @@ def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
         sampler = make_sampler()
         fedgs.run_fedgs_fused(params, sampler, part.p_real, fcfg,
                               group_loss_fn=cnn.make_group_loss_fn(),
+                              avail_fn=avail_fn_of(args),
                               corrupt_fn=corrupt_fn, eval_fn=eval_fn,
                               eval_every=args.eval_every, log_fn=log_fn,
                               chunk=args.eval_chunk)
@@ -284,6 +357,7 @@ def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
             DeviceBackedStreams(make_sampler())
         fedgs.run_fedgs(params, streams, part.p_real, fcfg,
                         group_loss_fn=cnn.make_group_loss_fn(),
+                        avail_fn=avail_fn_of(args),
                         corrupt_fn=corrupt_fn, eval_fn=eval_fn,
                         eval_every=args.eval_every, log_fn=log_fn)
 

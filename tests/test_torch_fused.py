@@ -347,10 +347,10 @@ def test_unported_branches_raise(setup):
     run = lambda cfg=CFG, **kw: fedgs.run_fedgs_fused(
         params, sampler, part.p_real, fedgs.FedGSConfig(**cfg),
         group_loss_fn=cnn.make_group_loss_fn(), **kw)
-    for kw, item in ((dict(avail_fn=lambda t, ids: ids), "12"),
-                     (dict(mesh=object()), "17")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            run(**kw)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        run(mesh=object())
+    with pytest.raises(ValueError, match="availability schedule"):
+        run(dict(CFG, sync="bounded_async"))
     stream = DeviceStream.from_partition(part, batch_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         make_device_sampler(stream, candidates=4)

@@ -74,7 +74,7 @@ def test_gbp_cs_warp_kernel_sweep(cuda):
 
 
 def _fused_graph_against_eager(cuda, corrupt_fn=None, drift=None,
-                               iters=5, **extra):
+                               iters=5, avail_fn=None, **extra):
     """The smoke config's fused run eager and as one CUDA graph per round
     (per pattern of rebuild and keep iterations), R = 3 rounds of ``iters``
     iterations read back two at a time, the sampler drifting under
@@ -100,7 +100,7 @@ def _fused_graph_against_eager(cuda, corrupt_fn=None, drift=None,
         exp = fedgs.make_fedgs_experiment(
             params, sampler, part.p_real, cfg,
             group_loss_fn=cnn.make_group_loss_fn(), corrupt_fn=corrupt_fn,
-            graph=graph)
+            avail_fn=avail_fn, graph=graph)
         state, logs = engine.run_experiment(exp, cfg.rounds, chunk=2)
         runs.append((tree.leaves(state[0]) + list(state[1]), logs,
                      exp.round_fn))
@@ -133,6 +133,54 @@ def test_fused_cadence_graph_replay_equals_eager(cuda):
         assert {k: v for k, v in rf.captures[pattern].items() if v} == {
             "gbp_cs": rebuilds, "conv_fused": 6, "agg_weighted": 1,
             "dirichlet_rows": 3}
+
+
+@pytest.mark.parametrize("schedule", ["bernoulli", "markov",
+                                      "straggler_tail"])
+def test_avail_rows_kernel_matches_plain(cuda, schedule):
+    """The availability trace against its plain version on the card, bit
+    for bit: the 350 dense ids and 353 shuffled ids up to 2³¹ − 1, at t =
+    0, 5 and 4,095 (the default horizon's longest chain) and past the
+    wrap, t as an int and as a device tensor; one launch per call."""
+    from repro_torch.data import AvailabilityConfig, make_availability_fn
+    from repro_torch.kernels import avail
+    fn = make_availability_fn(AvailabilityConfig(
+        schedule=schedule, up_prob=0.6, straggler_frac=0.3), 0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    big = torch.randint(0, 2 ** 31 - 1, (353,), generator=gen, device=cuda)
+    for ids in (torch.arange(350, device=cuda), big):
+        for t in (0, 5, 4095, 4096 + 7):
+            dispatch.reset_launch_counts()
+            mask, lat = fn(torch.tensor(t, device=cuda), ids)
+            assert dispatch.launch_counts()["avail_rows"] == 1
+            ref = avail.avail_rows_plain(ids.cpu(), t, fn.schedule)
+            assert torch.equal(mask.cpu(), ref[0])
+            assert torch.equal(lat.cpu(), ref[1])
+            assert torch.equal(fn(t, ids)[0], mask)
+    with pytest.raises(ValueError, match="ids"):
+        fn(0, big.reshape(1, -1))
+
+
+def test_fused_avail_graph_replay_equals_eager(cuda):
+    """Markov churn under ``bounded_async`` with the robust layer and
+    compression, cadence 2 (two patterns): the graphs replay the eager
+    run bit for bit (the staleness clock and ḡ in the carry, t staged
+    with the keys), and each capture counts one ``avail_rows`` launch per
+    iteration."""
+    from repro_torch.data import (AvailabilityConfig, CorruptionConfig,
+                                  make_availability_fn, make_corruption_fn)
+    afn = make_availability_fn(AvailabilityConfig(
+        schedule="markov", up_prob=0.6, dwell=3), 0)
+    cfn = make_corruption_fn(CorruptionConfig(mode="scale+nan_burst",
+                                              frac=0.25), 0)
+    logs, rf = _fused_graph_against_eager(
+        cuda, cfn, iters=3, avail_fn=afn, reselect_every=2,
+        sync="bounded_async", robust_agg="trimmed_mean",
+        quarantine_limit=2, compress_int="topk:0.1+int8")
+    assert all(0 < r.participation < 1 for r in logs)
+    assert sum(r.dark_selected for r in logs) > 0
+    for captured in rf.captures.values():
+        assert captured["avail_rows"] == 3
 
 
 @pytest.mark.parametrize("alpha,rows", [(0.3, 350), (2.5, 353), (0.1, 5)])

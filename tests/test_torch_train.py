@@ -72,11 +72,11 @@ def test_scenario_cli_matches_reference(flags, capsys, monkeypatch):
         assert sum(r["corrupted_selected"] for r in recs) > 0
 
 
-def test_cli_rejects_flags_outside_the_port():
-    for flags in (["--sync", "bounded_async"], ["--avail", "markov"],
-                  ["--population-per-group", "64"], ["--gamma", "0.5"]):
+def test_cli_rejects_flags_outside_the_port(capsys):
+    for flags in (["--population-per-group", "64"], ["--devices", "1000"]):
         with pytest.raises(SystemExit):
             train.build_parser().parse_args(flags)
+        assert "ROADMAP item 14" in capsys.readouterr().err
 
 
 def test_round_record_fields_match_reference():
