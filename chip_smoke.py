@@ -89,6 +89,19 @@ the last line):
    ``flash_attention`` (D = 112) launches, timed and profiled, decode
    against prefill (its full-width ``serve()`` is left out for time); both
    smoke configs card vs CPU (serve token ids, prefill logits);
+6d. after the baselines, the drift phase (DESIGN.md §13) and the
+   availability phase (§14), the population phase (DESIGN.md §17):
+   ``dirichlet_rows`` with one concentration per element against its
+   plain version bit for bit (the 350 devices seated at D = 10⁶, the 10
+   factory priors at α = 1; per launch in a CUDA graph and eager); the CLI
+   with ``--devices 1000000 --reselect-every 3`` at full width on the host
+   loop and the fused engine (launch counts held to ``fedgs_expect``, the
+   table's launch included; graph == eager over the same population), the
+   same at ``--devices 10000`` with peak device memory within 16 MB of D =
+   10⁶'s; fedavg over the lazy pool on both engines; the README's
+   ``--devices 1000000 --groups 8 --devices-per-group 16`` command, fused,
+   2 rounds; the smoke configuration with ``--devices 1000`` card vs CPU,
+   alone and with the availability, robust and drift flags, and fedavg;
 9. one JSON line of kernel results, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -946,32 +959,44 @@ def smoke_card_vs_cpu(label, flags) -> None:
 
 
 def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
-                corrupt: str | None = None, drift=None, avail=None):
+                corrupt: str | None = None, drift=None, avail=None,
+                population: int | None = None):
     """The fused engine at the paper's traffic and full CNN width, through
     the library, with the CLI's fault schedule of mode(s) ``corrupt``, the
     sampler drifting under ``drift`` (a ``DriftConfig``) and the devices'
-    availability under ``avail`` (an ``AvailabilityConfig``) if given:
-    (experiment, sampler)."""
+    availability under ``avail`` (an ``AvailabilityConfig``) if given; over
+    a lazy population of ``population`` devices a factory (DESIGN.md §17;
+    candidate committees of 35 redrawn at the config's cadence) instead of
+    the dense partition if given: (experiment, sampler)."""
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import fedgs, prng
     from repro_torch.data import (CorruptionConfig, DeviceStream,
-                                  PartitionConfig, make_availability_fn,
+                                  LazyPopulation, PartitionConfig,
+                                  PopulationConfig, make_availability_fn,
                                   make_corruption_fn, make_device_sampler,
                                   make_partition)
     from repro_torch.models import cnn
 
-    part = make_partition(PartitionConfig(num_factories=10,
-                                          devices_per_factory=35, seed=0))
-    sampler = make_device_sampler(DeviceStream.from_partition(
-        part, batch_size=32, seed=0, device=dev), drift=drift)
-    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
     cfg = fedgs.FedGSConfig(num_groups=10, devices_per_group=35,
                             num_selected=10, num_presampled=2,
                             iters_per_round=3, rounds=rounds, **extra)
+    if population is None:
+        part = make_partition(PartitionConfig(num_factories=10,
+                                              devices_per_factory=35, seed=0))
+        sampler = make_device_sampler(DeviceStream.from_partition(
+            part, batch_size=32, seed=0, device=dev), drift=drift)
+        p_real = part.p_real
+    else:
+        pop = LazyPopulation(PopulationConfig(
+            num_factories=10, devices_per_factory=population), dev)
+        sampler = make_device_sampler(pop, drift=drift, candidates=35,
+                                      candidate_every=cfg.reselect_every)
+        p_real = pop.p_real
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
     cfn = None if corrupt is None else make_corruption_fn(
         CorruptionConfig(mode=corrupt), 0)
     return fedgs.make_fedgs_experiment(
-        params, sampler, part.p_real, cfg,
+        params, sampler, p_real, cfg,
         group_loss_fn=cnn.make_group_loss_fn(), corrupt_fn=cfn,
         avail_fn=make_availability_fn(avail, 0), graph=graph), sampler
 
@@ -1008,36 +1033,41 @@ BASELINE_SMOKE = ("fedavg", "fedmmd", "fedfusion_conv", "ida_intrac",
 BASELINE_PROFILED = "fedavg"     # one traced replayed round
 
 
-def baseline_round_launches(name: str, draws: bool = False) -> dict:
+def baseline_round_launches(name: str, draws: int = 0) -> dict:
     """One baseline round's wrapper launches, from ``core/baselines.py``:
     per local step one grouped ``conv_fused`` per conv layer (the clients'
     forward; the backward is PyTorch), two more for the global features of
     FedMMD and FedFusion; two for the last batch's accuracy; one
-    ``agg_weighted`` per averaged tree; with a Dirichlet drift (``draws``)
-    one ``dirichlet_rows`` for the pool's draw."""
+    ``agg_weighted`` per averaged tree; ``draws`` ``dirichlet_rows`` for
+    the pool's draw (one for a Dirichlet drift, one for a lazy
+    population's rows)."""
     conv = 2 * BASELINE_STEPS * (1 + (name in GLOBAL_FEATURES)) + 2
     out = {"conv_fused": conv, "agg_weighted": 1 + (name in TWO_AVERAGES)}
     if draws:
-        out["dirichlet_rows"] = 1
+        out["dirichlet_rows"] = int(draws)
     return out
 
 
-def baseline_expect(name: str, fused: bool, draws: bool = False) -> dict:
+def baseline_expect(name: str, fused: bool, draws: int = 0,
+                    tables: int = 0) -> dict:
     """The CLI run's wrapper counts: R rounds on the host loop; on the
     fused engine the eager warm-up round and the capture (a replay calls no
     wrapper); the eval's two conv launches every ``BASELINE_EVERY``
-    rounds."""
+    rounds; ``tables`` ``dirichlet_rows`` launches of a lazy population's
+    concentration table, built once."""
     from repro_torch.core import dispatch
     per = baseline_round_launches(name, draws)
     times = 2 if fused else BASELINE_ROUNDS
     out = {k: 0 for k in dispatch.KERNELS}
     out.update({k: v * times for k, v in per.items()})
     out["conv_fused"] += 2 * (BASELINE_ROUNDS // BASELINE_EVERY)
+    out["dirichlet_rows"] += tables
     return out
 
 
 def baseline_strategy(torch, dev, name: str, extra: tuple = (),
-                      iters: int = 1, draws: bool = False) -> dict:
+                      iters: int = 1, draws: int = 0,
+                      tables: int = 0) -> dict:
     """One strategy at full width through the CLI, on the host loop and on
     the fused engine, each with its launch counts set to 0 before and read
     after and held to :func:`baseline_expect` (the fused capture to one
@@ -1050,7 +1080,8 @@ def baseline_strategy(torch, dev, name: str, extra: tuple = (),
     their times. Peak device memory of the
     host loop's run (eager) and of the fused run (warm-up and capture
     included). ``extra`` flags (a drift schedule, its clock ``iters``
-    internal iterations a round; ``draws``: it draws Dirichlet rows) go to
+    internal iterations a round; ``draws``: its Dirichlet launches a
+    round; a lazy population's, whose table adds ``tables`` launches) go to
     both CLI runs."""
     from repro_torch import tree
     from repro_torch.core import baselines, dispatch
@@ -1087,7 +1118,8 @@ def baseline_strategy(torch, dev, name: str, extra: tuple = (),
             baselines.run_baseline = run
         torch.cuda.synchronize()
         counts = dispatch.launch_counts()
-        expect = baseline_expect(name, engine_name == "fused", draws)
+        expect = baseline_expect(name, engine_name == "fused", draws,
+                                 tables)
         if counts != expect:
             fail(f"{label} {engine_name}: launch counts {counts} "
                  f"!= the formula's {expect}")
@@ -1627,12 +1659,15 @@ def check_dirichlet_rows(torch, dev):
 
 
 def fedgs_expect(rounds: int, iters: int, every: int, reselect: int,
-                 draws: bool, fused: bool, avail: bool = False) -> dict:
+                 draws: int, fused: bool, avail: bool = False,
+                 tables: int = 0) -> dict:
     """A FEDGS CLI run's wrapper counts under a cadence: per round, one
     ``gbp_cs`` per rebuild iteration of its pattern
     (``fedgs.round_pattern``), two ``conv_fused`` an iteration, one
-    ``agg_weighted`` (Eq. 5), with a Dirichlet drift (``draws``) one
-    ``dirichlet_rows`` an iteration, with an availability schedule
+    ``agg_weighted`` (Eq. 5), ``draws`` ``dirichlet_rows`` an iteration
+    (one for a Dirichlet drift, one for a lazy population's resident rows;
+    ``tables`` more, once, for its concentration table), with an
+    availability schedule
     (``avail``; no churn trigger: cadence 1 or ``bounded_async``) one
     ``avail_rows`` an iteration; the eval's two conv launches every
     ``every`` rounds. The host loop runs every round; the fused engine
@@ -1649,14 +1684,16 @@ def fedgs_expect(rounds: int, iters: int, every: int, reselect: int,
         out["gbp_cs"] += sum(p)
         out["conv_fused"] += 2 * iters
         out["agg_weighted"] += 1
-        out["dirichlet_rows"] += iters if draws else 0
+        out["dirichlet_rows"] += iters * int(draws)
         out["avail_rows"] += iters if avail else 0
     out["conv_fused"] += 2 * (rounds // every)
+    out["dirichlet_rows"] += tables
     return out
 
 
 def drift_fused(label, flags, drift, reselect, draws, torch, dev,
-                avail=None, extra: dict | None = None) -> dict:
+                avail=None, extra: dict | None = None, population=None,
+                library: bool = True) -> dict:
     """One fused drift (or, with ``avail``, availability) path at full
     width (R=2, T=3): the CLI driven with the counts set to 0 before and
     read after, held to :func:`fedgs_expect` and each pattern's capture to
@@ -1664,8 +1701,11 @@ def drift_fused(label, flags, drift, reselect, draws, torch, dev,
     pattern's graphs hold a memory pool of their own); then through the
     library (``extra`` config fields), graph against eager over 4 rounds
     (states bit-equal, records equal) and ms per internal iteration
-    replayed and eager. Returns (the CLI's counts, its ms per internal
-    iteration, its peak GB, the replayed and eager ms)."""
+    replayed and eager (``library`` False skips it). With ``population``
+    (the devices a factory of a lazy population, as in ``flags``) the
+    table's launch joins the counts and the library runs over the same
+    population. Returns (the CLI's counts, its ms per internal iteration,
+    its peak GB, the replayed and eager ms)."""
     from repro_torch.core import fedgs
 
     rounds, iters, every = 2, 3, 2
@@ -1683,7 +1723,8 @@ def drift_fused(label, flags, drift, reselect, draws, torch, dev,
     try:
         logs, counts, cli_ms = drive(
             label, argv, fedgs_expect(rounds, iters, every, reselect, draws,
-                                      True, avail is not None), torch)
+                                      True, avail is not None,
+                                      int(population is not None)), torch)
     finally:
         fedgs.make_fedgs_experiment = make
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1707,17 +1748,19 @@ def drift_fused(label, flags, drift, reselect, draws, torch, dev,
           + f"; reselections per round {resel}; peak device memory of the "
           f"CLI run {peak:.2f} GB", flush=True)
     del seen, rf
+    if not library:
+        return counts, cli_ms, peak, None, None
 
     replay_ms, eager_ms = drift_graph_vs_eager(
         label, dict(extra or {}, reselect_every=reselect), drift, None,
-        torch, dev, avail)
+        torch, dev, avail, population)
     print(f"{label}: the CLI's last round, eval included: {cli_ms:.1f} ms "
           "per internal iteration", flush=True)
     return counts, cli_ms, peak, replay_ms, eager_ms
 
 
 def drift_graph_vs_eager(label, extra, drift, corrupt, torch, dev,
-                         avail=None) -> tuple[float, float]:
+                         avail=None, population=None) -> tuple[float, float]:
     """Through the library at full width, 4 rounds of T = 3 as CUDA graphs
     (one per pattern, each captured at its first round) and eagerly:
     states bit-equal and records equal; ms per internal iteration of the
@@ -1731,7 +1774,7 @@ def drift_graph_vs_eager(label, extra, drift, corrupt, torch, dev,
         gc.collect()
         torch.cuda.empty_cache()
         exp, _ = fused_setup(torch, dev, extra, t_rounds, graph, corrupt,
-                             drift, avail)
+                             drift, avail, population)
         runs[graph] = fused_rounds(torch, exp, t_rounds)
         del exp
     (g_secs, g_mets, g_state), (e_secs, e_mets, e_state) = runs[True], \
@@ -2013,6 +2056,178 @@ def avail_phase(torch, dev) -> tuple[dict, dict]:
                 flags + ["--engine", engine_name], AVAIL_KEYS, AVAIL_COUNTED)
     print(f"avail phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return out, entry
+
+
+# -------------------------------------------------------------- population
+# The lazy population (DESIGN.md §17): a million devices, each factory's
+# engine slots bound to a candidate committee, every resident device's
+# Dirichlet row drawn on the card by dirichlet_rows each iteration.
+POP_DEVICES, POP_SMALL = 1_000_000, 10_000
+POP_FLAGS = ["--reselect-every", "3"]        # the committee redrawn at t = 3
+POP_SMOKE = ["--devices", "1000", "--reselect-every", "2"]
+POP_SMOKE_SETS = [([], ("host", "fused")), (AVAIL_FLAGS, ("host",)),
+                  (ROBUST_SMOKE_FLAGS, ("host",)),
+                  (["--drift", "redraw", "--drift-period", "2"], ("host",))]
+README_FLAGS = ["--devices", "1000000", "--groups", "8",
+                "--devices-per-group", "16", "--reselect-every", "10"]
+POP_MEMORY_TOL = 16 * 2 ** 20           # bytes of peak device memory
+
+
+def check_population_rows(torch, dev) -> dict:
+    """``dirichlet_rows`` with one concentration per element, against its
+    plain version on the card, bit for bit: the 350 devices seated at t =
+    0 by the full-width CLI at D = 10⁶ (the committee of 35 from each
+    factory's 100,000), around their factories' rows of the concentration
+    table; the M = 10 factory priors at α = 1 (the table's build). Each
+    timed per launch inside a CUDA graph (as the fused round pays it) and
+    eagerly (CUDA events, the host wrapper included), and the plain
+    version on the card. The bound counts the draw's hashes from the plain
+    version's loop passes, as :func:`check_dirichlet_rows` does."""
+    import numpy as np
+
+    from repro_torch.core import prng
+    from repro_torch.data import (LazyPopulation, PopulationConfig,
+                                  make_device_sampler)
+    from repro_torch.kernels import dirichlet as kd
+
+    pop = LazyPopulation(PopulationConfig(
+        num_factories=10, devices_per_factory=POP_DEVICES // 10), dev)
+    seats = make_device_sampler(pop, candidates=35, candidate_every=3).seats(
+        0, np.arange(10)).reshape(-1, pop.staged_words)
+    staged = torch.as_tensor(seats, device=dev)
+    prior = np.zeros((10, 4), np.int64)
+    prior[:, 2:] = prng.fold_in(pop._k_prior, np.arange(10))
+    cases = {"population": (staged[:, 1:].contiguous(),
+                            pop.table[staged[:, 1]].contiguous()),
+             "prior": (torch.as_tensor(prior, device=dev),
+                       torch.ones(10, 62, device=dev))}
+    res = {}
+    for name, (trace, alpha) in cases.items():
+        r, f = alpha.shape
+        out = kd.draw_rows(trace, alpha)
+        ref = kd.drift_rows_plain(None, trace, alpha)
+        if not torch.equal(out, ref):
+            fail(f"dirichlet_rows {name}: the kernel differs from its plain "
+                 f"version by {float((out - ref).abs().max())}")
+        stats = {}
+        prng.dirichlet_t(trace[:, 2:], alpha, f, stats)
+        hashes = 4 * stats["elements"] + 4 * stats["passes"] \
+            + 3 * stats["draws"]
+        call = lambda: kd.draw_rows(trace, alpha)
+        ms, eager = graph_ms(torch, call), time_ms(call, reps=50)
+        plain_ms = time_ms(lambda: kd.drift_rows_plain(None, trace, alpha),
+                           reps=3, warmup=1)
+        b_ms, b_by = bound(8 * r * f + 32 * r, THREEFRY_INT_OPS * hashes,
+                           INT32_OPS)
+        res[name] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, rows=r)
+        print(f"dirichlet_rows {name} (R={r}, F={f}, one concentration per "
+              f"element, {stats['elements']} elements, {stats['passes']} "
+              f"outer passes, {stats['draws']} normal draws): kernel == "
+              f"plain bit for bit; {ms:.4f} ms per launch in a graph, "
+              f"{eager:.4f} eager, {plain_ms:.4f} ms plain, bound "
+              f"{b_ms:.5f} ms ({b_by}); library: none", flush=True)
+    return res
+
+
+def pop_host(label, flags, draws, torch) -> tuple:
+    """The host loop of the CLI over a lazy population at full width (R =
+    2, T = 3): driven and counted (:func:`fedgs_expect`, the table's launch
+    included), with its peak device memory. Returns (counts, ms per
+    internal iteration, peak bytes)."""
+    rounds, iters, every = 2, 3, 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, counts, ms = drive(label, main_flags(rounds, iters, every) + flags,
+                          fedgs_expect(rounds, iters, every, 3, draws, False,
+                                       tables=1), torch)
+    return counts, ms, torch.cuda.max_memory_allocated()
+
+
+def population_phase(torch, dev) -> tuple[dict, dict]:
+    """The lazy population at full width and the paper's traffic (M = 10,
+    K = 35 slots, L = 10, L_rnd = 2, n = 32; committees redrawn every 3
+    iterations): ``dirichlet_rows`` per element against its plain version
+    (:func:`check_population_rows`); the CLI at D = 10⁶ on the host loop
+    (one ``dirichlet_rows`` an iteration for the seated rows, one for the
+    table) and the fused engine (:func:`drift_fused`: the capture held to
+    one round, graph == eager through the library over the same
+    population, ms per iteration replayed and eager); the same at D = 10⁴,
+    whose peak device memory must be within ``POP_MEMORY_TOL`` of D =
+    10⁶'s on each engine; fedavg over the lazy pool at D = 10⁶ on both
+    engines (:func:`baseline_strategy`); the README's command, fused, 2
+    rounds; then the smoke configuration with ``--devices`` card vs CPU,
+    alone and composed with the availability, robust and drift flags.
+    Returns (each path's counts, the kernel's numbers)."""
+    t0 = time.perf_counter()
+    rows = check_population_rows(torch, dev)
+    out, peaks, ms = {}, {}, {}
+    for d in (POP_DEVICES, POP_SMALL):
+        flags = ["--devices", str(d)] + POP_FLAGS
+        key = "pop_host" if d == POP_DEVICES else "pop_host_small"
+        out[key], ms[("host", d)], peaks[("host", d)] = pop_host(
+            f"population host path D={d}", flags, 1, torch)
+    for d in (POP_DEVICES, POP_SMALL):
+        flags = ["--devices", str(d)] + POP_FLAGS
+        key = "pop_fused" if d == POP_DEVICES else "pop_fused_small"
+        res = drift_fused(f"population fused path D={d}", flags, None, 3, 1,
+                          torch, dev, population=d // 10,
+                          library=d == POP_DEVICES)
+        out[key], ms[("fused", d)] = res[0], res[1]
+        peaks[("fused", d)] = int(res[2] * 1e9)
+        if d == POP_DEVICES:
+            ms["replayed"], ms["eager"] = res[3], res[4]
+    for engine_name in ("host", "fused"):
+        big, small = peaks[(engine_name, POP_DEVICES)], \
+            peaks[(engine_name, POP_SMALL)]
+        if abs(big - small) > POP_MEMORY_TOL:
+            fail(f"population {engine_name}: peak device memory "
+                 f"{big / 1e9:.4f} GB at D={POP_DEVICES} against "
+                 f"{small / 1e9:.4f} GB at D={POP_SMALL}")
+    print("population peak device memory (CLI runs): " + "; ".join(
+        f"{e} D={d} {peaks[(e, d)] / 1e9:.4f} GB"
+        for e in ("host", "fused") for d in (POP_DEVICES, POP_SMALL))
+        + f" (flat in D to {POP_MEMORY_TOL >> 20} MB); ms per internal "
+        "iteration (the CLI's last round, eval included): " + "; ".join(
+            f"{e} D={d} {ms[(e, d)]:.1f}"
+            for e in ("host", "fused") for d in (POP_DEVICES, POP_SMALL))
+        + f"; fused library D={POP_DEVICES} replayed {ms['replayed']:.2f}, "
+        f"eager {ms['eager']:.2f}", flush=True)
+    res = baseline_strategy(torch, dev, "fedavg",
+                            ("--devices", str(POP_DEVICES)), draws=1,
+                            tables=1)
+    out["pop_baselines_host"] = dict(res["host"]["counts"])
+    out["pop_baselines_fused"] = dict(res["fused"]["counts"])
+    # the README's command: 8 factories of 125,000, 16 slots, 2 rounds of
+    # the default T = 50 with the committee redrawn every 10 iterations
+    readme = README_FLAGS + ["--engine", "fused", "--rounds", "2",
+                             "--iters", "50", "--eval-every", "2", "--seed",
+                             "0"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logs, out["pop_readme"], readme_ms = drive(
+        "population README command", readme,
+        fedgs_expect(2, 50, 2, 10, 1, True, tables=1), torch)
+    print(f"population README command: reselections "
+          f"{[rec['reselections'] for rec in logs]}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.4f} GB", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for flags, engines in POP_SMOKE_SETS:
+        for engine_name in engines:
+            records_card_vs_cpu(
+                f"population {engine_name} " + " ".join(POP_SMOKE + flags),
+                POP_SMOKE + flags + ["--engine", engine_name], AVAIL_KEYS,
+                AVAIL_COUNTED)
+    records_card_vs_cpu("population fedavg", [
+        "--devices", "1000", "--strategy", "fedavg", "--engine", "fused"])
+    ms["readme"] = readme_ms
+    ms["fedavg"] = (res["host_ms"], res["replayed_ms"], res["eager_ms"])
+    print(f"population phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, dict(rows=rows, ms=ms, peaks=peaks)
+
 
 
 LM_ARCH = "granite-3-2b"
@@ -2717,6 +2932,16 @@ def main() -> None:
     avail_counts, avail_entry = avail_phase(torch, dev)
     kernels.append(avail_entry)
 
+    # the lazy population (DESIGN.md §17): a million devices on both
+    # engines and the baselines, each resident device's Dirichlet row drawn
+    # by dirichlet_rows with its factory's concentrations
+    pop_counts, pop_entry = population_phase(torch, dev)
+    entry = next(k for k in kernels if k["name"] == "dirichlet_rows")
+    for name, row in pop_entry["rows"].items():
+        entry.update({f"{name}_{key}": v for key, v in row.items()})
+    entry["population_peak_bytes"] = {
+        f"{e} D={d}": v for (e, d), v in pop_entry["peaks"].items()}
+
     # LM path (the dense-LM serving slice): the kernel at the prefill
     # shape, then the full-width prefill, decode and serve, then the smoke
     # config card vs CPU
@@ -2762,6 +2987,8 @@ def main() -> None:
                         for p, c in drift_counts.items()})
         by_path.update({p: c.get(k["name"], 0)
                         for p, c in avail_counts.items()})
+        by_path.update({p: c.get(k["name"], 0)
+                        for p, c in pop_counts.items()})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:

@@ -14,7 +14,7 @@ There is no backend switch and no fallback.
 | top-k of §18 compression | ``kernels.topk_compress.select`` | ``kernels.topk_compress.select_plain`` |
 | stochastic int8 of §18 compression | ``kernels.int8_quant.quantize`` | ``kernels.int8_quant.quantize_plain`` |
 | §15 fault injection (the fault trace applied) | ``kernels.corrupt.corrupt_rows`` | ``kernels.corrupt.corrupt_rows_plain`` |
-| §13 drifted class distributions (Dirichlet redraw) | ``kernels.dirichlet.drift_rows`` | ``kernels.dirichlet.drift_rows_plain`` |
+| §13 drifted class distributions (Dirichlet redraw), §17 resident devices' rows | ``kernels.dirichlet.drift_rows`` / ``draw_rows`` | ``kernels.dirichlet.drift_rows_plain`` |
 | §14 availability trace (up-mask and latency) | ``kernels.avail.avail_rows`` | ``kernels.avail.avail_rows_plain`` |
 | LM attention (``attend(impl="pallas")``) | ``kernels.flash_attention.flash_attention`` | ``kernels.flash_attention.attention_plain`` |
 | Mamba2 SSD scan (``models.ssm.mamba_forward``) | ``kernels.ssd_scan.ssd_scan`` | ``kernels.ssd_scan.ssd_scan_plain`` |

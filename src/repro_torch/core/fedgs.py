@@ -625,7 +625,9 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
     ``p_real`` live on the device the run uses.
 
     ``avail_fn`` (``data.make_availability_fn``, DESIGN.md §14) gives each
-    iteration's up-mask of the devices (dense flat ids gid·K + slot):
+    iteration's up-mask of the devices (their flat population ids: the
+    streams' ``device_ids(t, gids)`` where they have them, DESIGN.md §17,
+    else the dense ids gid·K + slot; the fault trace is hashed on the same):
     GBP-CS sees it under ``avail_selection='aware'``; under ``sync``
     missed committee members train at weight 0 and, with a cadence N ≠ 1,
     a dark or under-strength committee forces a rebuild
@@ -665,7 +667,11 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                              device=dev)
     mask_c, dist_c, carry, e_ext = _unpack_state(init_selection_state(
         cfg, params, quarantine=quarantined), cfg, quarantined)
-    gids = np.arange(m)[:, None]
+    # resident population ids (DESIGN.md §17): the streams' device_ids of
+    # iteration t where they have them (DeviceBackedStreams over a lazy or
+    # candidate sampler), else the dense grid gid·K + slot
+    ids_fn = getattr(streams, "device_ids", None)
+    dense_ids = np.arange(m * k).reshape(m, k)
     flat_ids = torch.arange(m * k, device=dev)
     n_leaves = len(tree.leaves(params))
     # §18 compression: parsed specs, EF residuals, the Eq. 4/5 byte ledger
@@ -690,8 +696,10 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                     spec_int, carry.e_int, prng.split(prng.fold_in(
                         sub, compress.FOLD_COMPRESS), m), n_par)
                 disc = distributions.group_discrepancy(counts, p_real).mean()
-                avail = None if avail_fn is None else \
-                    avail_fn(t, flat_ids)[0].view(m, k)
+                ids = dense_ids if ids_fn is None else ids_fn(t, np.arange(m))
+                avail = None if avail_fn is None else avail_fn(
+                    t, flat_ids if ids_fn is None else torch.as_tensor(
+                        ids.reshape(-1), device=dev))[0].view(m, k)
                 sel_avail = avail if cfg.avail_selection == "aware" else None
                 if quarantined:
                     ok = selection.quarantine_mask(carry.quar,
@@ -716,9 +724,9 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
                 # the fault trace of the seated devices, hashed on the host
                 # from their ids (seats as _seats orders them)
                 trace = None if corrupt_fn is None else \
-                    corrupt_fn.device_trace(
-                        t, gids * k + np.argsort(
-                            -host_mask, axis=1, kind="stable")[:, :l],
+                    corrupt_fn.device_trace(t, np.take_along_axis(
+                        ids, np.argsort(-host_mask, axis=1,
+                                        kind="stable")[:, :l], axis=1),
                         n_leaves, dev)
                 gp, loss, carry, errs, mets = _train_iteration(
                     gp, batches, mask_c, avail, carry, lambda idx: trace,
@@ -833,12 +841,15 @@ class RoundKeys:
     int64 buffer of uint32 words: per iteration the pre-sample
     permutations (T, M, K), the random initializer's keys (T, M, 2), the
     stream's label and image keys (T, M, 2, 2), with ``compress_int`` the
-    Eq. 4 keys (T, M, 2), and with a corruption schedule (``corrupt_fn``,
-    a ``data.CorruptionFn``) the fault trace of all M·K devices — codes
-    (T, M, K) and, when the mix draws noise, each leaf's noise keys
-    (T, M, K, S, 2) for the model's S = ``num_leaves`` leaves — at the
-    dense ids gid·K + slot; with a drifting sampler (``sampler.drift``,
-    DESIGN.md §13) the drift trace of all M·K devices (T, M, K, 4); with
+    Eq. 4 keys (T, M, 2), the staged words of the devices seated in the
+    M·K slots (T, M, K, W) (``sampler.seats``: their flat population ids,
+    DESIGN.md §17, then what the population view stages for them), with a
+    corruption schedule (``corrupt_fn``, a ``data.CorruptionFn``) the
+    fault trace of all M·K seated devices — codes (T, M, K) and, when the
+    mix draws noise, each leaf's noise keys (T, M, K, S, 2) for the
+    model's S = ``num_leaves`` leaves; with a drifting sampler
+    (``sampler.drift``, DESIGN.md §13) the drift trace of all M·K seated
+    devices (T, M, K, 4); with
     an availability schedule (``avail``, DESIGN.md §14) each iteration's
     t (T,), which the trace's kernel reads on the device; with
     ``compress_ext`` the round's Eq. 5 keys (M, 2). :meth:`host` advances
@@ -854,7 +865,8 @@ class RoundKeys:
         self.spec_int = compress.parse_compress(cfg.compress_int)
         self.spec_ext = compress.parse_compress(cfg.compress_ext)
         self.shapes = {"perm": (t, m, k), "opt": (t, m, 2),
-                       "data": (t, m, 2, 2)}
+                       "data": (t, m, 2, 2),
+                       "seats": (t, m, k, sampler.stream.staged_words)}
         if self.spec_int is not None:
             self.shapes["cint"] = (t, m, 2)
         if corrupt_fn is not None:
@@ -882,18 +894,19 @@ class RoundKeys:
             parts["perm"].append(perm)
             parts["opt"].append(opt)
             parts["data"].append(self.sampler.keys(t0 + i, np.arange(m)))
+            ids = self.sampler.device_ids(t0 + i, np.arange(m))
+            parts["seats"].append(self.sampler.stream.stage(ids))
             if self.spec_int is not None:
                 parts["cint"].append(prng.split(prng.fold_in(
                     sub, compress.FOLD_COMPRESS), m))
             if self.corrupt_fn is not None:
-                code, noise = self.corrupt_fn.trace(
-                    t0 + i, np.arange(m * k).reshape(m, k), self.num_leaves)
+                code, noise = self.corrupt_fn.trace(t0 + i, ids,
+                                                    self.num_leaves)
                 parts["ccode"].append(code)
                 if noise is not None:
                     parts["cnoise"].append(noise)
             if "drift" in parts:
-                parts["drift"].append(self.sampler.drift_trace(
-                    t0 + i, np.arange(m)))
+                parts["drift"].append(self.sampler.drift.trace(t0 + i, ids))
             if "t" in parts:
                 parts["t"].append(t0 + i)
         if self.spec_ext is not None:
@@ -928,10 +941,12 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
 
     ``keys`` are :meth:`RoundKeys.views` of the round's staged material and
     ``sel`` the carried state of :func:`init_selection_state`. Each of the
-    T iterations draws the devices' labels, counts and (for the selected
-    devices only) images on the device (``sampler``, a
-    ``data.DeviceSampler``, drifting under the staged drift trace when it
-    drifts), runs GBP-CS for all groups from the staged permutations, and
+    T iterations draws the seated devices' labels, counts and (for the
+    selected devices only) images on the device (``sampler``, a
+    ``data.DeviceSampler`` over a dense or lazy population, from the
+    iteration's staged seats, DESIGN.md §17; drifting under the staged
+    drift trace when it drifts), runs GBP-CS for all groups from the
+    staged permutations, and
     takes the train step of :func:`_train_iteration`, the host loop's: the
     all-groups superbatch step (or the ``model_avg`` step), with the §18
     Eq. 4 compression and its EF residual in the carry; the round ends with
@@ -943,8 +958,9 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
     trace is gathered from the staged trace of all devices, and the
     per-member step, the NaN guard and the counters' update follow, as in
     the host loop. With ``avail_fn`` (a ``data.AvailFn``, DESIGN.md §14)
-    each iteration's up-mask of the M·K devices is drawn on the device at
-    the staged t (the ``avail_rows`` kernel reads it there) and enters
+    each iteration's up-mask of the M·K seated devices (their population
+    ids) is drawn on the device at the staged t (the ``avail_rows`` kernel
+    reads it there) and enters
     selection and Eq. 4 as in the host loop; under ``bounded_async`` the
     staleness clock and ḡ ride in the carry.
 
@@ -999,17 +1015,17 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
         payload_int = compress.payload_bytes(n_par, spec_int)
         gp_round0 = gp
         mask, dist, carry, e_ext = _unpack_state(sel, cfg, quarantined)
-        ids = sampler.device_ids(gids).reshape(-1)
         rows = {name: [] for name in names}
         bytes_int = []
         cerrs, resel = [], []
         for i in range(cfg.iters_per_round):
+            seats = keys["seats"][i]
             labels = sampler.labels(keys["data"][i], gids,
                                     keys["drift"][i] if "drift" in keys
-                                    else None)
+                                    else None, seats)
             counts = sampler.counts(labels)
-            avail = None if avail_fn is None else \
-                avail_fn(keys["t"][i], ids)[0].view(m, k)
+            avail = None if avail_fn is None else avail_fn(
+                keys["t"][i], seats[..., 0].reshape(-1))[0].view(m, k)
             sel_avail = avail if cfg.avail_selection == "aware" else None
             if quarantined:
                 ok = selection.quarantine_mask(carry.quar,
@@ -1027,7 +1043,7 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
                 max_iters=cfg.gbp_max_iters, pinv_fn=pinv_fn)
             resel.append(do)
             batches = sampler.selected_batch(labels, keys["data"][i], gids,
-                                             mask, l)
+                                             mask, l, seats)
             tx = None if spec_int is None else Compressor(
                 spec_int, carry.e_int, keys["cint"][i], n_par)
             gp, loss, carry, errs, im = _train_iteration(

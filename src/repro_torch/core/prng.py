@@ -367,15 +367,19 @@ def softmax_rows(x: torch.Tensor) -> torch.Tensor:
     return e / s
 
 
-def dirichlet_t(keys: torch.Tensor, alpha: float, f: int,
+def dirichlet_t(keys: torch.Tensor, alpha, f: int,
                 stats: dict | None = None) -> torch.Tensor:
-    """``jax.random.dirichlet(key, full((f,), alpha))`` per row key: keys
-    (R, 2) int64 words → (R, f) float32 rows, the row softmax
-    (:func:`softmax_rows`) of ``loggamma_t`` (and its ``stats``) over each
-    row's ``split(key, f)``."""
+    """``jax.random.dirichlet(key, alpha)`` per row key: keys (R, 2) int64
+    words → (R, f) float32 rows, the row softmax (:func:`softmax_rows`)
+    of ``loggamma_t`` (and its ``stats``) over each row's ``split(key,
+    f)``. ``alpha`` is a float (``full((f,), alpha)`` for every row) or an
+    (R, f) float32 tensor, each row's own concentrations."""
     ek = split_t(keys, f).reshape(-1, 2)
-    a = torch.full((ek.shape[0],), float(np.float32(alpha)),
-                   device=keys.device)
+    if isinstance(alpha, torch.Tensor):
+        a = alpha.float().reshape(-1)
+    else:
+        a = torch.full((ek.shape[0],), float(np.float32(alpha)),
+                       device=keys.device)
     return softmax_rows(loggamma_t(ek, a, stats).reshape(-1, f))
 
 

@@ -1,13 +1,22 @@
-// The drifted class distributions of the dynamic environments (DESIGN.md
-// §13): per device row r of BASE (R, F), F <= 64, the row rolled by its
-// class shift, or, where its drift trace flags it (the redraw and churn
-// schedules), replaced by a Dirichlet(alpha) draw under the row's key.
+// Per-device Dirichlet rows, two callers: the drifted class distributions
+// of the dynamic environments (DESIGN.md §13) and the resident devices of
+// the lazy population (DESIGN.md §17). Per row r of OUT (R, F), F <= 64:
+// the row of BASE rolled by its class shift, or, where its trace flags it
+// (the redraw and churn schedules) or where there is no BASE (the lazy
+// population: every row drawn), a Dirichlet draw under the row's key.
 //
 // No Pallas kernel to replace: this is the counterpart of the
 // jax.random.dirichlet that src/repro/data/streaming.py:make_drift_fn
-// draws under vmap. TRACE (R, 4) int64 holds per row the shift s, the
-// drawn flag and the key words (k0, k1) (data/streaming.py DriftFn.trace).
-// A row that is not drawn is out[j] = base[(j - s) mod F]. A drawn row is
+// draws under vmap, and of the one LazyPopulation.probs_for draws
+// (src/repro/data/population.py). TRACE (R, 4) int64 holds per row the
+// shift s, the drawn flag and the key words (k0, k1) (data/streaming.py
+// DriftFn.trace); with no BASE only the key words are read (the
+// population's staged words: factory id, writer id, k0, k1). The
+// concentration is the scalar ALPHA for every element (the drift), or,
+// where ALPHA_ROWS is given, an (R, F) f32 tensor read per element (the
+// population: row r is its factory's row of the concentration table,
+// gathered by the caller). A row that is not drawn is
+// out[j] = base[(j - s) mod F]. A drawn row is
 // the softmax of F log-gamma samples, element j under split(key, F)[j]
 // (threefry of the counter (0, j)), each by jax._src.random._gamma_one in
 // log space (Marsaglia and Tsang, with the alpha < 1 boost):
@@ -24,16 +33,17 @@
 // log1pf and expf are the CUDA library's, which PyTorch's log, log1p and
 // exp call on the card. The softmax sums in the order of prng.softmax_rows.
 //
-// What bounds it: neither bytes (8 per element and 32 per row) nor
-// operations (about 11 threefry hashes of ~74 integer operations per
-// element and acceptance pass) at the drift's (350, 62): a few
-// microseconds of work at the card's rates. The chain of one element is
-// serial (each split feeds the next), so a row's time is its slowest
-// element's chain of hashes, logs and the erfinv.
+// What bounds it: neither bytes (8 per element and 32 per row, 4 more
+// per element with ALPHA_ROWS) nor operations (about 11 threefry hashes
+// of ~74 integer operations per element and acceptance pass) at the
+// drift's and the population's (350, 62): a few microseconds of work at
+// the card's rates. The chain of one element is serial (each split feeds
+// the next), so a row's time is its slowest element's chain of hashes,
+// logs and the erfinv.
 // Design: one warp per row, lane l holds elements l and l + 32 and runs
 // both rejection loops in registers; the row's max and sum are warp
-// butterflies. The grid does not depend on the trace (a CUDA graph
-// captures the launch).
+// butterflies. The grid does not depend on the trace or the
+// concentrations (a CUDA graph captures the launch).
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
@@ -95,14 +105,15 @@ __device__ float loggamma_one(unsigned k0, unsigned k1, float alpha) {
 __global__ void __launch_bounds__(kWarps * 32)
 dirichlet_rows_kernel(const float* __restrict__ base,
                       const long long* __restrict__ trace,
+                      const float* __restrict__ alpha_rows,
                       float* __restrict__ out, int R, int F, float alpha) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R) return;                        // the whole warp leaves
   const long long* tr = trace + 4ll * r;
-  const float* br = base + (long long)r * F;
   float* orow = out + (long long)r * F;
-  if (tr[1] == 0) {                          // rolled by its shift
+  if (base != nullptr && tr[1] == 0) {       // rolled by its shift
+    const float* br = base + (long long)r * F;
     long long s = tr[0] % F;
     if (s < 0) s += F;
     for (int j = lane; j < F; j += 32) {
@@ -113,6 +124,7 @@ dirichlet_rows_kernel(const float* __restrict__ base,
     return;
   }
   const unsigned k0 = (unsigned)tr[2], k1 = (unsigned)tr[3];
+  const float* ar = alpha_rows ? alpha_rows + (long long)r * F : nullptr;
   float lg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -121,7 +133,7 @@ dirichlet_rows_kernel(const float* __restrict__ base,
     if (j < F) {
       unsigned e0, e1;
       threefry::threefry2x32(k0, k1, 0u, (unsigned)j, e0, e1);
-      lg[h] = loggamma_one(e0, e1, alpha);
+      lg[h] = loggamma_one(e0, e1, ar ? ar[j] : alpha);
     }
   }
   float m = fmaxf(lg[0], lg[1]);
@@ -143,16 +155,18 @@ dirichlet_rows_kernel(const float* __restrict__ base,
 
 }  // namespace
 
-// base (R, F) row-major f32, trace (R, 4) int64 (shift, drawn flag, key
-// words), out (R, F) f32; 1 <= F <= 64, alpha > 0.
+// base (R, F) row-major f32 or null (every row drawn), trace (R, 4) int64
+// (shift, drawn flag, key words), alpha_rows (R, F) f32 or null (the
+// scalar alpha > 0 for every element), out (R, F) f32; 1 <= F <= 64.
 extern "C" int dirichlet_rows_f32(const void* base, const void* trace,
-                                  void* out, int R, int F, float alpha,
-                                  void* stream) {
-  if (R < 0 || F < 1 || F > 64 || !(alpha > 0.f))
+                                  const void* alpha_rows, void* out, int R,
+                                  int F, float alpha, void* stream) {
+  if (R < 0 || F < 1 || F > 64 || (alpha_rows == nullptr && !(alpha > 0.f)))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   const unsigned grid = (unsigned)((R + kWarps - 1) / kWarps);
   dirichlet_rows_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)base, (const long long*)trace, (float*)out, R, F, alpha);
+      (const float*)base, (const long long*)trace, (const float*)alpha_rows,
+      (float*)out, R, F, alpha);
   return (int)cudaGetLastError();
 }

@@ -10,11 +10,12 @@ After each iteration all devices advance. Pure numpy, so counts and images
 are bit-equal to the JAX package's ``FactoryStreams`` for the same seed.
 
 The device-resident streams of the fused engine (DESIGN.md §7) follow at
-the end: :class:`DeviceStream`, :class:`DeviceSampler` and the host-loop
-adapter :class:`DeviceBackedStreams`, the JAX package's dense-population
-forms, drawing labels and images on the card from threefry keys; then the
-baselines' :class:`ClientPool` over the same stream and its host adapter
-:class:`HostClientPool`.
+the end: the dense population view :class:`DeviceStream`, the
+:class:`DeviceSampler` over it or a lazy ``data.population.LazyPopulation``
+(with candidate committees, DESIGN.md §17) and the host-loop adapter
+:class:`DeviceBackedStreams`, drawing labels and images on the card from
+threefry keys; then the baselines' :class:`ClientPool` over either view
+and its host adapter :class:`HostClientPool`.
 """
 from __future__ import annotations
 
@@ -181,7 +182,7 @@ class CorruptionFn:
     a host trace and a device apply.
 
     :meth:`trace` hashes, in numpy, the JAX package's ``fold_in`` keys (606
-    off the seed) for any array of flat device ids (gid·K + k) at
+    off the seed) for any array of flat population ids at
     iteration t: faulty membership, firing, the per-device mode and the
     per-(device, t, leaf) noise keys, so both packages corrupt the same
     members the same way. :meth:`apply` rewrites the rows of a flat
@@ -264,7 +265,7 @@ def make_corruption_fn(corrupt: CorruptionConfig | None, seed: int):
 
 # ---------------------------------------------------------------------------
 # Drift schedules (DESIGN.md §13): the per-device class distributions are a
-# pure function of (iteration t, flat device id gid·K + k, seed), so the
+# pure function of (iteration t, flat population id, seed), so the
 # host loop, the fused round and the baselines' pool see one environment.
 # ---------------------------------------------------------------------------
 
@@ -552,13 +553,19 @@ def xla_cumsum_t(p: torch.Tensor, base: int = 16) -> torch.Tensor:
 class DeviceStream:
     """All M×K streams on one device: the per-device class distributions,
     their cumulative sums (:func:`xla_cumsum`, once, on the host) and the
-    persistent writer styles. The dense population view of DESIGN.md §17
-    (``probs_for``/``cdf_for``/``styles_for`` by flat device id)."""
+    persistent writer styles. The dense population view of DESIGN.md §17,
+    with the interface of ``data.population.LazyPopulation``: the host
+    stages an array of flat device ids (:meth:`stage`; here the id alone,
+    ``staged_words`` = 1) and the device gathers rows, cdfs and styles
+    from the staged words (:meth:`rows`, :meth:`cdf_of`, :meth:`styles`);
+    ``probs_for``/``styles_for`` take the ids themselves."""
     class_probs: torch.Tensor   # (M, K, F)
     cdf: torch.Tensor           # (M, K, F)
-    styles: torch.Tensor        # (M, K, 6)
+    styles_table: torch.Tensor  # (M, K, 6)
     batch_size: int             # n
     seed: int
+
+    staged_words = 1
 
     @classmethod
     def from_partition(cls, part: Partition, batch_size: int = 32,
@@ -567,7 +574,8 @@ class DeviceStream:
         on = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                        device=device)
         return cls(class_probs=on(probs), cdf=on(xla_cumsum(probs)),
-                   styles=on(femnist.writer_style_table(part.writer_ids)),
+                   styles_table=on(femnist.writer_style_table(
+                       part.writer_ids)),
                    batch_size=batch_size, seed=seed)
 
     @property
@@ -582,67 +590,106 @@ class DeviceStream:
     def num_classes(self) -> int:
         return self.class_probs.shape[2]
 
-    def probs_for(self, ids: torch.Tensor) -> torch.Tensor:
-        """(...,) flat device ids -> (..., F) class distributions."""
-        return self.class_probs.reshape(-1, self.num_classes)[ids]
+    @property
+    def device(self) -> torch.device:
+        return self.class_probs.device
 
-    def cdf_for(self, ids: torch.Tensor) -> torch.Tensor:
-        """(...,) flat device ids -> (..., F) cumulative distributions."""
-        return self.cdf.reshape(-1, self.num_classes)[ids]
+    def stage(self, ids) -> np.ndarray:
+        """(...,) flat device ids → (..., 1) int64 staged words."""
+        return np.asarray(ids, np.int64)[..., None]
 
-    def drifted_cdf(self, ids: torch.Tensor, drift: DriftFn | None,
-                    trace: torch.Tensor | None) -> torch.Tensor:
-        """(...,) flat device ids -> (..., F) cumulative distributions under
-        a drift ``trace`` (..., 4) on the device (:meth:`DriftFn.trace`):
-        the drifted rows' :func:`xla_cumsum_t`. Without a drift, the
-        precomputed table (:meth:`cdf_for`)."""
+    def rows(self, staged: torch.Tensor) -> torch.Tensor:
+        """(..., 1) staged words → (..., F) class distributions."""
+        return self.class_probs.reshape(-1, self.num_classes)[staged[..., 0]]
+
+    def styles(self, staged: torch.Tensor) -> torch.Tensor:
+        """(..., 1) staged words → (..., 6) writer-style rows."""
+        return self.styles_table.reshape(-1, 6)[staged[..., 0]]
+
+    def cdf_of(self, staged: torch.Tensor, drift: DriftFn | None = None,
+               trace: torch.Tensor | None = None) -> torch.Tensor:
+        """(..., 1) staged words → (..., F) cumulative distributions: the
+        precomputed table without a drift, else :meth:`cumulative` of the
+        drifted rows."""
         if drift is None:
-            return self.cdf_for(ids)
-        f = self.num_classes
-        rows = drift.apply(self.probs_for(ids).reshape(-1, f),
-                           trace.reshape(-1, DRIFT_WORDS))
-        return xla_cumsum_t(rows).reshape(ids.shape + (f,))
+            return self.cdf.reshape(-1, self.num_classes)[staged[..., 0]]
+        return self.cumulative(self.rows(staged), drift, trace)
 
-    def styles_for(self, ids: torch.Tensor) -> torch.Tensor:
-        """(...,) flat device ids -> (..., 6) writer-style rows."""
-        return self.styles.reshape(-1, 6)[ids]
+    @staticmethod
+    def cumulative(rows: torch.Tensor, drift: DriftFn | None,
+                   trace: torch.Tensor | None) -> torch.Tensor:
+        """(..., F) rows → their cdf on the device, under a drift ``trace``
+        (..., 4) (:meth:`DriftFn.trace`) when ``drift`` is given: the
+        drifted rows' :func:`xla_cumsum_t`."""
+        if drift is not None:
+            f = rows.shape[-1]
+            rows = drift.apply(rows.reshape(-1, f),
+                               trace.reshape(-1, DRIFT_WORDS)
+                               ).reshape(rows.shape)
+        return xla_cumsum_t(rows)
+
+    def probs_for(self, ids) -> torch.Tensor:
+        """(...,) flat device ids → (..., F) class distributions."""
+        return self.class_probs.reshape(-1, self.num_classes)[
+            torch.as_tensor(ids, device=self.device)]
+
+    def styles_for(self, ids) -> torch.Tensor:
+        """(...,) flat device ids → (..., 6) writer-style rows."""
+        return self.styles_table.reshape(-1, 6)[
+            torch.as_tensor(ids, device=self.device)]
 
 
 class DeviceSampler:
-    """The fused engine's sampling interface over a :class:`DeviceStream`.
+    """The fused engine's sampling interface over a population view (the
+    dense :class:`DeviceStream` or a ``data.population.LazyPopulation``).
 
-    ``keys(t, gids)`` derives on the host each group's (label, image) key
-    of iteration t, (G, 2, 2) uint32 words: the JAX package's
-    ``fold_in(fold_in(base ⊕ 101 | 202, t), gid)``; under a drift schedule
-    (``drift``, a :class:`DriftFn`) ``drift_trace(t, gids)`` is the (G, K,
-    4) trace of the groups' devices. The device side takes them as int64
-    tensors:
+    On the host, for iteration t: ``keys(t, gids)`` derives each group's
+    (label, image) key, (G, 2, 2) uint32 words: the JAX package's
+    ``fold_in(fold_in(base ⊕ 101 | 202, t), gid)``; ``device_ids(t,
+    gids)`` the (G, K) flat population ids seated in the groups' K
+    engine slots (DESIGN.md §17); ``seats(t, gids)`` their staged words
+    (G, K, W) (the view's ``stage``); under a drift schedule (``drift``, a
+    :class:`DriftFn`) ``drift_trace(t, gids)`` the (G, K, 4) trace of those
+    devices. The device side takes them as int64 tensors:
 
-    * ``labels(keys, gids, trace=None)`` → (G, K, n) next-batch labels,
-      ``u > cdf`` summed over classes from one ``uniform`` draw per group,
-      the cdf that of the drifted distributions when a trace is given
-      (:meth:`DeviceStream.drifted_cdf`);
+    * ``labels(keys, gids, trace=None, seats=None)`` → (G, K, n)
+      next-batch labels, ``u > cdf`` summed over classes from one
+      ``uniform`` draw per group, the cdf that of the seated devices
+      (drifted when a trace is given);
     * ``counts(labels)`` → (G, K, F) int32 class counts;
-    * ``selected_batch(labels, keys, gids, masks, l)`` → (images (G, l, n,
-      28, 28), labels (G, l, n)) of the selected devices, in the order
-      ``argsort(-mask, stable)[:l]`` (``lax.top_k``'s, the host loop's).
+    * ``selected_batch(labels, keys, gids, masks, l, seats=None)`` →
+      (images (G, l, n, 28, 28), labels (G, l, n)) of the selected
+      devices, in the order ``argsort(-mask, stable)[:l]`` (``lax.top_k``'s,
+      the host loop's).
+
+    ``seats`` None stands for the dense slots gid·K + slot of a dense
+    stream without candidates (the ids of every iteration). With
+    ``candidates`` C each factory polls C of its ``devices_per_factory``
+    physical devices: slot s of group g holds ``g·K_pop + randint(
+    fold_in(fold_in(707, epoch), g), (C,), 0, K_pop)[s]``, epoch = t //
+    ``candidate_every`` (0: one committee for the whole run).
 
     The same (t, gid) gives the same batch, which is how the host loop over
     :class:`DeviceBackedStreams` and the fused round see identical data.
     """
 
-    def __init__(self, stream: DeviceStream, drift: DriftFn | None = None):
+    def __init__(self, stream, drift: DriftFn | None = None,
+                 candidates: int | None = None, candidate_every: int = 0):
         self.stream, self.drift = stream, drift
         self.num_groups = stream.num_factories
-        self.devices_per_group = stream.devices_per_factory
+        self.population_per_group = stream.devices_per_factory
+        self.candidates, self.candidate_every = candidates, candidate_every
+        self.devices_per_group = stream.devices_per_factory \
+            if candidates is None else candidates
         self.num_classes = stream.num_classes
         self.batch_size = stream.batch_size
-        self.device = stream.class_probs.device
+        self.device = stream.device
         self.protos = torch.as_tensor(femnist.class_prototypes(),
                                       device=self.device)
         base = prng.PRNGKey(stream.seed)
         self._label_key = prng.fold_in(base, 101)
         self._img_key = prng.fold_in(base, 202)
+        self._cand_key = prng.fold_in(base, 707)
 
     def keys(self, t: int, gids) -> np.ndarray:
         """(G, 2, 2) uint32: each group's label and image key of
@@ -652,24 +699,45 @@ class DeviceSampler:
                          prng.fold_in(prng.fold_in(self._img_key, t), g)],
                         axis=1)
 
-    def drift_trace(self, t: int, gids) -> np.ndarray:
-        """(G, K, 4) int64 drift trace of the groups' devices at iteration
-        ``t`` (dense ids gid·K + slot)."""
-        k = self.devices_per_group
-        ids = np.asarray(gids, np.int64)[:, None] * k + np.arange(k)
-        return self.drift.trace(t, ids)
+    def device_ids(self, t: int, gids) -> np.ndarray:
+        """(G, K) int64 flat population ids of each group's K slots at
+        iteration ``t``: the dense grid gid·K + slot without candidates,
+        else the candidate committee of t's epoch."""
+        g = np.asarray(gids, np.int64)
+        k_pop, k = self.population_per_group, self.devices_per_group
+        if self.candidates is None:
+            return g[:, None] * k_pop + np.arange(k)
+        epoch = t // self.candidate_every if self.candidate_every else 0
+        kc = prng.fold_in(prng.fold_in(self._cand_key, epoch), g)
+        return g[:, None] * k_pop + prng.randint(kc, (k,), 0, k_pop)
 
-    def device_ids(self, gids: torch.Tensor) -> torch.Tensor:
-        """(G, K) flat population ids of each group's K slots (dense)."""
+    def seats(self, t: int, gids) -> np.ndarray:
+        """(G, K, W) int64 staged words of the devices seated at ``t``."""
+        return self.stream.stage(self.device_ids(t, gids))
+
+    def drift_trace(self, t: int, gids) -> np.ndarray:
+        """(G, K, 4) int64 drift trace of the groups' seated devices at
+        iteration ``t``."""
+        return self.drift.trace(t, self.device_ids(t, gids))
+
+    def _seats(self, gids: torch.Tensor, seats: torch.Tensor | None
+               ) -> torch.Tensor:
+        if seats is not None:
+            return seats
+        if self.candidates is not None or self.stream.staged_words > 1:
+            raise ValueError("this sampler needs the staged seats of the "
+                             "iteration (seats(t, gids))")
         k = self.devices_per_group
-        return gids[:, None] * k + torch.arange(k, device=gids.device)
+        return (gids[:, None] * k + torch.arange(k, device=gids.device)
+                )[..., None]
 
     def labels(self, keys: torch.Tensor, gids: torch.Tensor,
-               trace: torch.Tensor | None = None) -> torch.Tensor:
+               trace: torch.Tensor | None = None,
+               seats: torch.Tensor | None = None) -> torch.Tensor:
         k, n, f = self.devices_per_group, self.batch_size, self.num_classes
         u = prng.uniform_t(keys[:, 0], (k, n, 1))               # (G, K, n, 1)
-        cdf = self.stream.drifted_cdf(self.device_ids(gids), self.drift,
-                                      trace)[:, :, None, :]
+        cdf = self.stream.cdf_of(self._seats(gids, seats), self.drift,
+                                 trace)[:, :, None, :]
         return torch.clamp_max((u > cdf).sum(-1), f - 1)
 
     def counts(self, labels: torch.Tensor) -> torch.Tensor:
@@ -678,11 +746,12 @@ class DeviceSampler:
         return onehot.sum(dim=2, dtype=torch.int32)
 
     def selected_batch(self, labels: torch.Tensor, keys: torch.Tensor,
-                       gids: torch.Tensor, masks: torch.Tensor, l: int):
+                       gids: torch.Tensor, masks: torch.Tensor, l: int,
+                       seats: torch.Tensor | None = None):
         g, _, n = labels.shape
         idx = torch.argsort(-masks, dim=1, stable=True)[:, :l]   # (G, l)
         lab = labels.gather(1, idx[..., None].expand(g, l, n))
-        sty = self.stream.styles_for(self.device_ids(gids))
+        sty = self.stream.styles(self._seats(gids, seats))
         sty = sty.gather(1, idx[..., None].expand(g, l, 6))
         sty = sty[:, :, None, :].expand(g, l, n, 6).reshape(g, l * n, 6)
         imgs = femnist.generate_images_device(
@@ -691,19 +760,29 @@ class DeviceSampler:
                             femnist.IMAGE_SIZE), lab
 
 
-def make_device_sampler(stream: DeviceStream,
-                        drift: DriftConfig | None = None, *,
+def make_device_sampler(stream, drift: DriftConfig | None = None, *,
                         candidates: int | None = None,
                         candidate_every: int = 0) -> DeviceSampler:
-    """The dense device sampler over ``stream``, its class distributions
-    drifting with t under ``drift`` (DESIGN.md §13; None and ``static``
-    keep the precomputed cdf). Candidate committees are not ported yet."""
-    if candidates is not None or candidate_every:
-        raise NotImplementedError("candidate committees over a lazy "
-                                  "population (DESIGN.md §17) are ROADMAP "
-                                  "item 14")
+    """The device sampler over any population view (``stream``: the dense
+    :class:`DeviceStream` or a lazy ``data.population.LazyPopulation``),
+    its class distributions drifting with t under ``drift`` (DESIGN.md
+    §13; None and ``static`` keep the dense precomputed cdf).
+    ``candidates=C`` turns on candidate committees (DESIGN.md §17): each
+    factory polls C of its ``devices_per_factory`` physical devices, the
+    engine's K becomes C, and the committee is redrawn every
+    ``candidate_every`` iterations (0 = one draw for the run). Slots are
+    drawn independently, so two slots of a group may (rarely) hold the
+    same device."""
+    k_pop = stream.devices_per_factory
+    if candidates is not None and not 0 < candidates <= k_pop:
+        raise ValueError(f"candidates={candidates} must be in "
+                         f"[1, devices_per_factory={k_pop}]")
+    if candidate_every < 0:
+        raise ValueError(f"candidate_every must be >= 0, "
+                         f"got {candidate_every}")
     return DeviceSampler(stream, make_drift_fn(drift, stream.seed,
-                                               stream.num_classes))
+                                               stream.num_classes),
+                         candidates, candidate_every)
 
 
 class DeviceBackedStreams:
@@ -711,35 +790,43 @@ class DeviceBackedStreams:
     the two-phase host loop (``fedgs.run_fedgs``) consumes the exact
     batches the fused round sees, as tensors on the sampler's device.
     ``next_counts`` is repeatable (pure in t); ``fetch_selected`` advances
-    time."""
+    time; ``device_ids(t, gids)`` is the sampler's, so the host loop
+    hashes the schedules on the resident ids the fused round sees
+    (DESIGN.md §17)."""
 
     def __init__(self, sampler: DeviceSampler):
         self.sampler = sampler
         self._t = 0
         self._gids = torch.arange(sampler.num_groups, device=sampler.device)
-        self._labels = None     # (t, keys, labels) of the last draw
+        self._labels = None     # (t, keys, seats, labels) of the last draw
+
+    def device_ids(self, t: int, gids) -> np.ndarray:
+        return self.sampler.device_ids(t, gids)
 
     def _draw(self):
-        """Iteration t's keys and labels, drawn once (with the drift trace
-        of t when the sampler drifts) and reused until t advances."""
+        """Iteration t's keys, seats and labels, drawn once (with the drift
+        trace of t when the sampler drifts) and reused until t advances."""
         if self._labels is None or self._labels[0] != self._t:
             s, gids = self.sampler, np.arange(self.sampler.num_groups)
-            keys = torch.as_tensor(s.keys(self._t, gids).astype(np.int64),
-                                   device=s.device)
-            trace = None if s.drift is None else torch.as_tensor(
-                s.drift_trace(self._t, gids), device=s.device)
-            self._labels = (self._t, keys, s.labels(keys, self._gids, trace))
+            on = lambda a: torch.as_tensor(a, device=s.device)
+            ids = s.device_ids(self._t, gids)
+            keys = on(s.keys(self._t, gids).astype(np.int64))
+            seats = on(s.stream.stage(ids))
+            trace = None if s.drift is None else on(s.drift.trace(self._t,
+                                                                  ids))
+            self._labels = (self._t, keys, seats,
+                            s.labels(keys, self._gids, trace, seats))
         return self._labels[1:]
 
     def next_counts(self) -> torch.Tensor:
-        return self.sampler.counts(self._draw()[1])
+        return self.sampler.counts(self._draw()[2])
 
     def fetch_selected(self, masks, l: int):
-        keys, labels = self._draw()
+        keys, seats, labels = self._draw()
         masks = torch.as_tensor(masks, dtype=torch.float32,
                                 device=self.sampler.device)
         imgs, labs = self.sampler.selected_batch(labels, keys, self._gids,
-                                                 masks, l)
+                                                 masks, l, seats)
         self._t += 1
         return imgs, labs
 
@@ -760,8 +847,9 @@ LAZY_POOL_THRESHOLD = 1 << 16
 
 
 class ClientPool:
-    """Device-resident FedAvg-style client pool over a :class:`DeviceStream`
-    (the JAX package's ``ClientPool``).
+    """Device-resident FedAvg-style client pool over a population view (the
+    dense :class:`DeviceStream` or a ``data.population.LazyPopulation``;
+    the JAX package's ``ClientPool``).
 
     ``round_batches(r) -> ((images (C, S, n, 28, 28), labels (C, S, n)),
     weights (C,))`` on the stream's device; the weights are the client data
@@ -771,14 +859,17 @@ class ClientPool:
     ``randint`` above :data:`LAZY_POOL_THRESHOLD`), the labels from
     ``uniform(k_lab, (C, S, n, 1)) > cdf`` and all C·S·n images from one
     key ``k_img``. :meth:`material` stages those on the host as C + 4
-    int64 words; :meth:`draw` runs the rest on the device from them.
+    int64 words, and after them the rest of the clients' staged words
+    (the view's ``stage``: a lazy population's factory, writer and
+    Dirichlet key, C·4 words; none for a dense stream); :meth:`draw` runs
+    the rest on the device from them.
 
     Under a ``drift`` schedule (DESIGN.md §13) round r sits at environment
     time t = r·``iters_per_round`` (the FEDGS clock of T iterations a
     round): the material carries the C clients' drift trace (C·4 more
     words) and the draw's cdf is that of their drifted distributions."""
 
-    def __init__(self, stream: DeviceStream, clients: int, steps: int,
+    def __init__(self, stream, clients: int, steps: int,
                  drift: DriftConfig | None = None, iters_per_round: int = 1):
         self.stream = stream
         self.pool_size = stream.num_factories * stream.devices_per_factory
@@ -788,26 +879,27 @@ class ClientPool:
         self.num_clients, self.local_steps = clients, steps
         self.batch_size = stream.batch_size
         self.num_classes = stream.num_classes
-        self.device = stream.class_probs.device
+        self.device = stream.device
         self.drift = make_drift_fn(drift, stream.seed, stream.num_classes)
         self.iters_per_round = iters_per_round
-        self.material_size = clients + 4 + (
+        self.material_size = clients * stream.staged_words + 4 + (
             0 if self.drift is None else DRIFT_WORDS * clients)
         self.protos = torch.as_tensor(femnist.class_prototypes(),
                                       device=self.device)
         self._key = prng.fold_in(prng.PRNGKey(stream.seed), 303)
 
     def material(self, r: int) -> np.ndarray:
-        """Round r's client ids (C,) then its label and image keys (2 + 2
-        words), and under drift the clients' (C, 4) drift trace at t =
-        r·T, as one int64 array."""
+        """Round r's client ids (C,), its label and image keys (2 + 2
+        words), the clients' other staged words (C, W − 1), and under
+        drift their (C, 4) drift trace at t = r·T, as one int64 array."""
         k_sel, k_lab, k_img = prng.split(prng.fold_in(self._key, r), 3)
         if self.pool_size <= LAZY_POOL_THRESHOLD:
             ids = prng.permutation(k_sel, self.pool_size)[:self.num_clients]
         else:
             ids = prng.randint(k_sel, (self.num_clients,), 0, self.pool_size)
         ids = np.asarray(ids, np.int64)
-        parts = [ids, k_lab.astype(np.int64), k_img.astype(np.int64)]
+        parts = [ids, k_lab.astype(np.int64), k_img.astype(np.int64),
+                 self.stream.stage(ids)[:, 1:].reshape(-1)]
         if self.drift is not None:
             parts.append(self.drift.trace(r * self.iters_per_round,
                                           ids).reshape(-1))
@@ -817,14 +909,18 @@ class ClientPool:
         """The round's batches from its staged :meth:`material` on the
         device (no host copy: the form a CUDA graph captures)."""
         c, s, n = self.num_clients, self.local_steps, self.batch_size
+        w = self.stream.staged_words
         ids, k_lab, k_img = material[:c], material[c:c + 2], \
             material[c + 2:c + 4]
+        end = c + 4 + c * (w - 1)
+        seats = torch.cat([ids[:, None],
+                           material[c + 4:end].view(c, w - 1)], dim=1)
         u = prng.uniform_t(k_lab, (c, s, n, 1))
-        trace = None if self.drift is None else material[c + 4:].view(
+        trace = None if self.drift is None else material[end:].view(
             c, DRIFT_WORDS)
-        cdf = self.stream.drifted_cdf(ids, self.drift, trace)[:, None, None, :]
+        cdf = self.stream.cdf_of(seats, self.drift, trace)[:, None, None, :]
         labels = torch.clamp_max((u > cdf).sum(-1), self.num_classes - 1)
-        sty = torch.repeat_interleave(self.stream.styles_for(ids), s * n,
+        sty = torch.repeat_interleave(self.stream.styles(seats), s * n,
                                       dim=0)
         imgs = femnist.generate_images_device(self.protos,
                                               labels.reshape(-1), sty, k_img)
@@ -838,12 +934,12 @@ class ClientPool:
                                          device=self.device))
 
 
-def make_client_pool(stream: DeviceStream, clients: int, steps: int,
+def make_client_pool(stream, clients: int, steps: int,
                      drift: DriftConfig | None = None,
                      iters_per_round: int = 1) -> ClientPool:
-    """The baselines' pool over a dense ``stream``; ``drift`` evolves its
-    devices' distributions with round r at t = r·``iters_per_round``
-    (DESIGN.md §13)."""
+    """The baselines' pool over any population view (``stream``: dense or
+    lazy); ``drift`` evolves its devices' distributions with round r at t
+    = r·``iters_per_round`` (DESIGN.md §13)."""
     return ClientPool(stream, clients, steps, drift, iters_per_round)
 
 

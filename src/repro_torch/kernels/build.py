@@ -38,7 +38,7 @@ SIGNATURES = {
     "topk_compress_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _L, _P],
     "int8_quant_f32": [_P, _P, _P, _P, _I, _L, _P],
     "corrupt_rows_f32": [_P, _P, _P, _I, _L, _P, _I, _P, _I, _F, _F, _P],
-    "dirichlet_rows_f32": [_P, _P, _P, _I, _I, _F, _P],
+    "dirichlet_rows_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
     "avail_rows_f32": [_P] * 4 + [_I, _I] + [_U] * 4 + [_F] * 3
     + [_I, _F, _F, _P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9

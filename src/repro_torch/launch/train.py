@@ -81,15 +81,25 @@ compress flags; the round lines gain ``part`` and ``stale mean/max``:
   PYTHONPATH=src python -m repro_torch.launch.train --engine fused \
       --avail markov --avail-up-prob 0.6 --sync bounded_async
 
-``--engine sharded`` raises for FEDGS (ROADMAP item 17); the lazy
-population's ``--devices`` and ``--population-per-group`` are not ported
-yet (ROADMAP item 14) and are rejected.
+The lazy population (DESIGN.md §17): ``--devices D`` (or
+``--population-per-group`` K_pop = D / M) draws each factory's devices
+as a pure function of their flat id, never materialized; the engine
+trains ``--devices-per-group`` slots a group, bound to a candidate
+committee redrawn every ``--reselect-every`` iterations when K_pop is
+larger. On both engines and for the baselines' pool; the resident
+devices' Dirichlet rows are drawn on the card each iteration:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --engine fused \
+      --devices 1000000 --groups 8 --devices-per-group 16 --reselect-every 10
+
+``--engine sharded`` raises for FEDGS (ROADMAP item 17).
 
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
 averages, the fault injection, the robust order statistics, the top-k
 selection (DESIGN.md §18.2), the stochastic int8 quantizer, the drift's
-Dirichlet draws and the availability trace run as the port's CUDA
-kernels; ``--device cpu`` runs their plain PyTorch versions instead.
+and the population's Dirichlet draws and the availability trace run as
+the port's CUDA kernels; ``--device cpu`` runs their plain PyTorch
+versions instead.
 Asking for ``cuda`` without a card is an error.
 """
 from __future__ import annotations
@@ -107,7 +117,8 @@ from ..core import baselines, fedgs, prng, sync
 from ..data import (AVAILABILITY_SCHEDULES, CORRUPTION_MODES,
                     DRIFT_SCHEDULES, AvailabilityConfig, CorruptionConfig,
                     DeviceBackedStreams, DeviceStream, DriftConfig,
-                    FactoryStreams, HostClientPool, PartitionConfig, femnist,
+                    FactoryStreams, HostClientPool, LazyPopulation,
+                    PartitionConfig, PopulationConfig, femnist,
                     make_availability_fn, make_client_pool,
                     make_corruption_fn, make_device_sampler, make_partition)
 from ..models import cnn
@@ -118,15 +129,6 @@ STRATEGIES = ("fedgs",) + tuple(sorted(baselines.all_strategies(
 FEDGS_ONLY = ("train_step", "selection", "init", "reselect_every", "avail",
               "sync", "corrupt", "robust_agg", "quarantine_limit",
               "compress_int", "compress_ext")
-
-
-def unported(what: str, item: int):
-    """An argparse ``type`` that refuses a flag the port lacks, citing its
-    ROADMAP item (argparse exits with the message)."""
-    def refuse(_value):
-        raise argparse.ArgumentTypeError(
-            f"{what} is not ported yet (ROADMAP item {item})")
-    return refuse
 
 
 def resolve_device(name: str) -> torch.device:
@@ -255,10 +257,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-nan-guard", action="store_true",
                     help="disable the per-iteration NaN/Inf rollback guard "
                          "(DESIGN.md §15.3)")
-    for flag in ("--population-per-group", "--devices"):
-        ap.add_argument(flag, type=unported(
-            "the lazy population (DESIGN.md §17)", 14), default=0,
-            help="not ported yet (ROADMAP item 14)")
+    ap.add_argument("--population-per-group", type=int, default=0,
+                    help="lazy population (DESIGN.md §17): PHYSICAL devices "
+                         "per factory, evaluated as a pure function of the "
+                         "flat device id — never materialized. The engine "
+                         "still trains K = --devices-per-group slots per "
+                         "group, rebound to fresh candidate ids every "
+                         "--reselect-every iterations. 0 = historical dense "
+                         "partition")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="total population size shorthand: sets "
+                         "--population-per-group to --devices / --groups "
+                         "(must divide evenly). Scales to millions with "
+                         "flat memory — see README 'Scaling to millions of "
+                         "devices'")
     ap.add_argument("--init", choices=("mpinv", "zero", "random"),
                     default="mpinv")
     ap.add_argument("--alpha", type=float, default=0.3, help="Dirichlet skew")
@@ -271,6 +283,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda runs the CUDA kernels; cpu their plain "
                          "PyTorch versions")
     return ap
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    """The flags, with ``k_pop`` derived from ``--devices`` /
+    ``--population-per-group`` (0: the dense partition), refused as the
+    JAX CLI refuses them."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    k_pop = args.population_per_group
+    if args.devices:
+        if args.devices % args.groups:
+            ap.error("--devices must be divisible by --groups")
+        k_pop = args.devices // args.groups
+    if k_pop and k_pop < args.devices_per_group:
+        ap.error("--population-per-group / --devices per factory must be "
+                 ">= --devices-per-group (the engine slots draw from it)")
+    args.k_pop = k_pop
+    return args
 
 
 def format_record(rec: fedgs.RoundRecord) -> str:
@@ -313,8 +343,11 @@ def avail_fn_of(args):
         args.seed)
 
 
-def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
-    """Alg. 1 on the host loop or the fused engine."""
+def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> None:
+    """Alg. 1 on the host loop or the fused engine: numpy
+    ``FactoryStreams`` of the dense ``part`` on the host loop without a
+    drift, else the device sampler over ``pop()``, the population view
+    (dense or lazy), built when first needed."""
     fcfg = fedgs.FedGSConfig(
         num_groups=args.groups, devices_per_group=args.devices_per_group,
         num_selected=args.selected, num_presampled=args.presampled,
@@ -337,34 +370,39 @@ def run_fedgs(args, part, params, device, eval_fn, log_fn) -> None:
         raise NotImplementedError("--engine sharded (the group-sharded "
                                   "engine, DESIGN.md §8) is ROADMAP item 17")
     drift = drift_config(args)
-    make_sampler = lambda: make_device_sampler(DeviceStream.from_partition(
-        part, batch_size=args.batch_size, seed=args.seed, device=device),
-        drift=drift)
+    # candidate committees only when the universe exceeds the engine
+    # slots; equal sizes keep the dense slot binding
+    make_sampler = lambda: make_device_sampler(
+        pop(), drift=drift,
+        candidates=args.devices_per_group
+        if args.k_pop > args.devices_per_group else None,
+        candidate_every=args.reselect_every)
     if args.engine == "fused":
-        sampler = make_sampler()
-        fedgs.run_fedgs_fused(params, sampler, part.p_real, fcfg,
+        fedgs.run_fedgs_fused(params, make_sampler(), p_real, fcfg,
                               group_loss_fn=cnn.make_group_loss_fn(),
                               avail_fn=avail_fn_of(args),
                               corrupt_fn=corrupt_fn, eval_fn=eval_fn,
                               eval_every=args.eval_every, log_fn=log_fn,
                               chunk=args.eval_chunk)
     else:
-        # a drifting environment lives on the device stream (pure in (t,
-        # id)); the host loop replays it through DeviceBackedStreams, as
-        # the JAX CLI does
+        # a drifting environment and the lazy population live on the
+        # device stream (pure in (t, id)); the host loop replays it
+        # through DeviceBackedStreams, as the JAX CLI does
         streams = FactoryStreams(part, batch_size=args.batch_size,
-                                 seed=args.seed) if drift is None else \
+                                 seed=args.seed) \
+            if drift is None and part is not None else \
             DeviceBackedStreams(make_sampler())
-        fedgs.run_fedgs(params, streams, part.p_real, fcfg,
+        fedgs.run_fedgs(params, streams, p_real, fcfg,
                         group_loss_fn=cnn.make_group_loss_fn(),
                         avail_fn=avail_fn_of(args),
                         corrupt_fn=corrupt_fn, eval_fn=eval_fn,
                         eval_every=args.eval_every, log_fn=log_fn)
 
 
-def run_strategy(args, part, params, mcfg, device, eval_fn, log_fn) -> None:
+def run_strategy(args, pop, params, mcfg, device, eval_fn, log_fn) -> None:
     """A Table II baseline (the JAX CLI's branch): FedGS-only flags warn,
-    the clients come from the device pool, eval sees the global params."""
+    the clients come from the device pool over ``pop()``, eval sees the
+    global params."""
     defaults = build_parser()
     for flag in FEDGS_ONLY:
         if getattr(args, flag) != defaults.get_default(flag):
@@ -378,11 +416,9 @@ def run_strategy(args, part, params, mcfg, device, eval_fn, log_fn) -> None:
         clients_per_round=clients, local_steps=args.local_steps, lr=args.lr,
         rounds=args.rounds, seed=args.seed)
     # the baselines share FEDGS's environment clock: round r sits at t = r·T
-    pool = make_client_pool(
-        DeviceStream.from_partition(part, batch_size=args.batch_size,
-                                    seed=args.seed, device=device),
-        clients=clients, steps=args.local_steps, drift=drift_config(args),
-        iters_per_round=args.iters)
+    pool = make_client_pool(pop(), clients=clients, steps=args.local_steps,
+                            drift=drift_config(args),
+                            iters_per_round=args.iters)
     data = HostClientPool(pool) if args.engine == "host" else pool
     baselines.run_baseline(model, strategy, data, bcfg,
                            eval_fn=lambda pe: eval_fn(pe[0]),
@@ -392,11 +428,25 @@ def run_strategy(args, part, params, mcfg, device, eval_fn, log_fn) -> None:
 
 def main(argv: list[str] | None = None) -> list[dict]:
     """Run the CLI; returns the per-round records as dicts."""
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     device = resolve_device(args.device)
-    part = make_partition(PartitionConfig(
-        num_factories=args.groups, devices_per_factory=args.devices_per_group,
-        alpha=args.alpha, seed=args.seed))
+    if args.k_pop:
+        # the lazy universe (DESIGN.md §17) holds O(resident) memory
+        # however large D = M·K_pop gets; its p_real is analytic, with no
+        # build loop
+        lazy = LazyPopulation(PopulationConfig(
+            num_factories=args.groups, devices_per_factory=args.k_pop,
+            alpha=args.alpha, batch_size=args.batch_size, seed=args.seed),
+            device)
+        part, p_real, pop = None, lazy.p_real, lambda: lazy
+    else:
+        part = make_partition(PartitionConfig(
+            num_factories=args.groups,
+            devices_per_factory=args.devices_per_group, alpha=args.alpha,
+            seed=args.seed))
+        p_real = part.p_real
+        pop = lambda: DeviceStream.from_partition(
+            part, batch_size=args.batch_size, seed=args.seed, device=device)
     test_x, test_y = femnist.make_test_set(n_per_class=20)
     eval_fn = cnn.make_eval_fn(test_x, test_y, device)
     mcfg = femnist_cnn.smoke_config() if args.smoke_model \
@@ -409,9 +459,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
         logs_out.append(rec.to_dict())
 
     if args.strategy == "fedgs":
-        run_fedgs(args, part, params, device, eval_fn, log_fn)
+        run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn)
     else:
-        run_strategy(args, part, params, mcfg, device, eval_fn, log_fn)
+        run_strategy(args, pop, params, mcfg, device, eval_fn, log_fn)
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
         with open(args.log_json, "w") as f:

@@ -352,8 +352,9 @@ def test_unported_branches_raise(setup):
     with pytest.raises(ValueError, match="availability schedule"):
         run(dict(CFG, sync="bounded_async"))
     stream = DeviceStream.from_partition(part, batch_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_device_sampler(stream, candidates=4)
+    with pytest.raises(ValueError, match=r"candidates=9 must be in "
+                       r"\[1, devices_per_factory=8\]"):
+        make_device_sampler(stream, candidates=9)
     with pytest.raises(ValueError, match="card"):
         _run(setup, graph=True)
 

@@ -74,27 +74,38 @@ def test_gbp_cs_warp_kernel_sweep(cuda):
 
 
 def _fused_graph_against_eager(cuda, corrupt_fn=None, drift=None,
-                               iters=5, avail_fn=None, **extra):
+                               iters=5, avail_fn=None, population=None,
+                               **extra):
     """The smoke config's fused run eager and as one CUDA graph per round
     (per pattern of rebuild and keep iterations), R = 3 rounds of ``iters``
     iterations read back two at a time, the sampler drifting under
-    ``drift``: (eager, graphed) each as (state leaves, records), and the
-    graphed run's round function."""
+    ``drift``, over a lazy population of ``population`` devices a factory
+    (committees of 8 redrawn at the config's cadence) if given:
+    (eager, graphed) each as (state leaves, records), and the graphed
+    run's round function."""
     from repro_torch import tree
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import engine, fedgs, prng
-    from repro_torch.data import (DeviceStream, PartitionConfig,
+    from repro_torch.data import (DeviceStream, LazyPopulation,
+                                  PartitionConfig, PopulationConfig,
                                   make_device_sampler, make_partition)
     from repro_torch.models import cnn
-    part = make_partition(PartitionConfig(num_factories=4,
-                                          devices_per_factory=8, seed=0))
-    sampler = make_device_sampler(DeviceStream.from_partition(
-        part, batch_size=8, seed=0, device=cuda), drift=drift)
-    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(), cuda)
     cfg = fedgs.FedGSConfig(num_groups=4, devices_per_group=8,
                             num_selected=4, num_presampled=1,
                             iters_per_round=iters, rounds=3, lr=0.05,
                             **extra)
+    if population is None:
+        part = make_partition(PartitionConfig(num_factories=4,
+                                              devices_per_factory=8, seed=0))
+        sampler = make_device_sampler(DeviceStream.from_partition(
+            part, batch_size=8, seed=0, device=cuda), drift=drift)
+    else:
+        part = LazyPopulation(PopulationConfig(
+            num_factories=4, devices_per_factory=population, batch_size=8),
+            cuda)
+        sampler = make_device_sampler(part, drift=drift, candidates=8,
+                                      candidate_every=cfg.reselect_every)
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(), cuda)
     runs = []
     for graph in (False, True):
         exp = fedgs.make_fedgs_experiment(
@@ -213,6 +224,69 @@ def test_dirichlet_rows_kernel_matches_plain(cuda, alpha, rows):
     torch.testing.assert_close(out.sum(-1), torch.ones(rows, device=cuda))
     with pytest.raises(ValueError, match="trace"):
         dirichlet.drift_rows(base, trace[:-1], alpha)
+
+
+def _population_rows(cuda):
+    """The population's rows of one full-width iteration: the 350 devices
+    seated at t = 0 over 10 factories of 100,000 (committees of 35), their
+    staged words as the kernel's trace and their factories' rows of the
+    concentration table; and the table's build, the 10 factory priors at
+    α = 1."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.data import (LazyPopulation, PopulationConfig,
+                                  make_device_sampler)
+    pop = LazyPopulation(PopulationConfig(num_factories=10,
+                                          devices_per_factory=100_000), cuda)
+    staged = torch.as_tensor(make_device_sampler(
+        pop, candidates=35, candidate_every=3).seats(0, np.arange(10)),
+        device=cuda).reshape(-1, 5)
+    prior = np.zeros((10, 4), np.int64)
+    prior[:, 2:] = prng.fold_in(pop._k_prior, np.arange(10))
+    return [(staged[:, 1:].contiguous(), pop.table[staged[:, 1]]),
+            (torch.as_tensor(prior, device=cuda),
+             torch.ones(10, 62, device=cuda))]
+
+
+def test_dirichlet_rows_per_element_bit_equal_plain(cuda):
+    """``dirichlet_rows`` with one concentration per element equals its
+    plain version bit for bit: at (350, 62) with the population's
+    concentrations, at (10, 62) with α = 1 (the table's priors); and the
+    drift's scalar path, a ``redraw`` trace at (350, 62), bit for bit too.
+    One launch per call."""
+    import numpy as np
+    from repro_torch.data import DriftConfig, make_drift_fn
+    from repro_torch.kernels import dirichlet
+    for trace, alpha in _population_rows(cuda):
+        dispatch.reset_launch_counts()
+        out = dirichlet.draw_rows(trace, alpha)
+        assert dispatch.launch_counts()["dirichlet_rows"] == 1
+        assert torch.equal(out, dirichlet.drift_rows_plain(None, trace,
+                                                           alpha))
+    fn = make_drift_fn(DriftConfig(schedule="redraw", period=2), 0, 62)
+    trace = fn.device_trace(2, np.arange(350), cuda)
+    base = torch.full((350, 62), 1 / 62, device=cuda)
+    assert torch.equal(dirichlet.drift_rows(base, trace, 0.3),
+                       dirichlet.drift_rows_plain(base, trace, 0.3))
+    with pytest.raises(ValueError, match="float32"):
+        dirichlet.draw_rows(trace, alpha.double())
+
+
+def test_fused_population_graph_replay_equals_eager(cuda):
+    """The fused round over a lazy population with candidate committees
+    (8 of 1,000 devices a factory, redrawn every 2 iterations, the seats
+    staged with the keys): the graphs replay the eager run bit for bit,
+    and each capture counts one ``dirichlet_rows`` launch per iteration
+    (the seated devices' rows)."""
+    from repro_torch.data import AvailabilityConfig, make_availability_fn
+    afn = make_availability_fn(AvailabilityConfig(schedule="markov",
+                                                  up_prob=0.6), 0)
+    logs, rf = _fused_graph_against_eager(cuda, iters=3, avail_fn=afn,
+                                          population=1000, reselect_every=2)
+    assert len(rf.graphs) == 2
+    for captured in rf.captures.values():
+        assert captured["dirichlet_rows"] == 3
+        assert captured["avail_rows"] == 3
 
 
 def test_fused_graph_replay_equals_eager(cuda):

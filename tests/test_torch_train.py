@@ -73,10 +73,24 @@ def test_scenario_cli_matches_reference(flags, capsys, monkeypatch):
 
 
 def test_cli_rejects_flags_outside_the_port(capsys):
-    for flags in (["--population-per-group", "64"], ["--devices", "1000"]):
+    """The lazy population's flags are refused as the JAX CLI refuses
+    them: a ``--devices`` that does not divide over the groups, and fewer
+    physical devices a factory than engine slots."""
+    for flags, msg in (
+            (["--devices", "1001", "--groups", "10"],
+             "--devices must be divisible by --groups"),
+            (["--population-per-group", "20", "--devices-per-group", "35"],
+             "--population-per-group / --devices per factory must be >= "
+             "--devices-per-group (the engine slots draw from it)"),
+            (["--devices", "300", "--groups", "10"],
+             "--population-per-group / --devices per factory must be >= "
+             "--devices-per-group")):
         with pytest.raises(SystemExit):
-            train.build_parser().parse_args(flags)
-        assert "ROADMAP item 14" in capsys.readouterr().err
+            train.parse_args(flags)
+        assert msg in capsys.readouterr().err
+    assert train.parse_args(["--devices", "1000"]).k_pop == 100
+    assert train.parse_args(["--population-per-group", "64"]).k_pop == 64
+    assert train.parse_args([]).k_pop == 0
 
 
 def test_round_record_fields_match_reference():
