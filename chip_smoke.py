@@ -72,7 +72,7 @@ the last line):
    bound), at zamba2-7b's
    shape (1, 4096, 32/32 heads, 112) and on the JAX package's sweep in f32
    and bf16; one full-width prefill forward (``attn_impl="pallas"``,
-   tokens (2, 4096) from ``MarkovLMStream``) with exactly 40 kernel
+   tokens (2, 4096) drawn on the card) with exactly 40 kernel
    launches, timed and profiled; ``serve()`` at the JAX CLI's defaults
    (batch 4, prompt 32, gen 32; no kernel launch); decode against prefill
    at full width, plain and ring buffer; then the smoke config card vs CPU
@@ -82,7 +82,7 @@ the last line):
    chunk, chunks shorter than the kernel's 128 rows, up to 32 chunks) and
    at both full-width prefill shapes, with kernel and plain times and each
    of its four launches timed on its own; ``mamba2-780m`` at full
-   width and depth: prefill (4, 2048) from ``MarkovLMStream`` with exactly
+   width and depth: prefill (4, 2048) drawn on the card with exactly
    48 ``ssd_scan`` launches, timed and profiled, decode against prefill,
    ``serve()`` at batch 4, prompt 32, gen 32; ``zamba2-7b`` at full width
    and depth: prefill (1, 4096) with exactly 81 ``ssd_scan`` and 14
@@ -102,6 +102,20 @@ the last line):
    ``--devices 1000000 --groups 8 --devices-per-group 16`` command, fused,
    2 rounds; the smoke configuration with ``--devices 1000`` card vs CPU,
    alone and with the availability, robust and drift flags, and fedavg;
+6e. after the population phase, the tools phase (``tools_phase``): the six
+   Fig. 4 samplers over 10 paper-size instances (M=10, K=33, L_sel=8,
+   n=32, L_rnd=2; brute capped at 100,000 combinations), each one's mean
+   wall ms, divergence / (n·L) and evaluations, ``gbp_cs_sampler`` on the
+   card against the CPU, one ``gbp_cs`` launch a call and one for
+   ``gbp_cs_minimize_batched`` over all 10, GBP-CS warm per call and
+   batched with the ``pinv``'s share; ``cnn.evaluate`` at full width over
+   1,240 test images (6 ``conv_fused`` launches) against the CPU and
+   ``make_eval_fn`` (one pass and batch=310); the full-width CLI with
+   ``--ckpt-dir`` (R=1, T=3), restored on the card and the CPU bit for
+   bit, ``evaluate`` of the restored params equal to the saved ones'; the
+   three example scripts as child processes (``torch_gbp_cs_demo.py``,
+   ``torch_quickstart.py`` at its defaults, ``torch_femnist_e2e.py
+   --rounds 2 --iters 3`` at full width), exit 0 and launch counts held;
 9. one JSON line of kernel results, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -1382,6 +1396,12 @@ DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
                  "avail_rows": "avail_rows_kernel"}
 
 
+# Traced runs of one CLI call at most: the profiler's kernel records may
+# come up short of what executed (one CUDA graph segment's replay was once
+# missing from a full-width trace, the host's counts exact), never over.
+TRACE_ATTEMPTS = 3
+
+
 def device_launches(torch, argv) -> tuple[dict, dict]:
     """The CLI run once under ``torch.profiler``, every launch count set to
     0 just before and read just after: (the wrappers' counts, each
@@ -1415,16 +1435,18 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
     launches twice, plus eval); the capture must count one round's
     launches. The same CLI again under ``torch.profiler``, its counts
     reset too: each kernel's executions on the card, which must be the
-    host loop's launches plus the warm-up round's; these measured counts
-    are the path's ``launches_by_path``. Then, through the library:
-    graph against eager (states bit-equal, records equal), the kernel
-    against its plain version on the path's GBP-CS instances, ms per
-    internal iteration eager and replayed, one traced replay, and the
-    share of an iteration spent on drawing labels and images on the card
-    and on their threefry bits alone. With ``corrupt`` (the robust
-    branch: the CLI's fault mode(s), ``extra`` its aggregator) the CLI run
-    must seat a corrupted member, and the graph and eager runs print their
-    peak device memory."""
+    host loop's launches plus the warm-up round's (the traced run's own
+    wrapper counts, capture and replays held too; a shortfall of profiler
+    records is traced again, at most ``TRACE_ATTEMPTS`` runs, an excess
+    fails); these measured counts are the path's ``launches_by_path``.
+    Then, through the library: graph against eager (states bit-equal,
+    records equal), the kernel against its plain version on the path's
+    GBP-CS instances, ms per internal iteration eager and replayed, one
+    traced replay, and the share of an iteration spent on drawing labels
+    and images on the card and on their threefry bits alone. With
+    ``corrupt`` (the robust branch: the CLI's fault mode(s), ``extra`` its
+    aggregator) the CLI run must seat a corrupted member, and the graph
+    and eager runs print their peak device memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1458,17 +1480,43 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
         fail(f"{label}: the capture counted {rf.captured} for "
              f"{rf.replays} replays, one round of the host loop's being "
              f"{per_round} for {rounds}")
-    traced_calls, run = device_launches(torch, argv)
     expect = {k: v + per_round[k] for k, v in host_expect.items()}
-    if traced_calls != calls or run != expect:
-        fail(f"{label}: traced run: wrapper counts {traced_calls} (expected "
-             f"{calls}), kernel executions on the card {run}, expected the "
-             f"host loop's {host_expect} plus one warm-up round {per_round}")
+    short = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        seen.clear()
+        fedgs.make_fedgs_experiment = spy
+        try:
+            traced_calls, run = device_launches(torch, argv)
+        finally:
+            fedgs.make_fedgs_experiment = make
+        rf_t = seen[0].round_fn
+        if (traced_calls != calls or rf_t.captured != per_round
+                or rf_t.replays != rounds
+                or any(run[k] > expect[k] for k in run)):
+            fail(f"{label}: traced run: wrapper counts {traced_calls} "
+                 f"(expected {calls}), capture {rf_t.captured} for "
+                 f"{rf_t.replays} replays, kernel executions on the card "
+                 f"{run}, expected the host loop's {host_expect} plus one "
+                 f"warm-up round {per_round}")
+        if run == expect:
+            break
+        # every launch and replay was counted on the host, so a kernel
+        # that executed fewer times than that is a record the profiler lost
+        short.append({k: expect[k] - run[k] for k in run if run[k] != expect[k]})
+        print(f"{label}: traced run {attempt}: the profiler reported "
+              f"{short[-1]} fewer kernel executions than the host counted "
+              f"launches", flush=True)
+    else:
+        fail(f"{label}: traced run: in {TRACE_ATTEMPTS} traced runs the "
+             f"kernel executions on the card fell short of the host loop's "
+             f"{host_expect} plus one warm-up round {per_round} by {short}")
+    del rf_t
     print(f"{label}: one round captured in {len(rf.segments.graphs)} graph "
           f"segments around {len(rf.segments.breaks)} eager pinv calls; "
           f"wrapper counts (warm-up round + capture + eval) {counts}; "
-          f"kernel executions on the card, traced: {run} = the host "
-          f"loop's {host_expect} + the warm-up round", flush=True)
+          f"kernel executions on the card, traced (run {attempt} of at most "
+          f"{TRACE_ATTEMPTS}): {run} = the host loop's {host_expect} + the "
+          f"warm-up round", flush=True)
     del seen, rf                  # the CLI run's graph and its memory pool
 
     # graph against eager, and the kernel on the path's GBP-CS instances
@@ -2230,6 +2278,312 @@ def population_phase(torch, dev) -> tuple[dict, dict]:
 
 
 
+# the tools phase: the Fig. 4 samplers, host-batched evaluation,
+# checkpointing and the three example scripts (paper §VII.A, §VI)
+FIG4 = dict(m=10, k=33, l_sel=8, n=32)    # paper §VII.A: L_rnd = 2
+FIG4_KW = {"random": {}, "mc": {"trials": 1000},
+           "brute": {"limit": 100_000}, "bayesian": {"n_init": 5,
+                                                     "n_iter": 25},
+           "ga": {"population": 100, "generations": 100}, "gbp_cs": {}}
+TOOLS_DIR = os.path.join(ROOT, "build", "chip_smoke_tools")
+EVAL_PER_CLASS, EVAL_BATCH = 20, 512        # 1,240 test images
+# runs an example script as __main__ in a child process, then prints that
+# process's kernel launch counts
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "from repro_torch.core import dispatch\n"
+    "print('launch counts: ' + json.dumps(dispatch.launch_counts()))\n")
+
+
+def fig4_instances(m: int, k: int, l_sel: int, n: int, seed: int = 0):
+    """Fig. 4's selection instances, built as the JAX package's
+    ``benchmarks/bench_samplers.py`` builds them: per factory K candidates'
+    multinomial class counts, the target n(L_sel + 2)·P_real less a random
+    pre-sample of 2. Returns [(A (F, K), y, L_sel, n·L)]."""
+    import numpy as np
+    from repro_torch.data import PartitionConfig, make_partition
+    part = make_partition(PartitionConfig(num_factories=m,
+                                          devices_per_factory=k + 2,
+                                          seed=seed))
+    rng = np.random.default_rng(seed)
+    out = []
+    for mi in range(m):
+        probs = part.class_probs[mi].astype(np.float64)
+        probs /= probs.sum(axis=-1, keepdims=True)
+        counts = np.stack([rng.multinomial(n, probs[i])
+                           for i in range(k)]).astype(np.float32)
+        y = (n * (l_sel + 2) * part.p_real).astype(np.float32)
+        pre = counts[rng.choice(k, 2, replace=False)].sum(0)
+        out.append((counts.T, y - pre, l_sel, n * (l_sel + 2)))
+    return out
+
+
+def expect_only(**counts) -> dict:
+    """Every kernel's launch count 0 but those given."""
+    from repro_torch.core import dispatch
+    return {name: counts.get(name, 0) for name in dispatch.KERNELS}
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Median host-clock ms of ``fn()``, the device synchronised at both
+    ends of each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def sampler_phase(torch, dev) -> tuple[dict, dict]:
+    """Fig. 4 on the card: the six samplers over the 10 paper-size
+    instances (brute capped at 100,000 of C(33, 8) ≈ 13.9 M combinations),
+    each sampler's mean wall ms, divergence / (n·L) and evaluations; GBP-CS
+    card vs CPU (masks and iterations equal, distance to 1e-5 relative);
+    the counted run holds one ``gbp_cs`` launch per sampler call and one
+    for ``gbp_cs_minimize_batched`` over all 10; then GBP-CS warm per call
+    and batched, and the ``pinv``'s share of each (host clock,
+    synchronised). Returns (counts, numbers)."""
+    import numpy as np
+    from repro_torch.core import dispatch, gbp_cs, samplers
+    insts = fig4_instances(**FIG4)
+    A0, y0, l0, _ = insts[0]
+    samplers.gbp_cs_sampler(A0, y0, l0, device=dev)     # may build: not timed
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    stats = {}
+    for name, kw in FIG4_KW.items():
+        extra = {"device": dev} if name == "gbp_cs" else {}
+        res = [(samplers.SAMPLERS[name](A, y, l, **kw, **extra), nl)
+               for A, y, l, nl in insts]
+        stats[name] = (1e3 * float(np.mean([r.wall_time_s for r, _ in res])),
+                       float(np.mean([r.distance / nl for r, nl in res])),
+                       float(np.mean([r.evaluations for r, _ in res])),
+                       [r for r, _ in res])
+    A = torch.as_tensor(np.stack([i[0] for i in insts]), device=dev)
+    y = torch.as_tensor(np.stack([i[1] for i in insts]), device=dev)
+    batched = gbp_cs.gbp_cs_minimize_batched(A, y, FIG4["l_sel"])
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    want = expect_only(gbp_cs=len(insts) + 1)
+    if counts != want:
+        fail(f"samplers: launch counts {counts} != {want}")
+    for (Ai, yi, li, _), card in zip(insts, stats["gbp_cs"][3]):
+        ref = samplers.gbp_cs_sampler(Ai, yi, li, device="cpu")
+        if not (np.array_equal(card.x, ref.x)
+                and card.evaluations == ref.evaluations
+                and abs(card.distance - ref.distance)
+                <= 1e-5 * max(1.0, abs(ref.distance))):
+            fail(f"samplers: gbp_cs_sampler on the card ({card.distance}, "
+                 f"{card.evaluations} evaluations) != the CPU's "
+                 f"({ref.distance}, {ref.evaluations})")
+    ref_b = gbp_cs.gbp_cs_minimize_batched(A.cpu(), y.cpu(), FIG4["l_sel"])
+    if not (torch.equal(batched.x.cpu(), ref_b.x)
+            and torch.equal(batched.iterations.cpu(), ref_b.iterations)):
+        fail("samplers: gbp_cs_minimize_batched on the card != the CPU's")
+    call_ms = host_ms(torch, lambda: samplers.gbp_cs_sampler(
+        A0, y0, l0, device=dev), 20)
+    batch_ms = host_ms(torch, lambda: gbp_cs.gbp_cs_minimize_batched(
+        A, y, FIG4["l_sel"]), 20)
+    pinv1_ms = host_ms(torch, lambda: gbp_cs.pinv(A[:1]), 20)
+    pinvb_ms = host_ms(torch, lambda: gbp_cs.pinv(A), 20)
+    print("samplers (Fig. 4: M=10 instances, F=62, K=33, L_sel=8, n=32, "
+          "L_rnd=2; brute capped at 100,000 combinations of C(33, 8); mean "
+          "wall ms, divergence / (n·L), evaluations): " + "; ".join(
+              f"{name} {ms:.3f} ms, {div:.4f}, {ev:.0f}"
+              for name, (ms, div, ev, _) in stats.items()), flush=True)
+    print(f"samplers: gbp_cs_sampler card == CPU on all {len(insts)} "
+          f"instances (masks, iterations; distance to 1e-5); launches "
+          f"{counts['gbp_cs']} (one a call, one batched); GBP-CS warm "
+          f"{call_ms:.4f} ms a call (median of 20, host clock, synchronised; "
+          f"pinv {pinv1_ms:.4f} ms, {100 * pinv1_ms / call_ms:.1f}%), "
+          f"batched over {len(insts)} {batch_ms:.4f} ms (pinv "
+          f"{pinvb_ms:.4f} ms, {100 * pinvb_ms / batch_ms:.1f}%)",
+          flush=True)
+    return counts, dict(
+        fig4={name: dict(ms=ms, divergence=div, evaluations=ev)
+              for name, (ms, div, ev, _) in stats.items()},
+        call_ms=call_ms, batched_ms=batch_ms, pinv_call_ms=pinv1_ms,
+        pinv_batched_ms=pinvb_ms)
+
+
+def evaluate_phase(torch, dev) -> tuple[dict, float]:
+    """``cnn.evaluate`` at full width over 1,240 test images in batches of
+    512: 2 ``conv_fused`` launches a batch (6), loss and accuracy within
+    1e-5 of the CPU's, of ``make_eval_fn`` in one pass and at batch=310;
+    the card's ms (median of 5, host clock, synchronised). Returns
+    (counts, ms)."""
+    from repro_torch import tree
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import dispatch, prng
+    from repro_torch.data import femnist
+    from repro_torch.models import cnn
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
+    tx, ty = femnist.make_test_set(n_per_class=EVAL_PER_CLASS)
+    n = tx.shape[0]
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    card = cnn.evaluate(params, tx, ty, batch=EVAL_BATCH)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    want = expect_only(conv_fused=2 * -(-n // EVAL_BATCH))
+    if counts != want:
+        fail(f"evaluate: launch counts {counts} != {want}")
+    others = {
+        "CPU": cnn.evaluate(tree.map(lambda v: v.cpu(), params), tx, ty,
+                            batch=EVAL_BATCH),
+        "make_eval_fn": tuple(float(v) for v in cnn.make_eval_fn(
+            tx, ty, dev)(params)),
+        "make_eval_fn batch=310": tuple(float(v) for v in cnn.make_eval_fn(
+            tx, ty, dev, batch=310)(params))}
+    for label, (loss, acc) in others.items():
+        if abs(loss - card[0]) > 1e-5 or abs(acc - card[1]) > 1e-5:
+            fail(f"evaluate: the card's (loss, acc) {card} against "
+                 f"{label}'s {(loss, acc)}")
+    ms = host_ms(torch, lambda: cnn.evaluate(params, tx, ty,
+                                             batch=EVAL_BATCH), 5)
+    one_ms = host_ms(torch, lambda: cnn.make_eval_fn(tx, ty, dev)(params), 5)
+    print(f"evaluate: full width, {n} images in batches of {EVAL_BATCH}: "
+          f"loss {card[0]:.6f}, acc {card[1]:.6f}, within 1e-5 of the CPU, "
+          f"make_eval_fn and make_eval_fn(batch=310); conv_fused launches "
+          f"{counts['conv_fused']}; {ms:.3f} ms (make_eval_fn with its "
+          f"copy, one pass: {one_ms:.3f} ms; medians of 5)", flush=True)
+    return counts, ms
+
+
+def checkpoint_phase(torch, dev) -> dict:
+    """The full-width CLI (R = 1, T = 3, eval after the round) with
+    ``--ckpt-dir`` on the card, its counts held as on the main path; the
+    checkpoint restored onto the card and onto the CPU holds the bytes of
+    the params the CLI saved, and ``cnn.evaluate`` of the restored params
+    equals that of the saved ones bit for bit. Returns the CLI's counts."""
+    import shutil
+    from repro_torch import checkpoint, tree
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import prng
+    from repro_torch.data import femnist
+    from repro_torch.models import cnn
+    ck_dir = os.path.join(TOOLS_DIR, "ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    saved, save = {}, checkpoint.save
+
+    def capture(path, params, **kw):
+        saved["params"] = params
+        return save(path, params, **kw)
+
+    checkpoint.save = capture
+    try:
+        _, counts, _ = drive(
+            "checkpoint CLI", main_flags(1, 3, 1) + ["--ckpt-dir", ck_dir],
+            fedgs_expect(1, 3, 1, 1, 0, False), torch)
+    finally:
+        checkpoint.save = save
+    path = checkpoint.latest_step(ck_dir)
+    if path is None or not path.endswith("step_1"):
+        fail(f"checkpoint: no step_1 under {ck_dir}: {path}")
+    like = cnn.init_cnn(prng.PRNGKey(1), femnist_cnn.CONFIG, dev)
+    on_card = checkpoint.restore(path, like)
+    on_cpu = checkpoint.restore(path, tree.map(lambda v: v.cpu(), like))
+    for a, b, c in zip(tree.leaves(saved["params"]), tree.leaves(on_card),
+                       tree.leaves(on_cpu), strict=True):
+        if not (b.device == a.device and c.device.type == "cpu"
+                and torch.equal(a, b) and torch.equal(a.cpu(), c)):
+            fail("checkpoint: a restored leaf differs from the saved one")
+    tx, ty = femnist.make_test_set(n_per_class=EVAL_PER_CLASS)
+    ev_saved = cnn.evaluate(saved["params"], tx, ty)
+    ev_restored = cnn.evaluate(on_card, tx, ty)
+    if ev_saved != ev_restored:
+        fail(f"checkpoint: evaluate of the restored params {ev_restored} "
+             f"!= of the saved {ev_saved}")
+    _, manifest = checkpoint.load(path)
+    print(f"checkpoint: {path} ({manifest['num_leaves']} leaves, "
+          f"{sum(math.prod(s) for s in manifest['shapes'])} parameters, "
+          f"{os.path.getsize(os.path.join(path, 'arrays.npz'))} bytes) "
+          f"restored on the card and the CPU bit for bit; evaluate of the "
+          f"restored params == of the saved ones {ev_restored}", flush=True)
+    return counts
+
+
+def run_example(name: str, args: list, expect: dict, must: tuple = (),
+                never: tuple = ()) -> dict:
+    """``examples/<name>.py`` as a child process (its own launch counts
+    printed after it returns): exit code 0, the counts ``expect``, every
+    line of ``must`` in its output and none of ``never``."""
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, path, *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"example {name}: exit code {out.returncode}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    counts = json.loads(lines[-1].split("launch counts: ", 1)[1])
+    missing = [s for s in must if s not in out.stdout]
+    found = [s for s in never if s in out.stdout]
+    if counts != expect or missing or found:
+        fail(f"example {name}: counts {counts} (want {expect}), missing "
+             f"{missing}, found {found}\n{out.stdout[-3000:]}")
+    print(f"example {name} {' '.join(args)}: exit 0 in {secs:.1f} s, "
+          f"launches {counts}; last lines: {' / '.join(lines[-4:-1])}",
+          flush=True)
+    return counts
+
+
+def examples_phase() -> dict:
+    """The three example scripts on the card, each its own process:
+    the GBP-CS demo as is (one ``gbp_cs`` launch); the quickstart at the
+    JAX example's sizes (M=4, K=12, L=4, T=10, R=8, a GBP-CS run evaluated
+    every 2 rounds over 496 images, then a random-selection run), which
+    must print its closing "closer" line; the end-to-end script at full
+    width (M=10, K=35, L=10) for 2 rounds of 3, evaluated once over 1,240
+    images. Returns each one's counts."""
+    e2e_out = os.path.join(TOOLS_DIR, "femnist_e2e")
+    qs_iters = 10 * 8                       # T·R of each quickstart run
+    return {
+        "examples_demo": run_example(
+            "torch_gbp_cs_demo", [], expect_only(gbp_cs=1),
+            must=("gbp_cs   | mismatch", "brute    | mismatch")),
+        "examples_quickstart": run_example(
+            "torch_quickstart", [],
+            expect_only(gbp_cs=qs_iters,
+                        conv_fused=2 * 2 * qs_iters + 2 * (8 // 2),
+                        agg_weighted=2 * 8),
+            must=("GBP-CS super nodes are closer to the global class "
+                  "distribution",), never=("unexpected!",)),
+        "examples_e2e": run_example(
+            "torch_femnist_e2e", ["--rounds", "2", "--iters", "3", "--out",
+                                  e2e_out],
+            expect_only(gbp_cs=6, conv_fused=2 * 6 + 2 * -(-1240 // 512),
+                        agg_weighted=2),
+            must=("model: paper 4-layer CNN, 6.60M params", "checkpoint: ",
+                  "Prop.4 efficiency condition")),
+    }
+
+
+def tools_phase(torch, dev) -> tuple[dict, dict]:
+    """The FEMNIST trainer's public surface on the card: the Fig. 4
+    samplers (:func:`sampler_phase`), host-batched evaluation
+    (:func:`evaluate_phase`), ``--ckpt-dir`` (:func:`checkpoint_phase`) and
+    the three example scripts (:func:`examples_phase`). Returns (each
+    path's counts, the numbers for the kernel line)."""
+    t0 = time.perf_counter()
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    out, nums = {}, {}
+    out["samplers"], nums["samplers"] = sampler_phase(torch, dev)
+    out["evaluate"], nums["evaluate_ms"] = evaluate_phase(torch, dev)
+    out["ckpt_cli"] = checkpoint_phase(torch, dev)
+    out.update(examples_phase())
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, nums
+
+
 LM_ARCH = "granite-3-2b"
 PREFILL_BATCH, PREFILL_LEN = 2, 4096     # granite's published context
 FLASH_SWEEP = [(1, 4, 4, 256, 64), (2, 8, 2, 128, 32), (1, 4, 1, 256, 128)]
@@ -2540,20 +2894,11 @@ def serve_phase(torch, label, cfg, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def markov_tokens(torch, dev, vocab, shape):
-    """Prefill tokens of ``shape`` and 128 decode tokens from
-    ``MarkovLMStream(vocab, seed=0)``, as the JAX package's LM data."""
-    from repro_torch.data import MarkovLMStream
-    stream = MarkovLMStream(vocab, seed=0)
-    return (torch.as_tensor(stream.sample(*shape), device=dev),
-            torch.as_tensor(stream.sample(1, 128), device=dev),
-            "MarkovLMStream")
-
-
 def random_tokens(torch, dev, vocab, shape):
-    """The same tokens' shapes drawn on the card: the model does the same
-    work for any ids, and a vocab² Markov table costs a minute of host
-    time at zamba2's 32,000."""
+    """Prefill tokens of ``shape`` and 128 decode tokens drawn on the card:
+    the model does the same work for any ids, and ``MarkovLMStream``'s
+    vocab² table costs 20 GB and over a minute of host time at granite's
+    49,155 and mamba2's 50,280."""
     gen = torch.Generator(device=dev).manual_seed(1)
     return (torch.randint(0, vocab, shape, generator=gen, device=dev),
             torch.randint(0, vocab, (1, 128), generator=gen, device=dev),
@@ -2569,10 +2914,8 @@ def lm_path(torch, dev):
 
     cfg = configs.get_config(LM_ARCH)
     fns = build(cfg)
-    t0 = time.perf_counter()
-    toks, dec_toks, _ = markov_tokens(torch, dev, cfg.vocab_size,
-                                      (PREFILL_BATCH, PREFILL_LEN))
-    data_s = time.perf_counter() - t0
+    toks, dec_toks, source = random_tokens(
+        torch, dev, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))
     t0 = time.perf_counter()
     params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -2582,8 +2925,8 @@ def lm_path(torch, dev):
           f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.head_dim}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}), "
           f"{n_par:,} f32 parameters from a CUDA torch.Generator in "
-          f"{init_s:.1f} s; MarkovLMStream tokens {tuple(toks.shape)} in "
-          f"{data_s:.1f} s", flush=True)
+          f"{init_s:.1f} s; {source} tokens {tuple(toks.shape)}",
+          flush=True)
 
     counts = prefill(torch, "lm", cfg, fns, params, toks,
                      {"flash_attention": cfg.num_layers})
@@ -2827,7 +3170,11 @@ def main() -> None:
                check_dirichlet_rows(torch, dev)]
     torch.cuda.synchronize()
 
+    print(f"kernel checks: {time.perf_counter() - t0:.1f} s since the "
+          "start", flush=True)
+
     # each path at full width: R rounds of T iterations, eval every E
+    t_phase = time.perf_counter()
     rounds, iters, every, m = 2, 3, 2, 10
     flags = main_flags(rounds, iters, every)
     main_expect = {"gbp_cs": rounds * iters,
@@ -2885,9 +3232,13 @@ def main() -> None:
     for i, smoke in enumerate(COMPRESS_SMOKE_FLAGS):
         smoke_card_vs_cpu(f"compress path {i + 1}", smoke)
 
+    print(f"host loop paths: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     # fused path (the device-resident engine, --engine fused): one CUDA
     # graph per round at full width, without and with compression, each
     # beside its host loop's counts and ms/iteration; smoke card vs CPU
+    t_phase = time.perf_counter()
     mem0 = torch.cuda.memory_allocated()
     fused_counts = fused_path("fused path", [], {}, main_expect, main_ms,
                               torch, dev)
@@ -2912,8 +3263,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"fused phases: device memory allocated {mem0 / 1e9:.3f} GB "
-          f"before, {torch.cuda.memory_allocated() / 1e9:.3f} GB after",
-          flush=True)
+          f"before, {torch.cuda.memory_allocated() / 1e9:.3f} GB after; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # baselines (the Table II strategies, --strategy): all fourteen at full
     # width on the host loop and the fused engine, launch counts held to
@@ -2942,12 +3293,23 @@ def main() -> None:
     entry["population_peak_bytes"] = {
         f"{e} D={d}": v for (e, d), v in pop_entry["peaks"].items()}
 
+    # the trainer's public surface: the Fig. 4 samplers, host-batched
+    # evaluation, --ckpt-dir and the three example scripts
+    tools_counts, tools_nums = tools_phase(torch, dev)
+    entry = next(k for k in kernels if k["name"] == "gbp_cs")
+    entry["fig4"] = tools_nums["samplers"]
+    entry = next(k for k in kernels if k["name"] == "conv_fused")
+    entry["evaluate_ms"] = tools_nums["evaluate_ms"]
+
     # LM path (the dense-LM serving slice): the kernel at the prefill
     # shape, then the full-width prefill, decode and serve, then the smoke
     # config card vs CPU
+    t_phase = time.perf_counter()
     kernels.append(check_flash_attention(torch, dev))
     lm_counts = lm_path(torch, dev)
     lm_smoke_card_vs_cpu(torch, dev)
+
+    print(f"lm phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # SSM and hybrid paths (the Mamba2 serving slice): the scan kernel at
     # both prefill shapes, then mamba2-780m (one scan per layer) and
@@ -2955,12 +3317,13 @@ def main() -> None:
     # attn_every layers) at full width and depth, mamba2's serve(), and
     # both smoke configs card vs CPU
     from repro_torch import configs
+    t_phase = time.perf_counter()
     kernels.append(check_ssd_scan(torch, dev))
     ssm_cfg, hyb_cfg = configs.get_config(SSM_ARCH), \
         configs.get_config(HYBRID_ARCH)
     ssm_counts = ssm_path(
         torch, dev, SSM_ARCH,
-        markov_tokens(torch, dev, ssm_cfg.vocab_size, SSM_PREFILL),
+        random_tokens(torch, dev, ssm_cfg.vocab_size, SSM_PREFILL),
         {"ssd_scan": ssm_cfg.num_layers})
     serve_phase(torch, SSM_ARCH, ssm_cfg, dev)
     n_seg = -(-hyb_cfg.num_layers // hyb_cfg.attn_every)
@@ -2970,6 +3333,8 @@ def main() -> None:
         {"ssd_scan": hyb_cfg.num_layers, "flash_attention": n_seg})
     for arch in (SSM_ARCH, HYBRID_ARCH):
         lm_smoke_card_vs_cpu(torch, dev, arch, arch)
+    print(f"ssm and hybrid phases: {time.perf_counter() - t_phase:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
 
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
@@ -2989,6 +3354,8 @@ def main() -> None:
                         for p, c in avail_counts.items()})
         by_path.update({p: c.get(k["name"], 0)
                         for p, c in pop_counts.items()})
+        by_path.update({p: c.get(k["name"], 0)
+                        for p, c in tools_counts.items()})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:

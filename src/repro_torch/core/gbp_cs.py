@@ -1,5 +1,6 @@
 """GBP-CS: Gradient-based Binary Permutation Client Selection (paper §V,
-Alg. 2), batched over a leading group axis.
+Alg. 2), batched over a leading group axis (or one instance, as the JAX
+package's ``gbp_cs_minimize`` takes it).
 
     min_x || A x - y ||_2    s.t.  x(i) in {0,1},  sum_i x(i) = L_sel .
 
@@ -88,10 +89,24 @@ def init_zero(A: torch.Tensor, y: torch.Tensor, l_sel: int) -> torch.Tensor:
 
 def gbp_cs_minimize(A: torch.Tensor, y: torch.Tensor, l_sel: int, *,
                     init: str = MPINV, max_iters: int = 64,
-                    keys=None, pinv_fn=None) -> GBPCSResult:
+                    keys=None, key=None, pinv_fn=None) -> GBPCSResult:
     """Run GBP-CS (Alg. 2 lines 2–10) on G instances: A (G, F, K) candidate
     class counts, y (G, F) targets (Eq. 11); ``keys`` (G, 2) feed only the
-    random initializer, ``pinv_fn`` only the mpinv one."""
+    random initializer, ``pinv_fn`` only the mpinv one.
+
+    A 2-D A (F, K) with y (F,) is the JAX package's one-instance call:
+    ``key`` (default ``prng.PRNGKey(0)``) feeds the random initializer, the
+    instance runs as a group of one, and the result drops the group axis
+    (x (K,), 0-d distance and iterations, trace (max_iters + 1,))."""
+    if A.dim() == 2:
+        if keys is not None:
+            raise ValueError("a single GBP-CS instance takes key=, not keys=")
+        key = prng.PRNGKey(0) if key is None else key
+        res = gbp_cs_minimize(A[None], y[None], l_sel, init=init,
+                              max_iters=max_iters,
+                              keys=np.asarray(key, np.uint32)[None],
+                              pinv_fn=pinv_fn)
+        return GBPCSResult(*(v[0] for v in res))
     if init not in INITIALIZERS:
         raise ValueError(f"unknown GBP-CS initializer {init!r} "
                          f"(expected one of {INITIALIZERS})")
@@ -108,3 +123,13 @@ def gbp_cs_minimize(A: torch.Tensor, y: torch.Tensor, l_sel: int, *,
     x, d, iters, trace = dispatch.gbp_cs_loop(A, y, x0.contiguous(),
                                               max_iters)
     return GBPCSResult(x=x, distance=d, iterations=iters, trace=trace)
+
+
+def gbp_cs_minimize_batched(A: torch.Tensor, y: torch.Tensor, l_sel: int, *,
+                            keys=None, **kw) -> GBPCSResult:
+    """A (M, F, K), y (M, F): the JAX package's vmap over instances, with
+    its default keys ``split(PRNGKey(0), M)``; one kernel launch on the
+    card."""
+    if keys is None:
+        keys = prng.split(prng.PRNGKey(0), A.shape[0])
+    return gbp_cs_minimize(A, y, l_sel, keys=keys, **kw)

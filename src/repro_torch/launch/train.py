@@ -94,6 +94,10 @@ devices' Dirichlet rows are drawn on the card each iteration:
 
 ``--engine sharded`` raises for FEDGS (ROADMAP item 17).
 
+``--ckpt-dir DIR`` saves the final global params as ``DIR/step_R`` in the
+JAX CLI's checkpoint format (``checkpoint.save``, the flags under
+``metadata["config"]``), on both engines and for every strategy.
+
 It runs on the GPU, where the GBP-CS loop, both conv layers, the Eq. 4/5
 averages, the fault injection, the robust order statistics, the top-k
 selection (DESIGN.md §18.2), the stochastic int8 quantizer, the drift's
@@ -112,6 +116,7 @@ import sys
 
 import torch
 
+from .. import checkpoint
 from ..configs import femnist_cnn
 from ..core import baselines, fedgs, prng, sync
 from ..data import (AVAILABILITY_SCHEDULES, CORRUPTION_MODES,
@@ -278,6 +283,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--smoke-model", action="store_true",
                     help="reduced CNN for quick runs")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save the final global params there as step_R "
+                         "(the JAX CLI's checkpoint format)")
     ap.add_argument("--log-json", default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda runs the CUDA kernels; cpu their plain "
@@ -343,11 +351,12 @@ def avail_fn_of(args):
         args.seed)
 
 
-def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> None:
+def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> dict:
     """Alg. 1 on the host loop or the fused engine: numpy
     ``FactoryStreams`` of the dense ``part`` on the host loop without a
     drift, else the device sampler over ``pop()``, the population view
-    (dense or lazy), built when first needed."""
+    (dense or lazy), built when first needed. Returns the final global
+    params."""
     fcfg = fedgs.FedGSConfig(
         num_groups=args.groups, devices_per_group=args.devices_per_group,
         num_selected=args.selected, num_presampled=args.presampled,
@@ -378,12 +387,12 @@ def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> None:
         if args.k_pop > args.devices_per_group else None,
         candidate_every=args.reselect_every)
     if args.engine == "fused":
-        fedgs.run_fedgs_fused(params, make_sampler(), p_real, fcfg,
-                              group_loss_fn=cnn.make_group_loss_fn(),
-                              avail_fn=avail_fn_of(args),
-                              corrupt_fn=corrupt_fn, eval_fn=eval_fn,
-                              eval_every=args.eval_every, log_fn=log_fn,
-                              chunk=args.eval_chunk)
+        final, _ = fedgs.run_fedgs_fused(
+            params, make_sampler(), p_real, fcfg,
+            group_loss_fn=cnn.make_group_loss_fn(),
+            avail_fn=avail_fn_of(args), corrupt_fn=corrupt_fn,
+            eval_fn=eval_fn, eval_every=args.eval_every, log_fn=log_fn,
+            chunk=args.eval_chunk)
     else:
         # a drifting environment and the lazy population live on the
         # device stream (pure in (t, id)); the host loop replays it
@@ -392,17 +401,19 @@ def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> None:
                                  seed=args.seed) \
             if drift is None and part is not None else \
             DeviceBackedStreams(make_sampler())
-        fedgs.run_fedgs(params, streams, p_real, fcfg,
-                        group_loss_fn=cnn.make_group_loss_fn(),
-                        avail_fn=avail_fn_of(args),
-                        corrupt_fn=corrupt_fn, eval_fn=eval_fn,
-                        eval_every=args.eval_every, log_fn=log_fn)
+        final, _ = fedgs.run_fedgs(params, streams, p_real, fcfg,
+                                   group_loss_fn=cnn.make_group_loss_fn(),
+                                   avail_fn=avail_fn_of(args),
+                                   corrupt_fn=corrupt_fn, eval_fn=eval_fn,
+                                   eval_every=args.eval_every, log_fn=log_fn)
+    return final
 
 
-def run_strategy(args, pop, params, mcfg, device, eval_fn, log_fn) -> None:
+def run_strategy(args, pop, params, mcfg, device, eval_fn, log_fn) -> dict:
     """A Table II baseline (the JAX CLI's branch): FedGS-only flags warn,
     the clients come from the device pool over ``pop()``, eval sees the
-    global params."""
+    global params. Returns the final global params (without the
+    strategy's extras, as the JAX CLI saves them)."""
     defaults = build_parser()
     for flag in FEDGS_ONLY:
         if getattr(args, flag) != defaults.get_default(flag):
@@ -420,10 +431,11 @@ def run_strategy(args, pop, params, mcfg, device, eval_fn, log_fn) -> None:
                             drift=drift_config(args),
                             iters_per_round=args.iters)
     data = HostClientPool(pool) if args.engine == "host" else pool
-    baselines.run_baseline(model, strategy, data, bcfg,
-                           eval_fn=lambda pe: eval_fn(pe[0]),
-                           eval_every=args.eval_every, params=params,
-                           chunk=args.eval_chunk, log_fn=log_fn)
+    (final, _extras), _ = baselines.run_baseline(
+        model, strategy, data, bcfg, eval_fn=lambda pe: eval_fn(pe[0]),
+        eval_every=args.eval_every, params=params, chunk=args.eval_chunk,
+        log_fn=log_fn)
+    return final
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -459,9 +471,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
         logs_out.append(rec.to_dict())
 
     if args.strategy == "fedgs":
-        run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn)
+        final = run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn)
     else:
-        run_strategy(args, pop, params, mcfg, device, eval_fn, log_fn)
+        final = run_strategy(args, pop, params, mcfg, device, eval_fn,
+                             log_fn)
+    if args.ckpt_dir:
+        path = checkpoint.save(args.ckpt_dir, final, step=args.rounds,
+                               metadata={"config": vars(args)})
+        print(f"checkpoint saved: {path}")
     if args.log_json:
         os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
         with open(args.log_json, "w") as f:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tree
 from ..core import baselines, dispatch, prng
 
 
@@ -130,17 +131,53 @@ def make_group_loss_fn():
     return group_loss
 
 
-def make_eval_fn(images, labels, device: str | torch.device = "cuda"):
+@torch.no_grad()
+def evaluate(params: dict, images, labels, batch: int = 512
+             ) -> tuple[float, float]:
+    """(test_loss, test_accuracy) over a dataset, batched on the host: each
+    batch of at most ``batch`` images is one :func:`apply` (two
+    ``conv_fused`` launches at G = 1 on the card), its summed loss and
+    correct count are f32 on the device, and the sums accumulate as Python
+    floats, divided by n at the end. ``images``/``labels`` are tensors (or
+    arrays) on the params' device or the host; each batch moves to the
+    params' device. For repeated periodic eval prefer :func:`make_eval_fn`,
+    which copies the test set to the device once."""
+    dev = tree.leaves(params)[0].device
+    n = images.shape[0]
+    tot_l, tot_c = 0.0, 0.0
+    for i in range(0, n, batch):
+        xb = torch.as_tensor(images[i:i + batch], dtype=torch.float32,
+                             device=dev)
+        yb = torch.as_tensor(labels[i:i + batch], device=dev).long()
+        logits = apply(params, xb)
+        logp = torch.log_softmax(logits, dim=-1)
+        tot_l += float(-torch.sum(torch.gather(logp, -1, yb[:, None])))
+        tot_c += float(torch.sum(logits.argmax(-1) == yb))
+    return tot_l / n, tot_c / n
+
+
+def make_eval_fn(images, labels, device: str | torch.device = "cuda", *,
+                 batch: int = 0, apply_fn=None):
     """Test-set eval, ``eval_fn(params) -> (loss, accuracy)`` as 0-d
-    tensors. The test set is copied to ``device`` once, here, and
-    evaluated in one forward pass."""
+    tensors. The test set is copied to ``device`` once, here. ``batch`` > 0
+    runs the forward over equal chunks of ``batch`` images (the test-set
+    size must divide by it) to bound peak activation memory; the default
+    evaluates in one forward pass. ``apply_fn(params, x) -> logits``
+    overrides the forward (default: this CNN's :func:`apply`)."""
+    fwd = apply_fn or apply
     tx = torch.as_tensor(np.asarray(images), dtype=torch.float32,
                          device=device)
     ty = torch.as_tensor(np.asarray(labels), device=device).long()
+    n = tx.shape[0]
+    if batch and n % batch:
+        raise ValueError(f"test-set size {n} must divide by batch={batch}")
 
     @torch.no_grad()
     def eval_fn(params):
-        logits = apply(params, tx)
+        if batch:
+            logits = torch.cat([fwd(params, xb) for xb in tx.split(batch)])
+        else:
+            logits = fwd(params, tx)
         logp = torch.log_softmax(logits, dim=-1)
         loss = -torch.mean(torch.gather(logp, -1, ty[:, None]))
         acc = torch.mean((logits.argmax(-1) == ty).float())

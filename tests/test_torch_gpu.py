@@ -752,3 +752,69 @@ def test_hybrid_forward_launch_counts(cuda):
     cache = fns.init_decode_cache(1, 8, device=cuda)
     fns.decode_step(params, cache, toks[:, :1], 0)
     assert dispatch.launch_counts() == counts
+
+
+def test_gbp_cs_sampler_card_matches_cpu(cuda):
+    """The Fig. 4 sampler on the card against the same call on the CPU:
+    masks and iterations equal, distance and trace to 1e-5 relative; one
+    ``gbp_cs`` launch a call, one for a batch of instances."""
+    import numpy as np
+    from repro_torch.core import samplers
+    rng = np.random.default_rng(0)
+    A = rng.integers(0, 6, size=(4, 62, 33)).astype(np.float32)
+    y = (A.sum(-1) * (8 / 33) + rng.random((4, 62))).astype(np.float32)
+    for init in ("mpinv", "zero", "random"):
+        for a, b in zip(A, y):
+            dispatch.reset_launch_counts()
+            out = samplers.gbp_cs_sampler(a, b, 8, init=init, device=cuda)
+            assert dispatch.launch_counts()["gbp_cs"] == 1
+            ref = samplers.gbp_cs_sampler(a, b, 8, init=init, device="cpu")
+            assert (out.x == ref.x).all() and out.evaluations == \
+                ref.evaluations
+            np.testing.assert_allclose(out.trace, ref.trace, rtol=1e-5)
+    dispatch.reset_launch_counts()
+    res = core_gbp.gbp_cs_minimize_batched(torch.from_numpy(A).to(cuda),
+                                           torch.from_numpy(y).to(cuda), 8)
+    assert dispatch.launch_counts()["gbp_cs"] == 1
+    ref = core_gbp.gbp_cs_minimize_batched(torch.from_numpy(A),
+                                           torch.from_numpy(y), 8)
+    assert torch.equal(res.x.cpu(), ref.x)
+    assert torch.equal(res.iterations.cpu(), ref.iterations)
+
+
+def test_evaluate_card_matches_cpu(cuda):
+    """Host-batched eval at width 32/64/256 with a partial last batch:
+    two ``conv_fused`` launches a batch, loss and accuracy to 1e-5 of the
+    CPU's."""
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import prng
+    from repro_torch.data import femnist
+    from repro_torch.models import cnn
+    cfg = femnist_cnn.smoke_config()
+    params = cnn.init_cnn(prng.PRNGKey(0), cfg, cuda)
+    tx, ty = femnist.make_test_set(n_per_class=5)        # 310 images
+    dispatch.reset_launch_counts()
+    out = cnn.evaluate(params, tx, ty, batch=128)
+    assert dispatch.launch_counts()["conv_fused"] == 2 * 3
+    ref = cnn.evaluate(tree.map(lambda v: v.cpu(), params), tx, ty,
+                       batch=128)
+    assert abs(out[0] - ref[0]) <= 1e-5 and abs(out[1] - ref[1]) <= 1e-5
+
+
+def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
+    """A checkpoint of card tensors restores onto the CPU (and back onto
+    the card) bit for bit."""
+    from repro_torch import checkpoint
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {"conv": {"w": torch.randn(5, 5, 1, 8, generator=gen,
+                                        device=cuda),
+                       "b": torch.randn(8, generator=gen, device=cuda)},
+              "step": torch.tensor([3], dtype=torch.int32, device=cuda)}
+    path = checkpoint.save(str(tmp_path), params, step=1)
+    cpu_like = tree.map(lambda v: torch.zeros_like(v, device="cpu"), params)
+    on_cpu = checkpoint.restore(path, cpu_like)
+    on_card = checkpoint.restore(path, params)
+    for a, b, c in zip(tree.leaves(params), tree.leaves(on_cpu),
+                       tree.leaves(on_card), strict=True):
+        assert b.device.type == "cpu" and c.device == a.device
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)

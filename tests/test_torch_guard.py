@@ -23,6 +23,9 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(examples) == 3
+    files += examples
     assert len(files) > 10
     bad = [(str(p.relative_to(REPO)), mod) for p in files
            for mod in _imports(p)
