@@ -53,6 +53,17 @@ the last line):
    member; peak device memory of the graph and eager runs), whose smoke
    configuration, Gaussian noise in the mix, is held card vs CPU plain
    and with ``--compress-int topk:0.1+int8``;
+6b'. sharded path (the group-sharded engine, ``--engine sharded``,
+   DESIGN.md §8) — the CLI at full width (R=2, T=3) without a process
+   group against ``--engine fused``: records bit for bit, the same
+   wrapper counts, and traced, each kernel's executions on the card the
+   host loop's plus the warm-up round's; two gloo ranks on the one card
+   as child processes (five groups each, one CUDA graph a round, R=3)
+   against world 1 through the library (records to 1e-4, params to 1e-5,
+   the ranks equal), each rank's capture one round's ``gbp_cs``,
+   ``conv_fused`` and ``agg_weighted`` launches and T + 2 graph breaks,
+   ms per internal iteration and the collectives' ms per round on each
+   rank; the smoke configuration card vs CPU under ``--engine sharded``;
 6c. baselines (the Table II strategies, ``--strategy``) — each of the
    fourteen through the CLI at full width and the paper's traffic (C = M·L
    = 100 clients a round, S = 10 local steps, n = 32, R = 2, eval at round
@@ -974,14 +985,15 @@ def smoke_card_vs_cpu(label, flags) -> None:
 
 def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
                 corrupt: str | None = None, drift=None, avail=None,
-                population: int | None = None):
+                population: int | None = None, mesh=None):
     """The fused engine at the paper's traffic and full CNN width, through
     the library, with the CLI's fault schedule of mode(s) ``corrupt``, the
     sampler drifting under ``drift`` (a ``DriftConfig``) and the devices'
     availability under ``avail`` (an ``AvailabilityConfig``) if given; over
     a lazy population of ``population`` devices a factory (DESIGN.md §17;
     candidate committees of 35 redrawn at the config's cadence) instead of
-    the dense partition if given: (experiment, sampler)."""
+    the dense partition if given; on ``mesh`` (the sharded engine's, this
+    rank's groups) if given: (experiment, sampler)."""
     from repro_torch.configs import femnist_cnn
     from repro_torch.core import fedgs, prng
     from repro_torch.data import (CorruptionConfig, DeviceStream,
@@ -1012,7 +1024,8 @@ def fused_setup(torch, dev, extra: dict, rounds: int, graph: bool,
     return fedgs.make_fedgs_experiment(
         params, sampler, p_real, cfg,
         group_loss_fn=cnn.make_group_loss_fn(), corrupt_fn=cfn,
-        avail_fn=make_availability_fn(avail, 0), graph=graph), sampler
+        avail_fn=make_availability_fn(avail, 0), mesh=mesh,
+        graph=graph), sampler
 
 
 def fused_rounds(torch, exp, rounds: int) -> tuple[list, list, list]:
@@ -1426,6 +1439,56 @@ def device_launches(torch, argv) -> tuple[dict, dict]:
     return counts, execs
 
 
+def traced_executions(label, argv, calls, per_round, host_expect, rounds,
+                      torch) -> tuple[dict, int]:
+    """The fused (or sharded) CLI ``argv`` under ``torch.profiler``, its
+    counts reset: each kernel's executions on the card, which must be the
+    host loop's ``host_expect`` plus the warm-up round's ``per_round``
+    (the traced run's own wrapper counts ``calls``, capture and replays
+    held too; a shortfall of profiler records is traced again, at most
+    ``TRACE_ATTEMPTS`` runs, an excess fails). Returns (the executions,
+    the attempt that matched)."""
+    from repro_torch.core import fedgs
+
+    seen, make = [], fedgs.make_fedgs_experiment
+
+    def spy(*args, **kw):      # keep the CLI's round function in view
+        seen.append(make(*args, **kw))
+        return seen[-1]
+
+    expect = {k: v + per_round[k] for k, v in host_expect.items()}
+    short = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        seen.clear()
+        fedgs.make_fedgs_experiment = spy
+        try:
+            traced_calls, run = device_launches(torch, argv)
+        finally:
+            fedgs.make_fedgs_experiment = make
+        rf_t = seen[0].round_fn
+        if (traced_calls != calls or rf_t.captured != per_round
+                or rf_t.replays != rounds
+                or any(run[k] > expect[k] for k in run)):
+            fail(f"{label}: traced run: wrapper counts {traced_calls} "
+                 f"(expected {calls}), capture {rf_t.captured} for "
+                 f"{rf_t.replays} replays, kernel executions on the card "
+                 f"{run}, expected the host loop's {host_expect} plus one "
+                 f"warm-up round {per_round}")
+        if run == expect:
+            return run, attempt
+        # every launch and replay was counted on the host, so a kernel
+        # that executed fewer times than that is a record the profiler lost
+        short.append({k: expect[k] - run[k] for k in run if run[k] != expect[k]})
+        print(f"{label}: traced run {attempt}: the profiler reported "
+              f"{short[-1]} fewer kernel executions than the host counted "
+              f"launches", flush=True)
+        del rf_t
+        seen.clear()
+    fail(f"{label}: traced run: in {TRACE_ATTEMPTS} traced runs the "
+         f"kernel executions on the card fell short of the host loop's "
+         f"{host_expect} plus one warm-up round {per_round} by {short}")
+
+
 def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
                corrupt: str | None = None):
     """``--engine fused`` at full width (R=2, T=3). The CLI driven with the
@@ -1480,37 +1543,8 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
         fail(f"{label}: the capture counted {rf.captured} for "
              f"{rf.replays} replays, one round of the host loop's being "
              f"{per_round} for {rounds}")
-    expect = {k: v + per_round[k] for k, v in host_expect.items()}
-    short = []
-    for attempt in range(1, TRACE_ATTEMPTS + 1):
-        seen.clear()
-        fedgs.make_fedgs_experiment = spy
-        try:
-            traced_calls, run = device_launches(torch, argv)
-        finally:
-            fedgs.make_fedgs_experiment = make
-        rf_t = seen[0].round_fn
-        if (traced_calls != calls or rf_t.captured != per_round
-                or rf_t.replays != rounds
-                or any(run[k] > expect[k] for k in run)):
-            fail(f"{label}: traced run: wrapper counts {traced_calls} "
-                 f"(expected {calls}), capture {rf_t.captured} for "
-                 f"{rf_t.replays} replays, kernel executions on the card "
-                 f"{run}, expected the host loop's {host_expect} plus one "
-                 f"warm-up round {per_round}")
-        if run == expect:
-            break
-        # every launch and replay was counted on the host, so a kernel
-        # that executed fewer times than that is a record the profiler lost
-        short.append({k: expect[k] - run[k] for k in run if run[k] != expect[k]})
-        print(f"{label}: traced run {attempt}: the profiler reported "
-              f"{short[-1]} fewer kernel executions than the host counted "
-              f"launches", flush=True)
-    else:
-        fail(f"{label}: traced run: in {TRACE_ATTEMPTS} traced runs the "
-             f"kernel executions on the card fell short of the host loop's "
-             f"{host_expect} plus one warm-up round {per_round} by {short}")
-    del rf_t
+    run, attempt = traced_executions(label, argv, calls, per_round,
+                                     host_expect, rounds, torch)
     print(f"{label}: one round captured in {len(rf.segments.graphs)} graph "
           f"segments around {len(rf.segments.breaks)} eager pinv calls; "
           f"wrapper counts (warm-up round + capture + eval) {counts}; "
@@ -1626,6 +1660,228 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
     del runs, g_state, e_state, state
     torch.cuda.empty_cache()
     return run
+
+
+# ---------------------------------------------------------------- sharded
+# The group-sharded engine (--engine sharded, DESIGN.md §8): world 1 in this
+# process, and two gloo ranks on the one card as child processes (NCCL
+# refuses two ranks on one device), five groups each.
+SHARDED_ROUNDS = 3
+SHARDED_WORLD = 2
+SHARDED_DIR = os.path.join(ROOT, "build", "chip_smoke_sharded")
+SHARDED_TIMEOUT = 300          # seconds the two ranks may take
+
+
+def sharded_rounds(torch, dev, mesh, rounds: int) -> tuple[dict, list]:
+    """The fused engine at full width on ``mesh`` (None: unsharded), one
+    CUDA graph per round (after the eager warm-up and the capture of round
+    0), ``rounds`` rounds of T = 3 one by one, synchronised, every
+    ``torch.distributed.all_reduce`` timed on the host clock with the
+    device synchronised at both ends: (summary, global params' leaves on
+    the host). The summary holds the records' metrics, seconds per round,
+    the collectives' ms and count per round, the graph's segments and
+    breaks, the capture's counts and the wrappers' (warm-up + capture)."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core import dispatch
+
+    times = []
+    all_reduce = dist.all_reduce
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(tensor, *args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kw)
+        sync()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    dist.all_reduce = timed
+    try:
+        dispatch.reset_launch_counts()
+        exp, _ = fused_setup(torch, dev, {}, rounds, dev.type == "cuda",
+                             mesh=mesh)
+        state, secs, mets, coll_ms, coll_n = exp.init_state, [], [], [], []
+        for r in range(rounds):
+            n0 = len(times)
+            sync()
+            t0 = time.perf_counter()
+            state, m = exp.round_fn(state, r)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            coll_ms.append(1e3 * sum(times[n0:]))
+            coll_n.append(len(times) - n0)
+            mets.append({k: float(v) for k, v in m.items()})
+        counts = dispatch.launch_counts()
+    finally:
+        dist.all_reduce = all_reduce
+    segs = exp.round_fn.segments          # None in an eager run
+    params = [leaf.cpu().numpy() for leaf in tree.leaves(exp.params_fn(state))]
+    return dict(records=mets, secs=secs, coll_ms=coll_ms, coll_n=coll_n,
+                segments=len(segs.graphs) if segs else 0,
+                breaks=len(segs.breaks) if segs else 0,
+                captured=exp.round_fn.captured, counts=counts), params
+
+
+def sharded_rank(rank: int, world: int, out: str, device: str) -> None:
+    """One rank of the two-rank run (a child process): gloo over a file
+    store in ``out``, the sharded engine on this rank's five groups
+    (:func:`sharded_rounds`) on ``device``; its summary and params go to
+    ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(out, 'store')}",
+            rank=rank, world_size=world)
+        from repro_torch.core import fedgs
+        mesh = fedgs.make_group_mesh(10)
+        summary, params = sharded_rounds(torch, torch.device(device), mesh,
+                                         SHARDED_ROUNDS)
+        summary["mesh"] = [mesh.size, mesh.rank, mesh.world]
+        summary["backend"] = dist.get_backend()
+        dist.destroy_process_group()
+        np.savez(os.path.join(out, f"params_{rank}.npz"), *params)
+        with open(os.path.join(out, f"rank_{rank}.json"), "w") as f:
+            json.dump(summary, f)
+    except BaseException:
+        import traceback
+        with open(os.path.join(out, f"error_{rank}"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def sharded_two_ranks(device: str = "cuda") -> list[tuple[dict, list]]:
+    """:func:`sharded_rank` on ``SHARDED_WORLD`` child processes (spawned,
+    so each makes its own CUDA context on the one card), joined with a
+    time limit and killed past it: each rank's (summary, params)."""
+    import multiprocessing
+
+    import numpy as np
+    if os.path.isdir(SHARDED_DIR):
+        for name in os.listdir(SHARDED_DIR):
+            os.remove(os.path.join(SHARDED_DIR, name))
+    os.makedirs(SHARDED_DIR, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(rank, SHARDED_WORLD, SHARDED_DIR, device))
+             for rank in range(SHARDED_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SHARDED_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [open(os.path.join(SHARDED_DIR, n)).read()
+              for n in sorted(os.listdir(SHARDED_DIR))
+              if n.startswith("error")]
+    if errors or any(p.exitcode for p in procs):
+        fail(f"sharded path: two ranks: exit codes "
+             f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    out = []
+    for rank in range(SHARDED_WORLD):
+        with open(os.path.join(SHARDED_DIR, f"rank_{rank}.json")) as f:
+            summary = json.load(f)
+        z = np.load(os.path.join(SHARDED_DIR, f"params_{rank}.npz"))
+        out.append((summary, [z[f"arr_{i}"] for i in range(len(z.files))]))
+    return out
+
+
+def sharded_phase(torch, dev, host_expect) -> dict:
+    """The group-sharded engine (DESIGN.md §8) at the paper's traffic and
+    full width: the CLI with ``--engine sharded`` at world 1 (no process
+    group) against ``--engine fused`` (R=2, T=3): records bit for bit and
+    the same wrapper counts, then traced: each kernel's executions on the
+    card the host loop's ``host_expect`` plus the warm-up round's; two
+    gloo ranks on the one card (five groups each, graphed, R=3) against
+    world 1 through the library: rank 0's records within 1e-4 and params
+    within 1e-5, rank 1's equal to rank 0's, every rank's capture one
+    round of ``gbp_cs``, ``conv_fused`` and ``agg_weighted`` launches
+    over its five groups, T + 2 graph breaks (T ``pinv`` calls, the
+    metrics' SUM, the Eq. 5 average); ms per internal iteration replayed
+    and the collectives' ms per round on each rank; the smoke
+    configuration card vs CPU under ``--engine sharded``. Returns
+    {path: launches}: the traced executions of the CLI and each rank's
+    wrapper counts."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rounds, iters, every = 2, 3, 2
+    base = main_flags(rounds, iters, every)
+    evals = {"conv_fused": 2 * (rounds // every)}
+    per_round = {k: (v - evals.get(k, 0)) // rounds
+                 for k, v in host_expect.items()}
+    calls = {k: 2 * v + evals.get(k, 0) for k, v in per_round.items()}
+    fused_logs, _, _ = drive("sharded path: --engine fused",
+                             base + ["--engine", "fused"], calls, torch)
+    logs, counts, cli_ms = drive("sharded path: --engine sharded",
+                                 base + ["--engine", "sharded"], calls, torch)
+    if logs != fused_logs:
+        fail(f"sharded path: world 1 records differ from --engine fused's:"
+             f"\n{logs}\n{fused_logs}")
+    run, attempt = traced_executions("sharded path",
+                                     base + ["--engine", "sharded"], calls,
+                                     per_round, host_expect, rounds, torch)
+    print(f"sharded path: world 1 == --engine fused bit for bit (records), "
+          f"wrapper counts {counts}; kernel executions on the card, traced "
+          f"(run {attempt}): {run}; the CLI's last round with eval "
+          f"{cli_ms:.1f} ms per internal iteration", flush=True)
+
+    one, one_params = sharded_rounds(torch, dev, None, SHARDED_ROUNDS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = sharded_two_ranks(dev.type)
+    rec_worst = par_worst = 0.0
+    for rank, (summary, params) in enumerate(ranks):
+        if summary["mesh"] != [SHARDED_WORLD, rank, SHARDED_WORLD]:
+            fail(f"sharded path: rank {rank}'s mesh {summary['mesh']}")
+        # a rank launches each kernel as often as one rank of all groups
+        if summary["captured"] != per_round or \
+                summary["counts"] != {k: 2 * v for k, v in per_round.items()}:
+            fail(f"sharded path: rank {rank} captured {summary['captured']}"
+                 f" (wrappers {summary['counts']}), one round over its "
+                 f"groups being {per_round}")
+        # round 0 also runs the eager warm-up round before the capture
+        if summary["breaks"] != iters + 2 or \
+                summary["coll_n"] != [4] + [2] * (SHARDED_ROUNDS - 1):
+            fail(f"sharded path: rank {rank}: {summary['breaks']} graph "
+                 f"breaks, collectives per round {summary['coll_n']}")
+        for a, b in zip(one["records"], summary["records"], strict=True):
+            for k, v in a.items():
+                rec_worst = max(rec_worst, abs(b[k] - v) / max(1.0, abs(v)))
+        for a, b in zip(one_params, params, strict=True):
+            par_worst = max(par_worst, float(np.abs(a - b).max()))
+    if rec_worst > 1e-4 or par_worst > 1e-5:
+        fail(f"sharded path: two ranks against world 1: records {rec_worst}"
+             f", params {par_worst}")
+    r0, r1 = ranks[0][0], ranks[1][0]
+    if r0["records"] != r1["records"] or not all(
+            np.array_equal(a, b) for a, b in zip(ranks[0][1], ranks[1][1])):
+        fail("sharded path: the two ranks' records or params differ")
+    ms = lambda sm: [round(1e3 * t / iters, 2) for t in sm["secs"]]
+    print(f"sharded path: two gloo ranks on one card ({r0['backend']}, "
+          f"5 groups each, {SHARDED_ROUNDS} rounds x {iters} iterations, "
+          f"one graph a round in {r0['segments']} segments around "
+          f"{r0['breaks']} breaks): records within {rec_worst:.3g} and "
+          f"params within {par_worst:.3g} of world 1, the ranks equal; ms "
+          f"per internal iteration by round (round 0 warm-up + capture): "
+          f"world 1 {ms(one)}, rank 0 {ms(r0)}, rank 1 {ms(r1)}; "
+          f"collectives ms per round (2 all_reduce a round: metrics, the "
+          f"Eq. 5 average of 26.4 MB; round 0 also the warm-up's 2): rank 0 "
+          f"{[round(t, 2) for t in r0['coll_ms']]}, rank 1 "
+          f"{[round(t, 2) for t in r1['coll_ms']]}; wrapper counts rank 0 "
+          f"{r0['counts']}, rank 1 {r1['counts']}", flush=True)
+    smoke_card_vs_cpu("sharded path", ["--engine", "sharded"])
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"sharded": run, "sharded_rank0": r0["counts"],
+            "sharded_rank1": r1["counts"]}
 
 
 # ------------------------------------------------------------------ drift
@@ -3266,6 +3522,10 @@ def main() -> None:
           f"before, {torch.cuda.memory_allocated() / 1e9:.3f} GB after; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # the group-sharded engine (--engine sharded): world 1 == fused, two
+    # gloo ranks on the one card against world 1, smoke card vs CPU
+    sharded_counts = sharded_phase(torch, dev, main_expect)
+
     # baselines (the Table II strategies, --strategy): all fourteen at full
     # width on the host loop and the fused engine, launch counts held to
     # their formula, graph == eager, five card vs CPU, and the two kernels
@@ -3348,6 +3608,8 @@ def main() -> None:
                    "hybrid": hybrid_counts[k["name"]],
                    "baselines_host": base_host[k["name"]],
                    "baselines_fused": base_fused[k["name"]]}
+        by_path.update({p: c.get(k["name"], 0)
+                        for p, c in sharded_counts.items()})
         by_path.update({p: c.get(k["name"], 0)
                         for p, c in drift_counts.items()})
         by_path.update({p: c.get(k["name"], 0)

@@ -43,7 +43,12 @@ round) makes devices drop out and straggle, selection sees the up-mask
 γ^staleness through each group's carried gradient ḡ (``'bounded_async'``,
 :func:`_avail_weights`), composed with the robust layer and the
 compression as in the JAX package (:func:`_train_iteration`, shared by
-both engines). The sharded engine is not part of the port yet.
+both engines). The group-sharded engine (DESIGN.md §8) runs the same
+round on each ``torch.distributed`` rank for its M/n groups
+(:func:`make_group_mesh`, ``mesh=``): the keys fanned out over all M and
+sliced, the shards meeting only in collectives (the re-trigger of a
+cadence, the round's metrics and the Eq. 5 average), each an eager break
+between CUDA graph segments.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree
 from ..kernels import agg_weighted, robust_agg
@@ -800,11 +806,25 @@ def run_fedgs(params, streams, p_real, cfg: FedGSConfig, *,
 # read, so on the card it is captured once as a CUDA graph and replayed.
 # ---------------------------------------------------------------------------
 
-def _fused_unported(mesh) -> None:
-    """Raise for the fused-round branches the port does not have yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the group-sharded engine (DESIGN.md §8) is ROADMAP item 17")
+def make_group_mesh(num_groups: int | None = None) -> sync.GroupMesh:
+    """The 'groups' mesh of the sharded engine (DESIGN.md §8) over the
+    ranks of the initialised ``torch.distributed`` world: each shard
+    simulates M/n super nodes, n the world size when ``num_groups`` divides
+    over it, else its largest divisor below the world size, as the JAX
+    package picks it. Ranks at or past n sit out (``GroupMesh.active``):
+    their ``run_fedgs_fused`` returns at once, before any collective. All
+    ranks must call it (a mesh smaller than the world is a new process
+    group). Without an initialised process group it is the one-shard mesh:
+    the transparent fallback, with no collective at all."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return sync.GroupMesh()
+    world, n = dist.get_world_size(), dist.get_world_size()
+    if num_groups is not None:
+        while num_groups % n:
+            n -= 1
+    group = None if n in (1, world) else dist.new_group(ranks=list(range(n)))
+    return sync.GroupMesh(size=n, rank=dist.get_rank(), world=world,
+                          group=group)
 
 
 def init_selection_state(cfg: FedGSConfig, params, *,
@@ -855,11 +875,20 @@ class RoundKeys:
     ``compress_ext`` the round's Eq. 5 keys (M, 2). :meth:`host` advances
     the key chain exactly as the host loop does (the traces hash their own
     keys and leave the chain alone); :meth:`views` names the parts of a
-    buffer."""
+    buffer.
+
+    ``rows`` (a slice of the M groups; all of them by default) stages one
+    shard's rows only (DESIGN.md §8): the fan-outs over groups are split
+    over all M and sliced, and the sampler's keys and seats and the traces
+    are taken at the shard's global group ids, so a group's material does
+    not depend on the shard count."""
 
     def __init__(self, cfg: FedGSConfig, sampler, corrupt_fn=None,
-                 num_leaves: int = 0, avail: bool = False):
-        t, m, k = cfg.iters_per_round, cfg.num_groups, cfg.devices_per_group
+                 num_leaves: int = 0, avail: bool = False,
+                 rows: slice | None = None):
+        t, k = cfg.iters_per_round, cfg.devices_per_group
+        self.gids = np.arange(cfg.num_groups)[rows or slice(None)]
+        m = len(self.gids)
         self.cfg, self.sampler = cfg, sampler
         self.corrupt_fn, self.num_leaves = corrupt_fn, num_leaves
         self.spec_int = compress.parse_compress(cfg.compress_int)
@@ -884,21 +913,21 @@ class RoundKeys:
     def host(self, key: np.ndarray, t0: int) -> tuple[np.ndarray, np.ndarray]:
         """(key', flat int64 material) of the round whose first iteration
         is ``t0``."""
-        cfg = self.cfg
+        cfg, gids = self.cfg, self.gids
         m, k = cfg.num_groups, cfg.devices_per_group
         parts = {name: [] for name in self.shapes}
         for i in range(cfg.iters_per_round):
             key, sub = prng.split(key)
-            perm, opt = selection.presample_keys(prng.split(sub, m), k,
+            perm, opt = selection.presample_keys(prng.split(sub, m)[gids], k,
                                                  cfg.selection)
             parts["perm"].append(perm)
             parts["opt"].append(opt)
-            parts["data"].append(self.sampler.keys(t0 + i, np.arange(m)))
-            ids = self.sampler.device_ids(t0 + i, np.arange(m))
+            parts["data"].append(self.sampler.keys(t0 + i, gids))
+            ids = self.sampler.device_ids(t0 + i, gids)
             parts["seats"].append(self.sampler.stream.stage(ids))
             if self.spec_int is not None:
                 parts["cint"].append(prng.split(prng.fold_in(
-                    sub, compress.FOLD_COMPRESS), m))
+                    sub, compress.FOLD_COMPRESS), m)[gids])
             if self.corrupt_fn is not None:
                 code, noise = self.corrupt_fn.trace(t0 + i, ids,
                                                     self.num_leaves)
@@ -911,7 +940,7 @@ class RoundKeys:
                 parts["t"].append(t0 + i)
         if self.spec_ext is not None:
             key, esub = prng.split(key)
-            parts["cext"] = prng.split(esub, m)
+            parts["cext"] = prng.split(esub, m)[gids]
         flat = np.concatenate([np.asarray(parts[name], np.int64).reshape(-1)
                                for name in self.shapes])
         return key, flat
@@ -934,10 +963,11 @@ def round_pattern(cfg: FedGSConfig, r: int) -> tuple[bool, ...]:
 
 
 def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
-                    avail_fn=None, corrupt_fn=None, mesh=None):
+                    avail_fn=None, corrupt_fn=None,
+                    mesh: sync.GroupMesh | None = None):
     """The one-round body of the device-resident engine:
-    ``body(gp, sel, keys, p_real, pinv_fn=None, pattern=None) -> (gp',
-    sel', metrics)``.
+    ``body(gp, sel, keys, p_real, pinv_fn=None, pattern=None, eager=None)
+    -> (gp', sel', metrics)``.
 
     ``keys`` are :meth:`RoundKeys.views` of the round's staged material and
     ``sel`` the carried state of :func:`init_selection_state`. Each of the
@@ -979,10 +1009,24 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
     :data:`ROBUST_METRICS`, with availability its :data:`AVAIL_METRICS`),
     and the round's ``bytes_ext`` (and ``compress_error_ext``). Nothing
     reads back to the host or copies from it; ``pinv_fn`` is handed to the
-    mpinv initializer (a captured round breaks its graph there). ``mesh``
-    raises ``NotImplementedError``."""
-    _fused_unported(mesh)
+    mpinv initializer (a captured round breaks its graph there).
+
+    With a ``mesh`` of n > 1 shards (:func:`make_group_mesh`, DESIGN.md
+    §8) the body is one rank's part of the round: ``gp`` and ``sel`` hold
+    its M/n rows and ``keys`` its rows of the staged material
+    (:class:`RoundKeys` ``rows``), and the shards meet in three
+    collectives, each through ``eager`` (``fn, x -> fn(x)``: a break
+    between graph segments in a captured round): a keep iteration's
+    re-trigger is OR-ed over the shards (a MAX), so that every shard takes
+    the same branch; the (T,) metrics are combined once a round as the JAX
+    package combines them per iteration (:func:`_combine_shards`); and the
+    Eq. 5 epilogue is the mean of the local means
+    (``sync.external_sync_grouped``), broadcast to the M/n rows. Without a
+    mesh, or with one shard, no collective is issued."""
     m, k, l = cfg.num_groups, cfg.devices_per_group, cfg.num_selected
+    rows = slice(0, m) if mesh is None else mesh.rows(m)   # "must divide"
+    m_local = rows.stop - rows.start
+    shards = None if mesh is None or mesh.size == 1 else mesh
     robust = _check_run(cfg, avail_fn, corrupt_fn)
     bounded = cfg.sync == "bounded_async"
     quarantined = corrupt_fn is not None and cfg.quarantine_limit > 0
@@ -990,7 +1034,7 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
                                     trim=cfg.robust_trim) if robust else None
     spec_int = compress.parse_compress(cfg.compress_int)
     spec_ext = compress.parse_compress(cfg.compress_ext)
-    gids = torch.arange(m, device=sampler.device)
+    gids = torch.arange(rows.start, rows.stop, device=sampler.device)
     names = ("loss", "divergence", "group_discrepancy",
              "selection_distance") + (ROBUST_METRICS if robust else ()) + (
         AVAIL_METRICS[:4 if bounded else 2] if avail_fn is not None
@@ -1006,17 +1050,19 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
         if noise is not None:
             s = noise.shape[-2]
             noise = noise[i].gather(1, idx[..., None, None].expand(
-                m, l, s, 2))
+                m_local, l, s, 2))
         return code, noise
 
-    def body(gp, sel, keys, p_real, pinv_fn=None, pattern=None):
+    def body(gp, sel, keys, p_real, pinv_fn=None, pattern=None, eager=None):
         pattern = pattern or (True,) * cfg.iters_per_round
+        reduce = None if shards is None else lambda x, op: sync.all_reduce(
+            x, op, shards.group, eager=eager)
         n_par = sum(leaf[0].numel() for leaf in tree.leaves(gp))
         payload_int = compress.payload_bytes(n_par, spec_int)
         gp_round0 = gp
         mask, dist, carry, e_ext = _unpack_state(sel, cfg, quarantined)
         rows = {name: [] for name in names}
-        bytes_int = []
+        uploads = []
         cerrs, resel = [], []
         for i in range(cfg.iters_per_round):
             seats = keys["seats"][i]
@@ -1025,7 +1071,7 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
                                     else None, seats)
             counts = sampler.counts(labels)
             avail = None if avail_fn is None else avail_fn(
-                keys["t"][i], seats[..., 0].reshape(-1))[0].view(m, k)
+                keys["t"][i], seats[..., 0].reshape(-1))[0].view(m_local, k)
             sel_avail = avail if cfg.avail_selection == "aware" else None
             if quarantined:
                 ok = selection.quarantine_mask(carry.quar,
@@ -1036,6 +1082,8 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
                 do = selection.reselect_trigger(
                     torch.zeros((), dtype=torch.bool, device=gids.device),
                     mask, sel_avail, l)
+                if reduce is not None:   # one shard's dark seat: all rebuild
+                    do = reduce(do.float().reshape(1), "max")[0] > 0
             mask, div, dist = selection.select_or_keep(
                 do, (keys["perm"][i], keys["opt"][i]), counts, p_real, l,
                 cfg.num_presampled, prev_mask=mask, prev_distance=dist,
@@ -1053,7 +1101,7 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
             for name in names[4:]:
                 rows[name].append(im[name])
             if per_seat:
-                bytes_int.append(2.0 * payload_int * im["uploads"])
+                uploads.append(im["uploads"])
             if tx is not None:
                 cerrs.append(errs.mean())
             rows["loss"].append(loss.mean())
@@ -1063,8 +1111,8 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
             rows["selection_distance"].append(dist.mean())
         t = cfg.iters_per_round
         mets = {name: torch.stack(v) for name, v in rows.items()}
-        mets["bytes_int"] = torch.stack(bytes_int) if per_seat else \
-            torch.full((t,), 2.0 * payload_int * m * l, device=gids.device)
+        if per_seat:
+            mets["uploads"] = torch.stack(uploads)
         mets["reselected"] = torch.ones(t, device=gids.device)
         for i, do in enumerate(resel):      # device ops only (a capture)
             if isinstance(do, torch.Tensor):
@@ -1084,12 +1132,46 @@ def make_round_body(group_loss_fn, cfg: FedGSConfig, sampler, *,
             mets["compress_error_ext"] = err.mean()
         if quarantined:
             new_sel += (carry.quar,)
+        if reduce is not None:
+            mets = _combine_shards(mets, reduce, shards.size)
+        # the byte ledger counts all M·L seats: the summed uploads, or the
+        # constant global m·l
+        mets["bytes_int"] = 2.0 * payload_int * mets.pop("uploads") \
+            if per_seat else torch.full((t,), 2.0 * payload_int * m * l,
+                                        device=gids.device)
         mets["bytes_ext"] = torch.full(
             (), 2.0 * compress.payload_bytes(n_par, spec_ext) * m,
             device=gids.device)
-        return external_sync_and_broadcast(gp), new_sel, mets
+        g = sync.external_sync_grouped(gp, shards, eager=eager)
+        return replicate_for_groups(g, m_local), new_sel, mets
 
     return body
+
+
+SUMMED = ("dark_selected", "corrupted_selected", "rollbacks", "uploads")
+MAXED = ("staleness_max",)
+
+
+def _combine_shards(mets: dict, reduce: Callable, n: int) -> dict:
+    """One round's shard-local metrics → the mesh's, as the JAX package
+    combines each iteration's (its ``psum``/``pmean``/``pmax`` over
+    'groups'): :data:`SUMMED` summed over the shards, :data:`MAXED` maxed,
+    the rest (loss, divergence, discrepancy, distance, participation, mean
+    staleness, clipped fraction, residual, both compression errors)
+    averaged; ``reselected`` is the same on every shard and stays. One
+    packed SUM and, under ``bounded_async``, one MAX ``reduce(x, op)``."""
+    summed = [name for name in mets if name not in MAXED + ("reselected",)]
+    total = reduce(torch.cat([mets[name].reshape(-1) for name in summed]),
+                   "sum")
+    out, off = dict(mets), 0
+    for name in summed:
+        v = total[off:off + mets[name].numel()].view(mets[name].shape)
+        out[name] = v if name in SUMMED else v / n
+        off += mets[name].numel()
+    for name in MAXED:
+        if name in mets:
+            out[name] = reduce(mets[name], "max")
+    return out
 
 
 def _round_record_metrics(mets: dict, cfg: FedGSConfig) -> dict:
@@ -1137,7 +1219,8 @@ class FusedRound(engine.GraphedRound):
     iteration between two graph segments. Each round's
     :func:`round_pattern` is its variant: one capture per pattern of
     rebuild and keep iterations, at its first use (a keep iteration has no
-    pinv, so no break)."""
+    pinv, so no break). On a mesh of more than one shard each collective
+    of the body is such a break too: NCCL's and gloo's, never captured."""
 
     def __init__(self, body, layout: RoundKeys, cfg: FedGSConfig, p_real,
                  device, graph: bool):
@@ -1147,10 +1230,13 @@ class FusedRound(engine.GraphedRound):
         self.keys = layout.views(self.inputs)
 
     def step(self, carry, inputs, segs, variant):
-        pinv_fn = None if segs is None else lambda A: segs.eager(
-            gbp_cs.pinv, A, A.shape[:-2] + (A.shape[-1], A.shape[-2]))
+        pinv_fn = eager = None
+        if segs is not None:
+            pinv_fn = lambda A: segs.eager(
+                gbp_cs.pinv, A, A.shape[:-2] + (A.shape[-1], A.shape[-2]))
+            eager = lambda fn, x: segs.eager(fn, x, x.shape)
         gp, sel, mets = self.body(*carry, self.keys, self.p_real, pinv_fn,
-                                  variant)
+                                  variant, eager)
         return (gp, sel), _round_record_metrics(mets, self.cfg)
 
     def __call__(self, state, r: int):
@@ -1163,15 +1249,25 @@ class FusedRound(engine.GraphedRound):
 
 def make_fedgs_experiment(params, sampler, p_real, cfg: FedGSConfig, *,
                           group_loss_fn, avail_fn=None, corrupt_fn=None,
-                          mesh=None, eval_fn: Callable | None = None,
+                          mesh: sync.GroupMesh | None = None,
+                          eval_fn: Callable | None = None,
                           graph: bool | None = None):
     """FEDGS as an ``engine.Experiment`` (DESIGN.md §12): state is (group
     params (M, ...), carried selection state, threefry key); one round is
     :func:`make_round_body` at ``t0 = r·T`` through a :class:`FusedRound`.
     ``graph`` (default: whether the params lie on a card) captures the
-    round as a CUDA graph; the CPU always runs it eagerly."""
+    round as a CUDA graph; the CPU always runs it eagerly. On a ``mesh``
+    (DESIGN.md §8) the state holds this rank's M/n rows of the full-M
+    carry (:func:`init_selection_state`'s rows [rank·M/n, (rank+1)·M/n),
+    as the JAX package shards every leaf), the key chain whole; every rank
+    ends a round with the same global params, so ``params_fn`` (row 0)
+    and the eval agree on every rank. A rank outside the mesh raises."""
+    if mesh is not None and not mesh.active:
+        raise ValueError(f"rank {mesh.rank} sits outside the {mesh.size}-"
+                         "shard 'groups' mesh")
     body = make_round_body(group_loss_fn, cfg, sampler, avail_fn=avail_fn,
                            corrupt_fn=corrupt_fn, mesh=mesh)
+    rows = slice(None) if mesh is None else mesh.rows(cfg.num_groups)
     dev = tree.leaves(params)[0].device
     quarantine = corrupt_fn is not None and cfg.quarantine_limit > 0
     if graph is None:
@@ -1181,10 +1277,11 @@ def make_fedgs_experiment(params, sampler, p_real, cfg: FedGSConfig, *,
     p_real = torch.as_tensor(np.asarray(p_real), dtype=torch.float32,
                              device=dev)
     layout = RoundKeys(cfg, sampler, corrupt_fn, len(tree.leaves(params)),
-                       avail=avail_fn is not None)
+                       avail=avail_fn is not None, rows=rows)
     round_fn = FusedRound(body, layout, cfg, p_real, dev, graph)
-    state = (replicate_for_groups(params, cfg.num_groups),
-             init_selection_state(cfg, params, quarantine=quarantine),
+    sel = init_selection_state(cfg, params, quarantine=quarantine)
+    state = (replicate_for_groups(params, len(layout.gids)),
+             tuple(leaf[rows].contiguous() for leaf in sel),
              prng.PRNGKey(cfg.seed))
     # every group row holds the broadcast global model: row 0 is ω_t
     params_fn = lambda st: tree.map(lambda leaf: leaf[0], st[0])
@@ -1205,8 +1302,13 @@ def run_fedgs_fused(params, sampler, p_real, cfg: FedGSConfig, *,
     rounds per host read-back (0 = ``engine.default_chunk``) and eval on
     the device every ``eval_every`` rounds, ``avail_fn`` and
     ``corrupt_fn`` as there. ``graph=False`` is the eager form (the
-    CPU's); on the card a CUDA graph per round is the default. Returns
-    (global params, [RoundRecord])."""
+    CPU's); on the card a CUDA graph per round is the default. With a
+    ``mesh`` (:func:`make_group_mesh`) it is the group-sharded engine
+    (DESIGN.md §8): every rank of the mesh returns the same records and
+    global params; a rank that sits out returns (None, []) at once.
+    Returns (global params, [RoundRecord])."""
+    if mesh is not None and not mesh.active:
+        return None, []
     exp = make_fedgs_experiment(params, sampler, p_real, cfg,
                                 group_loss_fn=group_loss_fn,
                                 avail_fn=avail_fn, corrupt_fn=corrupt_fn,

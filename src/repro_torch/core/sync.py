@@ -1,6 +1,7 @@
 """Aggregation primitives of Alg. 1 (Eqs. 3–5) on parameter dicts, the
-staleness helpers of the bounded-async sync (DESIGN.md §14.3) and the plain
-robust aggregators of DESIGN.md §15.2.
+staleness helpers of the bounded-async sync (DESIGN.md §14.3), the plain
+robust aggregators of DESIGN.md §15.2, and the collective forms of Eqs. 4
+and 5 over ``torch.distributed`` ranks (the sharded engine, DESIGN.md §8).
 
 The functions here are the plain PyTorch forms of the JAX package's
 ``core/sync.py`` on one group's stacked (K, ...) member tree. The engine
@@ -10,10 +11,15 @@ to, and sorts like the JAX reference does.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Callable
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree
+from ..kernels import agg_weighted
 from . import dispatch
 
 EPS = 1e-12
@@ -78,6 +84,97 @@ def external_average(group_params):
     w = torch.ones(m, dtype=torch.float32,
                    device=tree.leaves(group_params)[0].device)
     return dispatch.weighted_average_tree(group_params, w)
+
+
+# ---------------------------------------------------------------------------
+# Distributed (collective) forms over torch.distributed ranks (DESIGN.md §8).
+# Only all_reduce (SUM, MAX) is issued: with broadcast, the ops that gloo
+# also runs on CUDA tensors. ``eager`` (``fn, x -> fn(x)``) runs a
+# collective as a break between CUDA graph segments
+# (``engine.SegmentedGraph.eager``): a collective is never captured.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GroupMesh:
+    """The 'groups' axis of the sharded engine (DESIGN.md §8): ``size``
+    shards, one a rank, over the ranks [0, size) of the ``world``; this
+    process is ``rank``. ``group`` is their process group (None: the
+    default group, which is all of them). A rank at or past ``size`` sits
+    out (:attr:`active`). ``GroupMesh()`` is the one-shard fallback: no
+    collective at all."""
+    size: int = 1
+    rank: int = 0
+    world: int = 1
+    group: Any = None
+
+    @property
+    def active(self) -> bool:
+        return self.rank < self.size
+
+    def rows(self, m: int) -> slice:
+        """This shard's rows of the M groups: [rank·M/n, (rank+1)·M/n)."""
+        if m % self.size:
+            raise ValueError(f"num_groups={m} must divide over {self.size} "
+                             "'groups' shards")
+        ml = m // self.size
+        return slice(self.rank * ml, (self.rank + 1) * ml)
+
+
+def all_reduce(x: torch.Tensor, op: str = "sum", group=None, *,
+               eager: Callable | None = None) -> torch.Tensor:
+    """``x`` reduced over the ranks of ``group`` (None: the default group)
+    into a new tensor, ``op`` 'sum' or 'max'; ``x`` is left as it was."""
+    def reduce(v: torch.Tensor) -> torch.Tensor:
+        out = v.clone()
+        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op], group=group)
+        return out
+    return reduce(x) if eager is None else eager(reduce, x)
+
+
+def internal_sync_collective(params, weight, group=None, *,
+                             eager: Callable | None = None):
+    """Eq. (4) as a weighted sum over the ranks of ``group`` (the JAX
+    package's psum over 'data'): Σ_r w_r ω_r / max(Σ_r w_r, EPS), with
+    ``weight`` this rank's n^{m,k} (0 if its device was not selected). The
+    weight rides in the same buffer: one collective."""
+    dev = tree.leaves(params)[0].device
+    w = torch.as_tensor(weight, dtype=torch.float32, device=dev).reshape(1)
+    flat = agg_weighted.flatten(params, 1)[0]
+    s = all_reduce(torch.cat([flat * w, w]), "sum", group, eager=eager)
+    return agg_weighted.unflatten(s[:-1] / torch.clamp_min(s[-1], EPS),
+                                  params, 0)
+
+
+def grad_internal_sync_collective(grads, weight, group=None, *,
+                                  eager: Callable | None = None):
+    """Gradient-space Eq. (4) over the ranks: one SGD step from a common
+    ω, so averaging gradients is averaging the one-step models."""
+    return internal_sync_collective(grads, weight, group, eager=eager)
+
+
+def external_sync_collective(params, group=None, *,
+                             eager: Callable | None = None):
+    """Eq. (5) as the mean over the ranks of ``group`` (the JAX package's
+    pmean over 'pod'): one summed buffer, divided by the rank count."""
+    n = dist.get_world_size(group)
+    s = all_reduce(agg_weighted.flatten(params, 1)[0], "sum", group,
+                   eager=eager)
+    return agg_weighted.unflatten(s / n, params, 0)
+
+
+def external_sync_grouped(group_params, mesh: GroupMesh | None = None, *,
+                          eager: Callable | None = None):
+    """Eq. (5) of the sharded engine (DESIGN.md §8): the mean over the
+    local leading group axis through :func:`external_average` (the
+    ``agg_weighted`` kernel on the card), then, over a mesh of more than
+    one shard, the mean over its ranks. With equal groups per shard the
+    mean of the local means is the global mean (to f32 rounding). Without
+    a mesh, or with one shard, no collective is issued."""
+    g = external_average(group_params)
+    if mesh is None or mesh.size == 1:
+        return g
+    return external_sync_collective(g, mesh.group, eager=eager)
 
 
 # ---------------------------------------------------------------------------

@@ -48,9 +48,10 @@ counters in the carried state):
 FEDGS (DESIGN.md §12.4): ``--clients-per-round`` clients (0 = groups ×
 selected) drawn per round from the device pool, ``--local-steps`` local
 SGD steps each, the server average through the ``agg_weighted`` kernel.
-``--engine host`` loops over the pool's batches round by round; any other
-engine (``sharded`` included, as in the JAX CLI) runs the fused engine,
-one CUDA graph per round on the card. FedGS-only flags draw a warning:
+``--engine host`` loops over the pool's batches round by round; for a
+baseline any other engine (``sharded`` included, as in the JAX CLI) runs
+the fused engine, one CUDA graph per round on the card. FedGS-only flags
+draw a warning:
 
   PYTHONPATH=src python -m repro_torch.launch.train --strategy fedyogi \
       --engine fused --rounds 20
@@ -92,7 +93,22 @@ devices' Dirichlet rows are drawn on the card each iteration:
   PYTHONPATH=src python -m repro_torch.launch.train --engine fused \
       --devices 1000000 --groups 8 --devices-per-group 16 --reselect-every 10
 
-``--engine sharded`` raises for FEDGS (ROADMAP item 17).
+``--engine sharded`` runs FEDGS on the group-sharded engine (DESIGN.md
+§8, §17.3): each ``torch.distributed`` rank runs the fused round for its
+M/n groups (n the largest divisor of M up to the world size; the ranks
+past n sit out), and the shards meet in collectives only: the Eq. 5
+average once a round, the round's metrics, a cadence's re-trigger. Under
+``torchrun`` the process group comes from its variables (NCCL when each
+rank has a card of its own, gloo on the CPU or when the ranks share one
+card), one line names the backend, the world and the shard count, and
+only rank 0 prints round lines and writes ``--log-json`` and
+``--ckpt-dir``. Without ``torchrun`` it is one shard and prints
+``--engine fused``'s lines:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --engine sharded --device cpu --smoke-model --groups 4 \
+      --devices-per-group 8 --selected 4 --presampled 1 --iters 5 \
+      --rounds 3 --batch-size 8 --lr 0.05
 
 ``--ckpt-dir DIR`` saves the final global params as ``DIR/step_R`` in the
 JAX CLI's checkpoint format (``checkpoint.save``, the flags under
@@ -115,6 +131,7 @@ import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from .. import checkpoint
 from ..configs import femnist_cnn
@@ -170,9 +187,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", choices=("host", "fused", "sharded"),
                     default="host",
                     help="host loop / device-resident fused rounds (one CUDA "
-                         "graph per round on the card) / sharded (not "
-                         "ported for fedgs: ROADMAP item 17; the baselines "
-                         "run it as fused)")
+                         "graph per round on the card) / sharded (the fused "
+                         "rounds with the groups split over the "
+                         "torch.distributed ranks; the baselines run it as "
+                         "fused)")
     ap.add_argument("--eval-chunk", type=int, default=1,
                     help="fused: rounds per host read-back of the metrics "
                          "(0 = auto, 1 = per round)")
@@ -351,12 +369,43 @@ def avail_fn_of(args):
         args.seed)
 
 
-def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> dict:
-    """Alg. 1 on the host loop or the fused engine: numpy
-    ``FactoryStreams`` of the dense ``part`` on the host loop without a
-    drift, else the device sampler over ``pop()``, the population view
-    (dense or lazy), built when first needed. Returns the final global
-    params."""
+def init_sharded(args, device: torch.device
+                 ) -> tuple[sync.GroupMesh, torch.device]:
+    """The mesh of ``--engine sharded`` (DESIGN.md §8) and the rank's
+    device. Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT``) it initialises the process group: NCCL
+    when each rank of the host has a card of its own (``cuda:LOCAL_RANK``),
+    gloo on the CPU or when the ranks share one card (NCCL refuses two
+    ranks on one device; gloo stages CUDA tensors through the host), and
+    rank 0 prints the backend, the world and the shard count on one line.
+    Without torchrun's variables: the one-shard mesh, no process group."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return sync.GroupMesh(), device
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    backend = "gloo"
+    if device.type == "cuda" and torch.cuda.device_count() >= int(
+            os.environ.get("LOCAL_WORLD_SIZE", world)):
+        backend = "nccl"
+        torch.cuda.set_device(local)
+        device = torch.device("cuda", local)
+    dist.init_process_group(backend, init_method="env://")
+    mesh = fedgs.make_group_mesh(args.groups)
+    if mesh.rank == 0:
+        print(f"sharded engine: backend {backend} | world {mesh.world} | "
+              f"shards {mesh.size} | groups per shard "
+              f"{args.groups // mesh.size}", flush=True)
+    return mesh, device
+
+
+def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn,
+              mesh: sync.GroupMesh | None = None) -> dict | None:
+    """Alg. 1 on the host loop or the fused engine (on ``mesh`` for
+    ``--engine sharded``): numpy ``FactoryStreams`` of the dense ``part``
+    on the host loop without a drift, else the device sampler over
+    ``pop()``, the population view (dense or lazy), built when first
+    needed. Returns the final global params (None on a rank that sits
+    out)."""
     fcfg = fedgs.FedGSConfig(
         num_groups=args.groups, devices_per_group=args.devices_per_group,
         num_selected=args.selected, num_presampled=args.presampled,
@@ -375,9 +424,6 @@ def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> dict:
             mode=args.corrupt, frac=args.corrupt_frac,
             prob=args.corrupt_prob, t0=args.corrupt_t0,
             scale=args.corrupt_scale, sigma=args.corrupt_sigma), args.seed)
-    if args.engine == "sharded":
-        raise NotImplementedError("--engine sharded (the group-sharded "
-                                  "engine, DESIGN.md §8) is ROADMAP item 17")
     drift = drift_config(args)
     # candidate committees only when the universe exceeds the engine
     # slots; equal sizes keep the dense slot binding
@@ -386,11 +432,11 @@ def run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn) -> dict:
         candidates=args.devices_per_group
         if args.k_pop > args.devices_per_group else None,
         candidate_every=args.reselect_every)
-    if args.engine == "fused":
+    if args.engine != "host":
         final, _ = fedgs.run_fedgs_fused(
             params, make_sampler(), p_real, fcfg,
             group_loss_fn=cnn.make_group_loss_fn(),
-            avail_fn=avail_fn_of(args), corrupt_fn=corrupt_fn,
+            avail_fn=avail_fn_of(args), corrupt_fn=corrupt_fn, mesh=mesh,
             eval_fn=eval_fn, eval_every=args.eval_every, log_fn=log_fn,
             chunk=args.eval_chunk)
     else:
@@ -442,6 +488,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
     """Run the CLI; returns the per-round records as dicts."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    mesh = None
+    if args.strategy == "fedgs" and args.engine == "sharded":
+        mesh, device = init_sharded(args, device)
     if args.k_pop:
         # the lazy universe (DESIGN.md §17) holds O(resident) memory
         # however large D = M·K_pop gets; its p_real is analytic, with no
@@ -466,15 +515,23 @@ def main(argv: list[str] | None = None) -> list[dict]:
     params = cnn.init_cnn(prng.PRNGKey(args.seed), mcfg, device)
     logs_out = []
 
+    lead = mesh is None or mesh.rank == 0     # prints and writes files
+
     def log_fn(rec):
-        print(format_record(rec), flush=True)
+        if lead:
+            print(format_record(rec), flush=True)
         logs_out.append(rec.to_dict())
 
     if args.strategy == "fedgs":
-        final = run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn)
+        final = run_fedgs(args, part, pop, p_real, params, eval_fn, log_fn,
+                          mesh)
     else:
         final = run_strategy(args, pop, params, mcfg, device, eval_fn,
                              log_fn)
+    if mesh is not None and dist.is_initialized():
+        dist.destroy_process_group()
+    if not lead:
+        return logs_out
     if args.ckpt_dir:
         path = checkpoint.save(args.ckpt_dir, final, step=args.rounds,
                                metadata={"config": vars(args)})

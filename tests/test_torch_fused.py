@@ -25,7 +25,7 @@ from repro.data import DeviceStream as JDeviceStream
 from repro.data import make_device_sampler as jmake_device_sampler
 from repro.models import cnn as jcnn
 from repro_torch import convert, tree
-from repro_torch.core import engine, fedgs, prng, selection
+from repro_torch.core import engine, fedgs, prng, selection, sync
 from repro_torch.data import (CorruptionConfig, DeviceBackedStreams,
                               DeviceStream, PartitionConfig, femnist,
                               make_corruption_fn, make_device_sampler,
@@ -347,8 +347,8 @@ def test_unported_branches_raise(setup):
     run = lambda cfg=CFG, **kw: fedgs.run_fedgs_fused(
         params, sampler, part.p_real, fedgs.FedGSConfig(**cfg),
         group_loss_fn=cnn.make_group_loss_fn(), **kw)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        run(mesh=object())
+    with pytest.raises(ValueError, match="must divide"):
+        run(mesh=sync.GroupMesh(size=3))
     with pytest.raises(ValueError, match="availability schedule"):
         run(dict(CFG, sync="bounded_async"))
     stream = DeviceStream.from_partition(part, batch_size=8, device="cpu")
@@ -388,8 +388,11 @@ def test_fused_cli_matches_reference(port_flags, arm, jax_cli, capsys):
 
 
 def test_cli_refuses_sharded_and_robust_fused():
+    """``--engine sharded`` is no longer refused: without torchrun's
+    variables it is one shard and records what ``--engine fused`` does
+    (the sharded engine's own tests: ``test_torch_sharded*.py``)."""
     smoke = ["--device", "cpu", "--groups", "2", "--devices-per-group", "4",
              "--selected", "2", "--presampled", "1", "--iters", "1",
              "--rounds", "1", "--batch-size", "2", "--smoke-model"]
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train.main(smoke + ["--engine", "sharded"])
+    assert train.main(smoke + ["--engine", "sharded"]) == \
+        train.main(smoke + ["--engine", "fused"])

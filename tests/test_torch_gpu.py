@@ -301,6 +301,38 @@ def test_fused_graph_replay_equals_eager(cuda):
         "topk_compress": 5, "int8_quant": 6}
 
 
+def test_sharded_world1_equals_fused_on_card(cuda):
+    """``--engine sharded`` without a process group is the one-shard mesh
+    (DESIGN.md §8): no collective, so its graphed rounds are the fused
+    engine's bit for bit, state and records, with the same captures."""
+    from repro_torch import tree
+    from repro_torch.configs import femnist_cnn
+    from repro_torch.core import engine, fedgs, prng
+    from repro_torch.data import (DeviceStream, PartitionConfig,
+                                  make_device_sampler, make_partition)
+    from repro_torch.models import cnn
+    cfg = fedgs.FedGSConfig(num_groups=4, devices_per_group=8,
+                            num_selected=4, num_presampled=1,
+                            iters_per_round=5, rounds=3, lr=0.05)
+    part = make_partition(PartitionConfig(num_factories=4,
+                                          devices_per_factory=8, seed=0))
+    sampler = make_device_sampler(DeviceStream.from_partition(
+        part, batch_size=8, seed=0, device=cuda))
+    params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.smoke_config(), cuda)
+    runs = []
+    for mesh in (None, fedgs.make_group_mesh(4)):
+        exp = fedgs.make_fedgs_experiment(
+            params, sampler, part.p_real, cfg,
+            group_loss_fn=cnn.make_group_loss_fn(), mesh=mesh, graph=True)
+        state, logs = engine.run_experiment(exp, cfg.rounds, chunk=1)
+        runs.append((tree.leaves(state[0]) + list(state[1]),
+                     [r.to_dict() for r in logs], exp.round_fn.captured))
+    (fused, flogs, fcap), (sharded, slogs, scap) = runs
+    for a, b in zip(fused, sharded, strict=True):
+        assert torch.equal(a, b)
+    assert flogs == slogs and fcap == scap
+
+
 def test_fused_robust_graph_replay_equals_eager(cuda):
     """The robust branch (DESIGN.md §15) of the fused round with noise in
     the mix and quarantine in the carry: the graph replays the eager run
