@@ -81,11 +81,16 @@ the last line):
    window 1024, non-causal; kernel, plain and SDPA times, SDPA both as the
    GQA call and on K/V expanded to 32 heads; TFLOP/s and share of the
    bound), at zamba2-7b's
-   shape (1, 4096, 32/32 heads, 112) and on the JAX package's sweep in f32
-   and bf16; one full-width prefill forward (``attn_impl="pallas"``,
-   tokens (2, 4096) drawn on the card) with exactly 40 kernel
-   launches, timed and profiled; ``serve()`` at the JAX CLI's defaults
-   (batch 4, prompt 32, gen 32; no kernel launch); decode against prefill
+   shape (1, 4096, 32/32 heads, 112), at deepseek-v2-236b's MLA shape
+   (1, 4096, 128/128 heads, D = 192, Dv = 128; causal and a 64-key window;
+   kernel, plain and SDPA times), at dbrx-132b's GQA shape (1, 4096,
+   48/8 heads of 128, causal; kernel, plain and SDPA times), on the JAX
+   package's sweep and on MLA's (48, 32) and (192, 128) sweep in f32 and
+   bf16; one full-width prefill forward
+   (``attn_impl="pallas"``, tokens (2, 4096) drawn on the card) with
+   exactly 40 kernel launches, timed and profiled; ``serve()`` at the JAX
+   CLI's defaults (batch 4, prompt 32 drawn on the card, gen 32; no kernel
+   launch); decode against prefill
    at full width, plain and ring buffer; then the smoke config card vs CPU
    (serve token ids, prefill logits);
 8. SSM and hybrid paths (the Mamba2 serving slice) — ``ssd_scan`` against
@@ -100,6 +105,18 @@ the last line):
    ``flash_attention`` (D = 112) launches, timed and profiled, decode
    against prefill (its full-width ``serve()`` is left out for time); both
    smoke configs card vs CPU (serve token ids, prefill logits);
+8b. MoE paths (the MoE serving slice) — ``deepseek-v2-236b`` (MLA +
+   160 experts top-6 + 2 shared) and ``dbrx-132b`` (GQA + 16 experts
+   top-4) at full width, depth cut to fit the card (3 layers if the f32
+   weights and a prefill's activations fit 75 GB, else 2; printed):
+   prefill (1, 4096) drawn on the card with exactly one
+   ``flash_attention`` launch a layer (MLA at D = 192, Dv = 128) and the
+   MoE dispatch form, timed, profiled, peak memory under 75 GB; decode
+   against prefill (deepseek 128 tokens through the kernel, dbrx 48
+   against the naive attention; plain and on a ring cache; under 4·E
+   tokens, so both sides take the dense MoE form), with ms per decode
+   step; dbrx's prefill of 128 tokens through the kernel against the naive
+   attention's; deepseek's ``serve()``; both smoke configs card vs CPU;
 6d. after the baselines, the drift phase (DESIGN.md §13) and the
    availability phase (§14), the population phase (DESIGN.md §17):
    ``dirichlet_rows`` with one concentration per element against its
@@ -2844,6 +2861,11 @@ LM_ARCH = "granite-3-2b"
 PREFILL_BATCH, PREFILL_LEN = 2, 4096     # granite's published context
 FLASH_SWEEP = [(1, 4, 4, 256, 64), (2, 8, 2, 128, 32), (1, 4, 1, 256, 128)]
 FLASH_MASKS = [(True, None), (True, 96), (False, None)]
+# MLA's (D, Dv) at deepseek-v2-236b's smoke config and, short, at its full
+# width: (B, H, KV, S, D, Dv)
+FLASH_MLA_SWEEP = [(2, 8, 8, 128, 48, 32), (1, 4, 2, 256, 48, 32),
+                   (1, 4, 4, 256, 192, 128)]
+MLA_ARCH, MOE_ARCH = "deepseek-v2-236b", "dbrx-132b"
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:
@@ -2854,13 +2876,38 @@ def attended_pairs(s: int, causal: bool, window) -> int:
     return sum(min(i + 1, window or s) for i in range(s))
 
 
+def sdpa_ms(torch, q, k, v, mask) -> tuple[float | None, str]:
+    """``F.scaled_dot_product_attention``'s time on (B, H, S, ·) inputs with
+    the first backend that takes them (efficient, cuDNN, flash, math), and
+    that backend's name; (None, the backends' refusals) if none does."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    refusals = []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.MATH):
+        run = lambda: F.scaled_dot_product_attention(q, k, v, **mask)
+        with sdpa_kernel(backend):
+            try:       # a backend refuses shapes or dtypes it lacks
+                run()
+            except RuntimeError as e:
+                refusals.append(f"{backend.name}: {str(e).splitlines()[0]}")
+                continue
+            return time_ms(run, reps=5), backend.name
+    return None, "; ".join(refusals)
+
+
 def check_flash_attention(torch, dev):
     """``flash_attention`` against ``attention_plain`` on the card: the
-    JAX package's sweep (f32 to 2e-5, bf16 to 2e-2, three masks), then the
-    full-width prefill shape in f32 with kernel, plain and SDPA times (the
-    GQA call, and the MHA call on K/V expanded to H heads outside the timed
-    region) and the bound of each mask (the FLOP of the unmasked pairs
-    only), then zamba2-7b's D = 112 shape."""
+    JAX package's sweep (f32 to 2e-5, bf16 to 2e-2, three masks) and MLA's
+    (48, 32) and (192, 128) sweep, then the full-width prefill shape in f32
+    with kernel, plain and SDPA times (the GQA call, and the MHA call on K/V
+    expanded to H heads outside the timed region) and the bound of each
+    mask (the FLOP of the unmasked pairs only), then zamba2-7b's D = 112
+    shape, deepseek-v2-236b's MLA shape (D = 192, Dv = 128), causal and
+    with a 64-key window, and dbrx-132b's GQA shape (48/8 heads of 128),
+    causal."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -2877,24 +2924,32 @@ def check_flash_attention(torch, dev):
                                    v.transpose(1, 2), causal=causal,
                                    window=window).transpose(1, 2)
 
-    for b, h, kv, s, d in FLASH_SWEEP:
-        for dtype, tol in tols.items():
-            q, k, v = rand(b, s, h, d, dtype=dtype), \
-                rand(b, s, kv, d, dtype=dtype), rand(b, s, kv, d, dtype=dtype)
-            for causal, window in FLASH_MASKS:
-                out = kfa.flash_attention(q, k, v, causal=causal,
-                                          window=window, block_q=min(128, s),
-                                          block_k=min(128, s))
-                err = float((out.float() - plain(q, k, v, causal, window)
-                             .float()).abs().max())
-                if not err <= tol:
-                    fail(f"flash_attention sweep {(b, h, kv, s, d)} {dtype} "
-                         f"causal={causal} window={window}: max error {err} "
-                         f"> {tol}")
-                worst[dtype] = max(worst[dtype], err)
-    print(f"flash_attention sweep {FLASH_SWEEP} x f32/bf16 x {FLASH_MASKS}: "
-          f"max err f32 {worst[torch.float32]:.3g} (tol 2e-5), bf16 "
-          f"{worst[torch.bfloat16]:.3g} (tol 2e-2)", flush=True)
+    sweeps = {"sweep": [c + (c[-1],) for c in FLASH_SWEEP],
+              "MLA (D, Dv) sweep": FLASH_MLA_SWEEP}
+    for label, sweep in sweeps.items():
+        sweep_worst = {dt: 0.0 for dt in tols}
+        for b, h, kv, s, d, dv in sweep:
+            for dtype, tol in tols.items():
+                q, k, v = rand(b, s, h, d, dtype=dtype), \
+                    rand(b, s, kv, d, dtype=dtype), \
+                    rand(b, s, kv, dv, dtype=dtype)
+                for causal, window in FLASH_MASKS:
+                    out = kfa.flash_attention(
+                        q, k, v, causal=causal, window=window,
+                        block_q=min(128, s), block_k=min(128, s))
+                    err = float((out.float() - plain(q, k, v, causal, window)
+                                 .float()).abs().max())
+                    if not err <= tol or out.shape != (b, s, h, dv):
+                        fail(f"flash_attention {label} {(b, h, kv, s, d, dv)}"
+                             f" {dtype} causal={causal} window={window}: "
+                             f"max error {err} > {tol} or out "
+                             f"{tuple(out.shape)}")
+                    sweep_worst[dtype] = max(sweep_worst[dtype], err)
+        for dt in tols:
+            worst[dt] = max(worst[dt], sweep_worst[dt])
+        print(f"flash_attention {label} {sweep} x f32/bf16 x {FLASH_MASKS}: "
+              f"max err f32 {sweep_worst[torch.float32]:.3g} (tol 2e-5), bf16 "
+              f"{sweep_worst[torch.bfloat16]:.3g} (tol 2e-2)", flush=True)
 
     b, s, h, kv, d = PREFILL_BATCH, PREFILL_LEN, 32, 8, 64
     q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
@@ -2971,6 +3026,75 @@ def check_flash_attention(torch, dev):
           f"TFLOP/s, {b_ms / ms:.0%} of the bound", flush=True)
     del q, k, v, qt, kt, vt, out
     torch.cuda.empty_cache()
+
+    # the MoE archs' prefill at full width: deepseek-v2-236b's MLA (128
+    # heads, q/k of 128 + 64, v of 128; causal and a 64-key window) and
+    # dbrx-132b's GQA (48/8 heads of 128, group 6; causal)
+    from repro_torch import configs
+    for arch, windows in ((MLA_ARCH, (None, 64)), (MOE_ARCH, (None,))):
+        c = configs.get_config(arch)
+        b, s, h = MOE_PREFILL + (c.n_heads,)
+        mla = c.kv_lora_rank > 0
+        kv = c.n_heads if mla else c.n_kv_heads
+        d, dv = c.head_dim + (c.rope_head_dim if mla else 0), c.head_dim
+        q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, dv)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        for window in windows:
+            out = kfa.flash_attention(q, k, v, window=window)
+            ref = plain(q, k, v, True, window)
+            err = float((out - ref).abs().max())
+            del ref
+            if not err <= tols[torch.float32] or out.shape != (b, s, h, dv):
+                fail(f"flash_attention {arch} {(b, s, h, kv, d, dv)} window="
+                     f"{window}: max error {err} > 2e-5 or out "
+                     f"{tuple(out.shape)}")
+            worst[torch.float32] = max(worst[torch.float32], err)
+            del out
+            ms = time_ms(lambda: kfa.flash_attention(q, k, v, window=window),
+                         reps=5)
+            plain_ms = time_ms(lambda: plain(q, k, v, True, window), reps=2,
+                               warmup=1)
+            torch.cuda.empty_cache()
+            if window is None:
+                mask = dict(is_causal=True)
+            else:
+                i = torch.arange(s, device=dev)
+                mask = dict(attn_mask=(i[None, :] <= i[:, None])
+                            & (i[None, :] > i[:, None] - window))
+            mha_ms = mha = None
+            if kv != h:     # and SDPA on K/V expanded to H heads (MHA)
+                ke, ve = (x.repeat_interleave(h // kv, dim=1)
+                          for x in (kt, vt))
+                mha_ms, mha = sdpa_ms(torch, qt, ke, ve, mask)
+                del ke, ve
+                mask["enable_gqa"] = True
+            lib_ms, backend = sdpa_ms(torch, qt, kt, vt, mask)
+            del mask
+            ops = 2 * (d + dv) * b * h * attended_pairs(s, True, window)
+            b_ms, b_by = bound(4 * b * s * (h * d + kv * d + kv * dv
+                                            + h * dv), ops)
+            rows.append(dict(arch=arch, causal=True, window=window, D=d,
+                             Dv=dv, shape=(b, s, h, kv, d, dv),
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library_backend=backend,
+                             library_mha_ms=mha_ms, bound_ms=b_ms,
+                             bound_by=b_by, tflops=ops / ms / 1e9,
+                             share_of_bound=b_ms / ms))
+            lib = f"{lib_ms:.4f} ms SDPA ({backend})" if lib_ms is not None \
+                else f"SDPA: none ({backend})"
+            if mha is not None:
+                lib += (f", {mha_ms:.4f} ms SDPA on K/V expanded to {h} heads"
+                        f" ({mha})" if mha_ms is not None
+                        else f", SDPA on K/V expanded: none ({mha})")
+            print(f"flash_attention {arch} shape (B, S, H, KV, D, Dv) = "
+                  f"{(b, s, h, kv, d, dv)} f32 causal window={window}: max "
+                  f"err {err:.3g} (tol 2e-5); {ms:.4f} ms kernel, "
+                  f"{plain_ms:.4f} ms plain, {lib}, bound {b_ms:.4f} ms "
+                  f"({b_by}), {ops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{b_ms / ms:.0%} of the bound", flush=True)
+            torch.cuda.empty_cache()
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     main_row = rows[0]
     return dict(name=kfa.NAME, route="cuda", source=kfa.SOURCE,
                 replaces=kfa.REPLACES, max_abs_err=worst[torch.float32],
@@ -2981,7 +3105,7 @@ def check_flash_attention(torch, dev):
                 library_ms=main_row["library_ms"],
                 shape=(f"B={PREFILL_BATCH} S={PREFILL_LEN} H=32 KV=8 D=64 "
                        "f32 causal"),
-                cases=rows)
+                pairs=[list(p) for p in kfa.HEAD_DIMS], cases=rows)
 
 
 def lm_profile(torch, run, label) -> None:
@@ -3028,11 +3152,12 @@ def lm_profile(torch, run, label) -> None:
 
 def uncounted_params(cfg) -> int:
     """Parameters that ``ArchConfig.param_count`` leaves out: the norm
-    scales, and per Mamba2 block the depthwise conv, its bias, the dt bias,
-    A_log, D and the gated norm."""
+    scales (MLA's ``kv_norm`` too, r a layer), and per Mamba2 block the
+    depthwise conv, its bias, the dt bias, A_log, D and the gated norm."""
     d = cfg.d_model
-    if cfg.arch_type == "dense":
-        return (2 * cfg.num_layers + 1) * d
+    if cfg.arch_type in ("dense", "moe"):
+        return (2 * cfg.num_layers + 1) * d \
+            + cfg.num_layers * cfg.kv_lora_rank
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state
     per_layer = (d + cfg.ssm_conv_width * conv_ch + conv_ch
                  + 3 * cfg.ssm_heads + cfg.d_inner)
@@ -3092,25 +3217,31 @@ def prefill(torch, label, cfg, fns, params, toks, launches: dict) -> dict:
     return counts
 
 
-def decode_vs_prefill(torch, label, cfg, params, toks, window=None) -> None:
-    """Decode step by step against the kernels' prefill of the same
-    tokens, to 1e-4 of the largest logit (windowed: a ring cache of
-    ``window`` slots)."""
+def decode_vs_prefill(torch, label, cfg, params, toks, window=None,
+                      attn_impl="pallas") -> None:
+    """Decode step by step against the prefill of the same tokens (through
+    the kernels unless ``attn_impl`` says otherwise), to 1e-4 of the
+    largest logit (windowed: a ring cache of ``window`` slots); ms per
+    decode step on the host clock, synchronised at both ends."""
     from repro_torch.models import transformer
 
     c = cfg if window is None else cfg.with_(sliding_window=window)
     s = toks.shape[1]
     full, _ = transformer.forward(c, params, toks, window=window,
-                                  attn_impl="pallas")
+                                  attn_impl=attn_impl)
     cache = transformer.init_decode_cache(c, toks.shape[0], s,
                                           windowed=window is not None,
                                           device=toks.device)
     outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for i in range(s):
         lg, cache = transformer.decode_step(c, params, cache,
                                             toks[:, i:i + 1], i,
                                             windowed=window is not None)
         outs.append(lg)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / s
     err = float((torch.cat(outs, 1) - full).abs().max())
     scale = float(full.abs().max())
     tol = 1e-4 * scale
@@ -3119,31 +3250,40 @@ def decode_vs_prefill(torch, label, cfg, params, toks, window=None) -> None:
              f"> {tol:.3g} (1e-4 of max |logit| {scale:.3g})")
     what = f"window {window}, ring cache of {window}" if window else \
         "plain cache"
+    against = "the kernels'" if attn_impl == "pallas" else \
+        f"the {attn_impl} attention's"
     print(f"{label} decode vs prefill at full width, {tuple(toks.shape)} "
-          f"tokens, {what}: {s} decode steps against the kernels' prefill, "
-          f"max |diff| {err:.3g} (tol {tol:.3g} = 1e-4 of max |logit| "
-          f"{scale:.3g})", flush=True)
+          f"tokens, {what}: {s} decode steps ({step_ms:.2f} ms/step) against "
+          f"{against} prefill, max |diff| {err:.3g} (tol {tol:.3g} = 1e-4 of "
+          f"max |logit| {scale:.3g})", flush=True)
     del full, cache, outs
 
 
 def serve_phase(torch, label, cfg, dev) -> None:
     """``serve()`` at the JAX CLI's defaults (batch 4, prompt 32, gen 32):
-    threefry init, prefill by repeated decode, no kernel launch."""
+    threefry init, prefill by repeated decode, no kernel launch. The
+    prompts are drawn on the card: ``MarkovLMStream``'s vocab² table would
+    cost 20 GB of host memory and over a minute at 49K ids, 84 GB at
+    deepseek's 102K."""
     from repro_torch.core import dispatch
     from repro_torch.launch import serve
 
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
+    prompts = torch.randint(0, cfg.vocab_size, (4, 32), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(2))
     res = serve.serve(cfg, batch=4, prompt_len=32, gen=32, windowed=False,
-                      seed=0, device=dev)
+                      seed=0, device=dev, prompts=prompts)
     serve_counts = dispatch.launch_counts()
     if any(serve_counts.values()):
         fail(f"{label} serve: kernel launches {serve_counts}, want none")
     if res["tokens"].shape != (4, 32) or res["tokens"].min() < 0 or \
             res["tokens"].max() >= cfg.vocab_size:
         fail(f"{label} serve: token ids out of range: {res['tokens']}")
-    print(f"{label} serve: {cfg.name} full width, batch 4, prompt 32, gen 32 "
-          f"(threefry init, prefill by repeated decode): "
+    print(f"{label} serve: {cfg.name} full width, {cfg.num_layers} layers, "
+          "batch 4, prompt 32 (torch.randint), gen 32 (threefry init, "
+          "prefill by repeated decode): "
           f"{res['ms_per_step']:.2f} ms/step, {res['tok_per_s']:.1f} tok/s, "
           f"{res['steps']} steps, no kernel launch; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -3237,6 +3377,103 @@ def lm_smoke_card_vs_cpu(torch, dev, arch=LM_ARCH, prefix="lm") -> None:
     print(f"{prefix} smoke prefill (2, 256), attn_impl='pallas': card "
           f"(kernels) vs CPU (plain) logits max |diff| {err:.3g} (tol 1e-4)",
           flush=True)
+
+
+MOE_PREFILL = (1, 4096)
+MOE_PEAK_BYTES = 75e9          # a one-card run's prefill stays below this
+MOE_ACTIVATION_BYTES = 10e9    # a (1, 4096) prefill's activations, at most
+# decode against prefill: tokens (under 4·E, so both sides take the dense
+# MoE form), the prefill's attention (dbrx's 48 tokens are no multiple of
+# the kernel's 128-row block), the ring's window
+MOE_DECODE = {MLA_ARCH: (128, "pallas", 64), MOE_ARCH: (48, "naive", 16)}
+
+
+def kernel_vs_naive_prefill(torch, label, cfg, params, toks) -> None:
+    """A prefill through the kernels against the naive attention's prefill
+    of the same tokens at full width, to 1e-4 of the largest logit."""
+    from repro_torch.models import transformer
+
+    ref, _ = transformer.forward(cfg, params, toks, attn_impl="naive")
+    out, _ = transformer.forward(cfg, params, toks, attn_impl="pallas")
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= 1e-4 * scale:
+        fail(f"{label} prefill {tuple(toks.shape)}: kernels vs naive "
+             f"attention max error {err} > 1e-4 of max |logit| {scale:.3g}")
+    print(f"{label} prefill at full width, {tuple(toks.shape)} tokens: the "
+          f"kernels' logits vs the naive attention's, max |diff| {err:.3g} "
+          f"(tol {1e-4 * scale:.3g} = 1e-4 of max |logit| {scale:.3g})",
+          flush=True)
+    del ref, out
+
+
+def moe_depth(cfg) -> int:
+    """Layers of ``cfg`` kept on one card: 3 if their f32 weights and a
+    prefill's activations stay under ``MOE_PEAK_BYTES``, else 2."""
+    for depth in (3, 2):
+        c = cfg.with_(num_layers=depth)
+        if 4 * (c.param_count() + uncounted_params(c)) \
+                + MOE_ACTIVATION_BYTES <= MOE_PEAK_BYTES:
+            return depth
+    fail(f"{cfg.name}: two layers do not fit one card")
+
+
+def moe_path(torch, dev, arch) -> dict:
+    """An MoE serving slice at full width, depth cut to fit one card: a
+    (1, 4096) prefill (flash once a layer, MoE dispatch; counted, timed,
+    profiled, peak memory under ``MOE_PEAK_BYTES``), decode against
+    prefill plain and on a ring cache, where that prefill's attention is
+    the naive one the kernels' prefill against it, and deepseek's
+    ``serve()``. Returns the prefill's launch counts."""
+    from repro_torch import configs
+    from repro_torch.models import build, moe
+
+    full = configs.get_config(arch)
+    depth = moe_depth(full)
+    cfg = full.with_(num_layers=depth)
+    fns = build(cfg)
+    toks, dec_toks, source = random_tokens(torch, dev, cfg.vocab_size,
+                                           MOE_PREFILL)
+    t0 = time.perf_counter()
+    params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = check_param_count(arch, cfg, params)
+    attn = (f"MLA r {cfg.kv_lora_rank}, rope {cfg.rope_head_dim}, "
+            f"{cfg.n_heads} heads of {cfg.head_dim} (flash at D = "
+            f"{cfg.head_dim + cfg.rope_head_dim}, Dv = {cfg.head_dim})"
+            if cfg.kv_lora_rank else
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}")
+    n = math.prod(MOE_PREFILL)
+    print(f"{arch}: full width, depth {depth} of {full.num_layers} layers "
+          f"(3 if the f32 weights, {4 * n_par / 1e9:.1f} GB here, and a "
+          f"prefill's activations fit {MOE_PEAK_BYTES / 1e9:.0f} GB, else "
+          f"2): d_model {cfg.d_model}, {attn}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} of d_ff {cfg.d_ff} + {cfg.n_shared_experts} "
+          f"shared, vocab {cfg.vocab_size} -> {cfg.padded_vocab}; "
+          f"{n_par:,} f32 parameters from a CUDA torch.Generator in "
+          f"{init_s:.1f} s; {source} tokens {MOE_PREFILL}: {n} tokens >= "
+          f"4·E = {4 * cfg.n_experts}, the dispatch form, capacity "
+          f"{moe.capacity(n, cfg)} a expert", flush=True)
+    counts = prefill(torch, arch, cfg, fns, params, toks,
+                     {"flash_attention": depth})
+    peak = torch.cuda.max_memory_allocated()
+    if peak > MOE_PEAK_BYTES:
+        fail(f"{arch} prefill: peak device memory {peak / 1e9:.2f} GB > "
+             f"{MOE_PEAK_BYTES / 1e9:.0f} GB at depth {depth}")
+    del toks
+    torch.cuda.empty_cache()
+    n_dec, impl, window = MOE_DECODE[arch]
+    for w in (None, window):
+        decode_vs_prefill(torch, arch, cfg, params, dec_toks[:, :n_dec], w,
+                          attn_impl=impl)
+    if impl != "pallas":     # so the kernel is held in the model here too
+        kernel_vs_naive_prefill(torch, arch, cfg, params, dec_toks)
+    del params
+    torch.cuda.empty_cache()
+    if arch == MLA_ARCH:
+        serve_phase(torch, arch, cfg, dev)
+    return counts
 
 
 SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "zamba2-7b"
@@ -3596,6 +3833,18 @@ def main() -> None:
     print(f"ssm and hybrid phases: {time.perf_counter() - t_phase:.1f} s; "
           f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
 
+    # MoE paths (the MoE serving slice): deepseek-v2-236b (MLA + MoE +
+    # shared experts; flash at D = 192, Dv = 128) and dbrx-132b (GQA + MoE)
+    # at full width, depth cut to fit the card; both smoke configs card vs
+    # CPU. The MLA kernel rows were checked in check_flash_attention.
+    t_phase = time.perf_counter()
+    moe_counts = {f"moe_{arch}": moe_path(torch, dev, arch)
+                  for arch in (MLA_ARCH, MOE_ARCH)}
+    for arch in (MLA_ARCH, MOE_ARCH):
+        lm_smoke_card_vs_cpu(torch, dev, arch, arch)
+    print(f"moe phases: {time.perf_counter() - t_phase:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
+
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
                    "robust": robust_counts[k["name"]],
@@ -3618,6 +3867,7 @@ def main() -> None:
                         for p, c in pop_counts.items()})
         by_path.update({p: c.get(k["name"], 0)
                         for p, c in tools_counts.items()})
+        by_path.update({p: c[k["name"]] for p, c in moe_counts.items()})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:

@@ -250,11 +250,32 @@ def uniform_t(key, shape: tuple, device=None, minval: float = 0.0,
                               maxval)
 
 
+# counters hashed per pass of a large numpy-key normal draw: each element
+# costs ~40 bytes of int64/f64 temporaries while it is hashed and inverted
+NORMAL_CHUNK = 1 << 26
+
+
 def normal_t(key, shape: tuple, device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` drawn on the device (a numpy key
     on ``device``, a key tensor on its own); same numbers as
-    :func:`normal`."""
-    return _normal_from_bits(random_bits_t(key, shape, device))
+    :func:`normal`. A numpy-key draw of more than ``NORMAL_CHUNK`` numbers
+    hashes its counters ``NORMAL_CHUNK`` at a time into the f32 output
+    (each number depends on its own counter only), so its temporaries
+    stay ~2.7 GB at any size (an expert stack of 1.26e9 numbers at once
+    would need ~50 GB)."""
+    n = math.prod(shape)
+    if isinstance(key, torch.Tensor) or n <= NORMAL_CHUNK:
+        return _normal_from_bits(random_bits_t(key, shape, device))
+    if n >= 2 ** 32:
+        raise ValueError(f"normal_t: {n} elements need 64-bit counters")
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for start in range(0, n, NORMAL_CHUNK):
+        counters = torch.arange(start, min(n, start + NORMAL_CHUNK),
+                                dtype=torch.int64, device=device)
+        b1, b2 = threefry2x32_t(key, 0, counters)
+        out[start:start + len(counters)] = \
+            _normal_from_bits(b1 ^ b2).reshape(-1)
+    return out.reshape(shape)
 
 
 def _scalar_t(draw, keys: torch.Tensor) -> torch.Tensor:

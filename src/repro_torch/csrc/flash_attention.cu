@@ -1,8 +1,11 @@
 // Forward flash attention (online softmax) with causal and sliding-window
-// masks and grouped-query heads, in the model layout (B, S, H, D).
+// masks and grouped-query heads, in the model layout (B, S, H, D): q and k
+// of head dim D, v and the output of head dim Dv (MLA's explicit prefill
+// form has D = hd + dr and Dv = hd).
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:flash_attention_kernel
-// (_flash_kernel). Same result: scores (q . k) * sm_scale, masked to -1e30
+// (_flash_kernel). Same result: scores (q . k) * sm_scale (sm_scale =
+// 1/sqrt(D), of q and k's dim), masked to -1e30
 // (not -inf) where kpos > qpos (causal) or kpos <= qpos - window; running
 // max m, sum l and accumulator acc per row, updated per kv tile as
 //   m' = max(m, max_j s_j),  p_j = exp(s_j - m'),  c = exp(m - m'),
@@ -16,11 +19,17 @@
 // every row of the q tile cost nothing, and the output does not depend on
 // the tile size beyond the order of f32 sums.
 //
+// (D, Dv) pairs taken: (32, 32), (64, 64), (112, 112), (128, 128), and
+// MLA's (48, 32) (deepseek-v2-236b's smoke config, 32 + 16) and (192, 128)
+// (deepseek-v2-236b, 128 + 64).
+//
 // What bounds it: operations. At the prefill shape (B, S, H, KV, D) =
 // (2, 4096, 32, 8, 64) the causal half needs ~1.4e11 f32 FLOP (2.05 ms at
 // the 67 TFLOP/s FP32 peak) for ~168 MB of q/k/v/o traffic (0.05 ms at
-// HBM's rate). The FMAs run on the CUDA cores in strict f32 (f32 on the
-// tensor cores is TF32, which the port's f32 parity rules out). An SM issues
+// HBM's rate); at deepseek-v2-236b's (1, 4096, 128, 128, 192/128) 2 (D +
+// Dv) FLOP per unmasked pair, ~6.9e11 (10.3 ms). The FMAs run on the CUDA
+// cores in strict f32 (f32 on the tensor cores is TF32, which the port's
+// f32 parity rules out). An SM issues
 // 128 FP32 FMAs per clock but reads 32 floats per clock from shared memory,
 // so every thread must issue at least 4 FMAs per float it reads there.
 //
@@ -31,7 +40,14 @@
 // 64-key tiles. Q stays in shared memory; K and V tiles are double-buffered
 // there and filled by cp.async (bf16 staged raw and widened on the shared
 // read), so the next tile's loads overlap this tile's FMAs, with one barrier
-// per tile. A warp owns 16 rows (two row groups rg, rows rg + BQ/8·i) in
+// per tile. At (192, 128) in f32 that layout needs 236,032 bytes (Q 50,176,
+// two K 100,352, two V 67,584, P and the row vectors 17,920), past the
+// 232,448 a block may have: there V has one buffer (202,240 bytes), the
+// tile's V load is issued after the barrier that ends the previous tile's
+// P·V and overlaps this tile's S phase, and a second barrier per tile
+// waits for it before P·V. bf16 keeps two V buffers (129,536 bytes). A
+// layout that does not fit fails to compile (static_assert).
+// A warp owns 16 rows (two row groups rg, rows rg + BQ/8·i) in
 // both phases, so P passes between its phases inside the warp.
 //  - S = Q K^T: a pair of lanes owns an 8 x 8 block of raw scores q·k (rows
 //    rg + BQ/8·i, keys kg + 8j); each computes it over one half of D, 8 q
@@ -42,15 +58,20 @@
 //    (unscaled: the scale is positive) and l stay in registers; p = 2^((s -
 //    m)·scale·log2 e) goes to a shared P tile and the rescale c to a shared
 //    row vector.
-//  - acc += P V: each thread owns 8 rows and D/8 (D <= 64, the lanes of the
-//    two halves of the warp taking the two halves of the tile's keys and
-//    adding by a shuffle at the end) or D/16 columns (D = 112, 128): 8 x 8
-//    tiles at D = 32, 64 and 128; at D = 112 every lane owns one float4, one
-//    float2 and one float of the 112 columns (4·16 + 2·16 + 16), 8 x 7.
+//  - acc += P V: each thread owns 8 rows and Dv/8 (Dv <= 64, the lanes of
+//    the two halves of the warp taking the two halves of the tile's keys and
+//    adding by a shuffle at the end) or Dv/16 columns (Dv = 112, 128): 8 x 8
+//    tiles at Dv = 32, 64 and 128; at Dv = 112 every lane owns one float4,
+//    one float2 and one float of the 112 columns (4·16 + 2·16 + 16), 8 x 7.
 // Lanes 2i and 2i + 1 read the same K (S) and V (P·V) vectors and a
 // half-warp reads two Q or P rows, so each shared load takes two wavefronts
-// rather than four. Shared row strides D + 16 bytes (Q, K, V) and 68 floats
-// (P) keep those reads free of bank conflicts for every D taken. CTAs take
+// rather than four. Shared row strides of D + 16 bytes (Q, K), Dv + 16
+// bytes (V) and 68 floats (P) keep those reads free of bank conflicts for
+// every pair taken: a row stride of W 4-byte words puts the 8 key rows
+// that a half-warp reads at word offsets W·kg mod 32, and W mod 32 is 4
+// (f32 D = 32, 64, 128, 192; bf16 64, 128, 192) or 20 or 28 (f32 48, 112;
+// bf16 32, 48, 112), so the 8 offsets are distinct multiples of 4 and the
+// 8 vectors (16 or 8 bytes) fall on distinct banks. CTAs take
 // the q tiles in reverse order so that the longest causal rows start first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +111,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every group but the newest has landed
+__device__ __forceinline__ void cp_async_wait_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // shared-memory reads of 4, 2 and 1 elements, widened to f32
@@ -170,21 +196,30 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // The P·V column layout of one thread: NF4 float4s at 4·cg + 4·NCG·u, then
-// NF2 float2s and NF1 floats over what is left of D.
-template <int D>
+// NF2 float2s and NF1 floats over what is left of the Dv columns.
+template <int DV>
 struct Cols {
-  static constexpr int KS = D <= 64 ? 2 : 1;   // key halves of a tile
+  static constexpr int KS = DV <= 64 ? 2 : 1;  // key halves of a tile
   static constexpr int NCG = 16 / KS;          // column groups
-  static constexpr int NF4 = D / (4 * NCG);
+  static constexpr int NF4 = DV / (4 * NCG);
   static constexpr int B2 = 4 * NCG * NF4;     // first float2 column
-  static constexpr int NF2 = (D - B2) / (2 * NCG);
+  static constexpr int NF2 = (DV - B2) / (2 * NCG);
   static constexpr int B1 = B2 + 2 * NCG * NF2;  // first scalar column
-  static constexpr int NF1 = (D - B1) / NCG;
+  static constexpr int NF1 = (DV - B1) / NCG;
   static constexpr int N = 4 * NF4 + 2 * NF2 + NF1;  // columns per thread
-  static_assert(B1 + NCG * NF1 == D, "columns must cover D");
+  static_assert(B1 + NCG * NF1 == DV, "columns must cover Dv");
 };
 
-template <int D, int BQ, typename T>
+// Shared memory of one CTA: Q, two K buffers and NV V buffers (row strides
+// D + 16 and Dv + 16 bytes), the P tile, the rescale c and l
+template <int D, int DV, int BQ, int NV, typename T>
+constexpr int smem_bytes() {
+  return (int)sizeof(T) * ((BQ + 2 * kBK) * (D + 16 / (int)sizeof(T)) +
+                           NV * kBK * (DV + 16 / (int)sizeof(T))) +
+         (int)sizeof(float) * (BQ * kLP + 2 * BQ);
+}
+
+template <int D, int DV, int BQ, int NV, typename T>
 __global__ void __launch_bounds__(2 * BQ, BQ == 64 ? 2 : 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int H, int group,
@@ -192,20 +227,23 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           long long ksb, long long kss, long long ksh, long long vsb,
           long long vss, long long vsh, int causal, int window,
           float sm_scale) {
-  using L = Cols<D>;
+  using L = Cols<DV>;
   constexpr int NT = 2 * BQ;
   constexpr int TR = 8;                        // rows per thread
   constexpr int RS = BQ / TR;                  // stride of a thread's rows
   constexpr int TH = TR / 2;                   // rows a thread keeps of S
-  constexpr int LD = D + 16 / (int)sizeof(T);  // Q/K/V row stride
+  constexpr int LD = D + 16 / (int)sizeof(T);  // Q/K row stride
+  constexpr int LV = DV + 16 / (int)sizeof(T);  // V row stride
   constexpr int DH = D / 2;                    // S-phase depth per thread
   constexpr int KPV = kBK / L::KS;             // P·V keys per thread
+  static_assert(DH % 4 == 0 && DV % 4 == 0, "vectors of 4 must tile D, Dv");
+  static_assert(NV == 1 || NV == 2, "one or two V buffers");
 
   extern __shared__ float4 smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + BQ * LD;                        // two buffers
-  T* Vs = Ks + 2 * kBK * LD;                   // two buffers
-  float* Ps = reinterpret_cast<float*>(Vs + 2 * kBK * LD);
+  T* Vs = Ks + 2 * kBK * LD;                   // NV buffers
+  float* Ps = reinterpret_cast<float*>(Vs + NV * kBK * LV);
   float* Cs = Ps + BQ * kLP;                   // per-row rescale c
   float* Ls = Cs + BQ;                         // per-row l at the end
 
@@ -233,21 +271,23 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   if (window > 0 && q0 - window + 1 > 0) t_lo = (q0 - window + 1) / kBK;
   if (causal) t_hi = min(t_hi, (q0 + qrows - 1) / kBK);
 
-  // rows [0, rows) of a (rows, D) slice with row stride ss; rows at or past
-  // nvalid are zero
-  auto stage = [&](T* dst, const T* src, long long ss, int rows,
-                   int nvalid) {
-    constexpr int V4 = D / 4;
-    for (int idx = tid; idx < rows * V4; idx += NT) {
-      const int r = idx / V4, c = (idx % V4) * 4;
+  // rows [0, rows) of a (rows, w) slice with row stride ss into shared rows
+  // of stride ld; rows at or past nvalid are zero
+  auto stage = [&](T* dst, const T* src, long long ss, int w, int ld,
+                   int rows, int nvalid) {
+    const int v4 = w / 4;
+    for (int idx = tid; idx < rows * v4; idx += NT) {
+      const int r = idx / v4, c = (idx % v4) * 4;
       const bool ok = r < nvalid;
-      cp_async4(dst + r * LD + c, ok ? src + r * ss + c : src, ok);
+      cp_async4(dst + r * ld + c, ok ? src + r * ss + c : src, ok);
     }
   };
   if (t_lo <= t_hi) {
-    stage(Qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, BQ, qrows);
-    stage(Ks, kp + (long long)t_lo * kBK * kss, kss, kBK, kBK);
-    stage(Vs, vp + (long long)t_lo * kBK * vss, vss, kBK, kBK);
+    stage(Qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, D, LD, BQ,
+          qrows);
+    stage(Ks, kp + (long long)t_lo * kBK * kss, kss, D, LD, kBK, kBK);
+    if (NV == 2)
+      stage(Vs, vp + (long long)t_lo * kBK * vss, vss, DV, LV, kBK, kBK);
     cp_async_commit();
   }
 
@@ -265,20 +305,26 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = t_lo; t <= t_hi; ++t) {
     const int buf = (t - t_lo) & 1;
+    const int k0 = t * kBK;
     cp_async_wait_all();
     __syncthreads();      // tile t landed; tile t - 1's P, c and V are read
-    if (t < t_hi) {
-      const long long k1 = (long long)(t + 1) * kBK;
-      stage(Ks + (buf ^ 1) * kBK * LD, kp + k1 * kss, kss, kBK, kBK);
-      stage(Vs + (buf ^ 1) * kBK * LD, vp + k1 * vss, vss, kBK, kBK);
+    if (NV == 1) {        // V's one buffer is free: tile t's V, waited for
+      stage(Vs, vp + (long long)k0 * vss, vss, DV, LV, kBK, kBK);  // below
       cp_async_commit();
     }
-    const int k0 = t * kBK;
+    if (t < t_hi) {
+      const long long k1 = (long long)(t + 1) * kBK;
+      stage(Ks + (buf ^ 1) * kBK * LD, kp + k1 * kss, kss, D, LD, kBK, kBK);
+      if (NV == 2)
+        stage(Vs + (buf ^ 1) * kBK * LV, vp + k1 * vss, vss, DV, LV, kBK,
+              kBK);
+      cp_async_commit();
+    }
     // does any (row, key) of this tile fall outside the masks?
     const bool edge = (causal && k0 + kBK - 1 > q0) ||
                       (window > 0 && k0 <= q0 + qrows - 1 - window);
     const T* Kt = Ks + buf * kBK * LD;
-    const T* Vt = Vs + buf * kBK * LD;
+    const T* Vt = Vs + (NV == 2 ? buf : 0) * kBK * LV;
 
     // raw scores q·k over this thread's half of D
     float s[TR][8];
@@ -336,6 +382,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       if (kg == 0) Cs[row] = corr;
     }
     __syncwarp();         // the warp's rows of P and c are written
+    if (NV == 1) {        // tile t's V (older than tile t + 1's K) landed
+      if (t < t_hi)
+        cp_async_wait_but_one();
+      else
+        cp_async_wait_all();
+      __syncthreads();
+    }
 
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
@@ -344,7 +397,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < L::N; ++n) acc[i][n] *= c;
     }
     const float* pr = Ps + prg * kLP + ks * KPV;
-    const T* vr = Vt + ks * KPV * LD;
+    const T* vr = Vt + ks * KPV * LV;
 #pragma unroll 2
     for (int kk = 0; kk < KPV; kk += 4) {
       float4 pa[TR];
@@ -352,7 +405,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < TR; ++i) pa[i] = ld4(pr + i * RS * kLP + kk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const T* row = vr + (kk + e) * LD;
+        const T* row = vr + (kk + e) * LV;
         float vv[L::N];
 #pragma unroll
         for (int u = 0; u < L::NF4; ++u) {
@@ -388,7 +441,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int i4 = 0; i4 < TH; ++i4) Ls[srg + RS * (TH * hf + i4)] = l[i4];
   }
   __syncwarp();           // the warp's l is written
-  // D <= 64: the two key halves (lane ^ 16) add their partial sums; each
+  // Dv <= 64: the two key halves (lane ^ 16) add their partial sums; each
   // then writes half of the rows
   if (L::KS == 2) {
 #pragma unroll
@@ -406,7 +459,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     float r[L::N];
 #pragma unroll
     for (int n = 0; n < L::N; ++n) r[n] = acc[i][n] / li;
-    T* op = o + ((long long)b * Sq + q0 + row) * H * D + (long long)h * D;
+    T* op = o + ((long long)b * Sq + q0 + row) * H * DV + (long long)h * DV;
 #pragma unroll
     for (int u = 0; u < L::NF4; ++u)
       st4(op + 4 * cg + 4 * L::NCG * u, r + 4 * u);
@@ -419,69 +472,75 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, int BQ, typename T>
+template <int D, int DV, int BQ, int NV, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int Sq, int Sk, const long long* st, int causal,
            int window, float sm_scale, cudaStream_t stream) {
-  constexpr int LD = D + 16 / (int)sizeof(T);
-  const int smem = (int)sizeof(T) * (BQ * LD + 4 * kBK * LD) +
-                   (int)sizeof(float) * (BQ * kLP + 2 * BQ);
+  constexpr int smem = smem_bytes<D, DV, BQ, NV, T>();
+  static_assert(smem <= 232448, "the layout exceeds a block's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D, BQ, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd<D, DV, BQ, NV, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<D, BQ, T><<<grid, 2 * BQ, smem, stream>>>(
+  flash_fwd<D, DV, BQ, NV, T><<<grid, 2 * BQ, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, H, H / KV, Sq, Sk, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
       sm_scale);
   return (int)cudaGetLastError();
 }
 
+// the (D, Dv) pairs taken; at (192, 128) f32 one V buffer (see the header)
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int H, int KV, int Sq, int Sk, const long long* st,
-               int causal, int window, float sm_scale, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch<32, 64, T>(q, k, v, o, B, H, KV, Sq, Sk, st, causal,
-                               window, sm_scale, s);
-    case 64:
-      return launch<64, 64, T>(q, k, v, o, B, H, KV, Sq, Sk, st, causal,
-                               window, sm_scale, s);
-    case 112:
-      return launch<112, 128, T>(q, k, v, o, B, H, KV, Sq, Sk, st, causal,
-                                 window, sm_scale, s);
-    case 128:
-      return launch<128, 64, T>(q, k, v, o, B, H, KV, Sq, Sk, st, causal,
-                                window, sm_scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
+               void* o, int B, int H, int KV, int Sq, int Sk,
+               const long long* st, int causal, int window, float sm_scale,
+               cudaStream_t s) {
+  constexpr int NV192 = sizeof(T) == 4 ? 1 : 2;
+  if (D == 32 && DV == 32)
+    return launch<32, 32, 64, 2, T>(q, k, v, o, B, H, KV, Sq, Sk, st,
+                                    causal, window, sm_scale, s);
+  if (D == 64 && DV == 64)
+    return launch<64, 64, 64, 2, T>(q, k, v, o, B, H, KV, Sq, Sk, st,
+                                    causal, window, sm_scale, s);
+  if (D == 112 && DV == 112)
+    return launch<112, 112, 128, 2, T>(q, k, v, o, B, H, KV, Sq, Sk, st,
+                                       causal, window, sm_scale, s);
+  if (D == 128 && DV == 128)
+    return launch<128, 128, 64, 2, T>(q, k, v, o, B, H, KV, Sq, Sk, st,
+                                      causal, window, sm_scale, s);
+  if (D == 48 && DV == 32)
+    return launch<48, 32, 64, 2, T>(q, k, v, o, B, H, KV, Sq, Sk, st,
+                                    causal, window, sm_scale, s);
+  if (D == 192 && DV == 128)
+    return launch<192, 128, 64, NV192, T>(q, k, v, o, B, H, KV, Sq, Sk, st,
+                                          causal, window, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v in the layout (B, S, heads, D) with unit stride in D and the
-// given (batch, seq, head) strides in elements (multiples of 4, data on
-// 4-element boundaries); o is a contiguous (B, Sq, H, D). dtype 0 = f32,
-// 1 = bf16. window 0 = no sliding window. Sq and Sk are multiples of 64.
+// q, k, v in the layout (B, S, heads, D or Dv) with unit stride in the head
+// dim and the given (batch, seq, head) strides in elements (multiples of 4,
+// data on 4-element boundaries); o is a contiguous (B, Sq, H, Dv). q and k
+// have head dim D, v and o Dv; sm_scale is 1/sqrt(D). dtype 0 = f32, 1 =
+// bf16. window 0 = no sliding window. Sq and Sk are multiples of 64.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int KV, int Sq, int Sk, int D, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int causal, int window,
-    float sm_scale, void* stream) {
+    int H, int KV, int Sq, int Sk, int D, int Dv, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int causal,
+    int window, float sm_scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < kBK || Sk < kBK ||
       Sq % kBK || Sk % kBK || B > 65535 || H > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, H, KV, Sq, Sk, st, causal,
+    return dispatch_d<float>(D, Dv, q, k, v, o, B, H, KV, Sq, Sk, st, causal,
                              window, sm_scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, st,
+    return dispatch_d<__nv_bfloat16>(D, Dv, q, k, v, o, B, H, KV, Sq, Sk, st,
                                      causal, window, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }

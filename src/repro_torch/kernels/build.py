@@ -41,7 +41,7 @@ SIGNATURES = {
     "dirichlet_rows_f32": [_P, _P, _P, _P, _I, _I, _F, _P],
     "avail_rows_f32": [_P] * 4 + [_I, _I] + [_U] * 4 + [_F] * 3
     + [_I, _F, _F, _P],
-    "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_L] * 9
+    "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_L] * 9
     + [_I, _I, _F, _P],
     "ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P],
 }

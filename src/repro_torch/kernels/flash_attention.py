@@ -1,7 +1,9 @@
 """Forward flash attention with causal and sliding-window masks and GQA.
 
-:func:`flash_attention` takes the model layout q (B, Sq, H, D), k/v
-(B, Sk, KV, D) and returns (B, Sq, H, D) in q's dtype. For CUDA tensors it
+:func:`flash_attention` takes the model layout q/k (B, S, H or KV, D), v
+(B, Sk, KV, Dv) and returns (B, Sq, H, Dv) in q's dtype, for the (D, Dv)
+pairs of ``HEAD_DIMS`` (D = Dv, and MLA's D = hd + dr over Dv = hd); the
+scores are scaled by 1/√D. For CUDA tensors it
 launches ``csrc/flash_attention.cu`` (one CTA per (q tile of 64 rows, or
 128 at D = 112, q head, batch); the kv loop runs inside the CTA over the
 64-key tiles the masks reach, double-buffered by cp.async);
@@ -27,7 +29,10 @@ LAUNCHES = 0
 
 NEG_INF = -1e30
 TILE = 64                       # Sq and Sk must be multiples of this
-HEAD_DIMS = (32, 64, 112, 128)
+# (D, Dv) pairs the kernel takes: D = Dv, and MLA's (hd + dr, hd) at
+# deepseek-v2-236b's smoke config (32 + 16) and full width (128 + 64)
+HEAD_DIMS = ((32, 32), (64, 64), (112, 112), (128, 128), (48, 32),
+             (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,11 +62,16 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """Model layout q (B, Sq, H, D), k/v (B, Sk, KV, D) → (B, Sq, H, D).
-    Sq and Sk must be multiples of ``block_q``/``block_k``, as the Pallas
-    wrapper asserts."""
+    """Model layout q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv) →
+    (B, Sq, H, Dv). Sq and Sk must be multiples of ``block_q``/``block_k``,
+    as the Pallas wrapper asserts; (D, Dv) must be one of ``HEAD_DIMS`` on
+    either device, so that a CPU run refuses what the card would."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    if (d, v.shape[-1]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (D, Dv) = "
+                         f"{(d, v.shape[-1])} unsupported (the kernel "
+                         f"takes {HEAD_DIMS})")
     if sq % block_q or sk % block_k:
         raise ValueError(f"flash_attention: Sq={sq}, Sk={sk} must be "
                          f"multiples of block_q={block_q}, "
@@ -79,21 +89,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _launch(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
     lib = build.library()
     b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS or v.shape[-1] != d:
-        raise ValueError(f"flash_attention: head dims {d}/{v.shape[-1]} "
-                         f"unsupported (need D = Dv in {HEAD_DIMS})")
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype} unsupported (one of f32, bf16)")
-    if h % kvh or k.shape[:3] != v.shape[:3] or k.shape[0] != b:
+    if h % kvh or k.shape[:3] != v.shape[:3] or k.shape[0] != b \
+            or k.shape[3] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
-                         "(need H % KV == 0 and k, v of one shape)")
+                         "(need H % KV == 0, k of q's D and k, v of one "
+                         "(B, Sk, KV))")
     if sq % TILE or sk % TILE or h > 65535 or b > 65535:
         raise ValueError(f"flash_attention: Sq={sq}, Sk={sk} must be "
                          f"multiples of the kernel's {TILE}-row tile")
-    # each row is read as 16-byte (f32) or 8-byte (bf16) vectors of 4
+    # each row is read as 16-byte (f32) or 8-byte (bf16) vectors of 4 (D
+    # and Dv are multiples of 4)
     align = 4 * q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -104,11 +114,11 @@ def _launch(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
             raise ValueError(f"flash_attention: {name} needs unit stride in "
                              "D, the other strides multiples of 4 and "
                              f"{align}-byte aligned data")
-    out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
+    out = torch.empty(b, sq, h, dv, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], b, h, kvh, sq, sk, d, *strides, int(causal),
+        DTYPES[q.dtype], b, h, kvh, sq, sk, d, dv, *strides, int(causal),
         0 if window is None else int(window),
         ctypes.c_float(1.0 / (d ** 0.5)), build.stream(q))
     build.check(err, NAME)

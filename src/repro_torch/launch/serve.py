@@ -8,13 +8,18 @@ The flags are the JAX CLI's (``python -m repro.launch.serve``) plus
 same ``--seed`` both CLIs print the same token ids. The prompt is fed one
 token at a time through the decode step (prefill by repeated decode, as
 the JAX CLI does), then ``--gen`` tokens are generated greedily. The
-dense, SSM (``mamba2-780m``) and hybrid (``zamba2-7b``) archs run; the
-others raise ``NotImplementedError``. On the card the model's GEMMs run in
-strict f32 (TF32 off), and the KV-cache attention and the Mamba2 state
-update are plain PyTorch (decode launches none of the port's kernels);
+dense, MoE (``dbrx-132b``; ``deepseek-v2-236b`` with MLA attention), SSM
+(``mamba2-780m``) and hybrid (``zamba2-7b``) archs run; the VLM and
+enc-dec ones raise. On the card the model's GEMMs run in
+strict f32 (TF32 off), and the KV-cache attention (MLA's absorbed form over
+the compressed cache), the MoE layer's dense form (every expert a step)
+and the Mamba2 state update are plain PyTorch (decode launches none of the
+port's kernels);
 ``--device cpu`` runs it on the CPU. Asking for ``cuda`` without a card is
 an error. :func:`serve` is the body, for any config (``chip_smoke.py``
-drives it at full width).
+drives it at full width, with prompts drawn on the card: the stream's
+vocab × vocab f64 table is 20 GB of host memory at 49K ids and 84 GB at
+deepseek's 102K).
 """
 from __future__ import annotations
 
@@ -34,11 +39,14 @@ from .train import resolve_device
 
 def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
           windowed: bool = False, seed: int = 0,
-          device: str | torch.device = "cuda") -> dict:
+          device: str | torch.device = "cuda",
+          prompts: torch.Tensor | None = None) -> dict:
     """Serve ``cfg`` from a threefry init of ``seed``: prints the timing
     line and the first 16 generated ids of row 0, and returns
     ``{"tokens": (batch, gen) int32 array,
-    "seconds", "steps", "ms_per_step", "tok_per_s"}``."""
+    "seconds", "steps", "ms_per_step", "tok_per_s"}``. ``prompts``, if
+    given, are the (batch, prompt_len) ids served in place of the
+    ``MarkovLMStream`` draw of ``seed``."""
     device = torch.device(device)
     if cfg.is_encoder_decoder:
         raise SystemExit("enc-dec serving is not ported yet "
@@ -48,9 +56,13 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
     max_len = prompt_len + gen
     cache = fns.init_decode_cache(batch, max_len, windowed=windowed,
                                   device=device)
-    stream = MarkovLMStream(cfg.vocab_size, seed=seed)
-    prompts = torch.as_tensor(stream.sample(batch, prompt_len),
-                              device=device)
+    if prompts is None:
+        stream = MarkovLMStream(cfg.vocab_size, seed=seed)
+        prompts = torch.as_tensor(stream.sample(batch, prompt_len),
+                                  device=device)
+    elif tuple(prompts.shape) != (batch, prompt_len):
+        raise ValueError(f"serve: prompts {tuple(prompts.shape)}, want "
+                         f"{(batch, prompt_len)}")
     serve_step = steps.make_serve_step(cfg, windowed=windowed)
 
     sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None

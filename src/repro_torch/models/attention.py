@@ -1,36 +1,49 @@
-"""GQA attention: the prefill/forward form, the KV cache and decode.
+"""GQA and MLA attention: the prefill/forward form, the KV cache and decode.
 
-The port of the GQA part of the JAX package's ``models/attention.py``.
+The port of the JAX package's ``models/attention.py`` (without cross
+attention). MLA (DeepSeek-V2, ``kv_lora_rank > 0``) prefills in the
+explicit form (q/k of head dim hd + dr, v of hd) and decodes in the
+absorbed form over the compressed (c, k_rope) cache.
 ``attend`` runs two of its paths:
   * ``naive``  — materialised scores (small shapes, the oracle);
   * ``pallas`` — the flash-attention kernel (``kernels.flash_attention``:
     the CUDA kernel on the card, its plain version on the CPU).
 ``auto`` resolves as the JAX package resolves it; where it would pick
-``blockwise`` or ``local`` it raises (ROADMAP item 18). MLA
-(``kv_lora_rank > 0``) is not ported; ``models.factory.build`` refuses it.
+``blockwise`` or ``local`` it raises (ROADMAP item 18).
 
-Decode writes the new token's K/V into the cache tensors in place (the JAX
-package returns a new cache); the returned cache is the same dict.
+Decode writes the new token's K/V (MLA: c and k_rope) into the cache
+tensors in place (the JAX package returns a new cache); the returned cache
+is the same dict.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import flash_attention as fa
-from .layers import apply_rope, init_linear, linear, split, sqrt_f32
+from .layers import (apply_rope, init_linear, init_rmsnorm, linear,
+                     rmsnorm, split, sqrt_f32)
 
 NEG_INF = -1e30
 
 
 def init_attention(key, cfg, device, *, dtype=None) -> dict:
-    """GQA attention params (the draws of the JAX package's
-    ``init_attention``: ``split(key, 8)``, the first four used)."""
+    """GQA (or MLA if ``cfg.kv_lora_rank > 0``) attention params, the
+    draws of the JAX package's ``init_attention``: ``split(key, 8)``, the
+    first four used (MLA: six)."""
     dtype = dtype or cfg.param_dtype
-    if cfg.kv_lora_rank:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP item 18)")
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ks = split(key, 8)
+    if cfg.kv_lora_rank:
+        r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+        return {
+            "wq": init_linear(ks[0], d, H * (hd + dr), device, dtype=dtype),
+            "w_dkv": init_linear(ks[1], d, r, device, dtype=dtype),
+            "w_kr": init_linear(ks[2], d, dr, device, dtype=dtype),
+            "kv_norm": init_rmsnorm(r, device, dtype),
+            "w_uk": init_linear(ks[3], r, H * hd, device, dtype=dtype),
+            "w_uv": init_linear(ks[4], r, H * hd, device, dtype=dtype),
+            "wo": init_linear(ks[5], H * hd, d, device, dtype=dtype),
+        }
     return {
         "wq": init_linear(ks[0], d, H * hd, device, bias=cfg.qkv_bias,
                           dtype=dtype),
@@ -107,17 +120,41 @@ def gqa_forward(p: dict, x, positions, cfg, *, causal=True, window=None,
     return linear(p["wo"], out.reshape(b, s, H * hd))
 
 
+def mla_forward(p: dict, x, positions, cfg, *, causal=True, window=None,
+                impl="auto") -> torch.Tensor:
+    """MLA, the explicit (non-absorbed) form for prefill: q/k of head dim
+    hd + dr (the rope part of k one head, broadcast), v of hd."""
+    b, s, _ = x.shape
+    H, hd, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    q = linear(p["wq"], x).reshape(b, s, H, hd + dr)
+    qn, qr = q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta)
+    c = rmsnorm(p["kv_norm"], linear(p["w_dkv"], x))             # (B,S,r)
+    kr = apply_rope(linear(p["w_kr"], x).reshape(b, s, 1, dr),
+                    positions, cfg.rope_theta)                   # one head
+    kn = linear(p["w_uk"], c).reshape(b, s, H, hd)
+    v = linear(p["w_uv"], c).reshape(b, s, H, hd)
+    qf = torch.cat([qn, qr], dim=-1)
+    kf = torch.cat([kn, kr.expand(b, s, H, dr)], dim=-1)
+    out = attend(qf, kf, v, causal=causal, window=window, impl=impl)
+    return linear(p["wo"], out.reshape(b, s, H * hd))
+
+
 def attention_forward(p, x, positions, cfg, **kw):
     if cfg.kv_lora_rank:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP item 18)")
+        return mla_forward(p, x, positions, cfg, **kw)
     return gqa_forward(p, x, positions, cfg, **kw)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device,
                   dtype=None) -> dict:
-    """Per-layer GQA cache: K/V of (B, max_len, KV, hd), zeros."""
+    """Per-layer cache, zeros. GQA: K/V of (B, max_len, KV, hd). MLA: the
+    compressed c (B, max_len, r) and k_rope (B, max_len, dr)."""
     dtype = dtype or cfg.compute_dtype
+    if cfg.kv_lora_rank:
+        return {"c": torch.zeros(batch, max_len, cfg.kv_lora_rank,
+                                 dtype=dtype, device=device),
+                "kr": torch.zeros(batch, max_len, cfg.rope_head_dim,
+                                  dtype=dtype, device=device)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -149,23 +186,65 @@ def gqa_decode(p: dict, x, cache: dict, pos: int, cfg, *,
     qg = _group_heads(q, KV)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kc.float()) \
         / sqrt_f32(hd, x.device)
-    idx = torch.arange(cap, device=x.device)
-    if windowed:
-        # slot i holds absolute position: reconstructed from the ring layout
-        abs_pos = torch.where(idx <= slot, pos - (slot - idx),
-                              pos - (slot + cap - idx))
-        valid = (abs_pos >= 0) & (abs_pos > pos - cap)
-    else:
-        valid = idx <= pos
-    s = torch.where(valid, s, NEG_INF)
+    s = torch.where(_valid_slots(cap, slot, pos, windowed, x.device), s,
+                    NEG_INF)
     pr = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", pr, vc.float())
     out = out.reshape(b, 1, H * hd).to(x.dtype)
     return linear(p["wo"], out), cache
 
 
+def _valid_slots(cap: int, slot: int, pos: int, windowed: bool, device):
+    """(cap,) mask of the cache slots that hold a position the new token at
+    ``pos`` attends to."""
+    idx = torch.arange(cap, device=device)
+    if windowed:
+        # slot i holds absolute position: reconstructed from the ring layout
+        abs_pos = torch.where(idx <= slot, pos - (slot - idx),
+                              pos - (slot + cap - idx))
+        return (abs_pos >= 0) & (abs_pos > pos - cap)
+    return idx <= pos
+
+
+def mla_decode(p: dict, x, cache: dict, pos: int, cfg, *,
+               windowed: bool = False) -> tuple[torch.Tensor, dict]:
+    """Absorbed MLA decode: scores and output in the r-dim latent space, so
+    the per-token cache is only r + dr floats. x (B,1,d); cache c (B,C,r),
+    kr (B,C,dr); the ring buffer and the write clamp as in
+    :func:`gqa_decode`."""
+    b = x.shape[0]
+    H, hd, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    r = cfg.kv_lora_rank
+    pos = int(pos)
+    cap = cache["c"].shape[1]
+    q = linear(p["wq"], x).reshape(b, 1, H, hd + dr)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    qn, qr = q[..., :hd], apply_rope(q[..., hd:], posv, cfg.rope_theta)
+    c_new = rmsnorm(p["kv_norm"], linear(p["w_dkv"], x))         # (B,1,r)
+    kr_new = apply_rope(linear(p["w_kr"], x).reshape(b, 1, 1, dr), posv,
+                        cfg.rope_theta).reshape(b, 1, dr)
+    slot = pos % cap if windowed else pos
+    start = min(max(slot, 0), cap - 1)
+    cache["c"][:, start] = c_new[:, 0].to(cache["c"].dtype)
+    cache["kr"][:, start] = kr_new[:, 0].to(cache["kr"].dtype)
+    cc, krc = cache["c"].float(), cache["kr"].float()
+    # absorb W_uk into q: q_lat (B,1,H,r)
+    wuk = p["w_uk"]["w"].reshape(r, H, hd).float()
+    q_lat = torch.einsum("bqhd,rhd->bqhr", qn.float(), wuk)
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat, cc)
+         + torch.einsum("bqhd,bsd->bhqs", qr.float(), krc)) \
+        / sqrt_f32(hd + dr, x.device)
+    s = torch.where(_valid_slots(cap, slot, pos, windowed, x.device), s,
+                    NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", pr, cc)                 # latent
+    wuv = p["w_uv"]["w"].reshape(r, H, hd).float()
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, wuv)
+    out = out.reshape(b, 1, H * hd).to(x.dtype)
+    return linear(p["wo"], out), cache
+
+
 def attention_decode(p, x, cache, pos, cfg, *, windowed=False):
     if cfg.kv_lora_rank:
-        raise NotImplementedError("MLA decode is not ported yet "
-                                  "(ROADMAP item 18)")
+        return mla_decode(p, x, cache, pos, cfg, windowed=windowed)
     return gqa_decode(p, x, cache, pos, cfg, windowed=windowed)

@@ -45,8 +45,11 @@ def sqrt_f32(n: int, device) -> torch.Tensor:
 
 
 def he_init(key, shape: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """Normal / √fan_in, fan_in the leading axis (E for an (E, d, ff)
+    expert stack, as in the JAX package); divided in place, so a draw of
+    5 GB (one deepseek-v2-236b expert matrix) needs no second 5 GB."""
     fan_in = shape[0] if len(shape) >= 2 else 1
-    return (normal(key, shape, device) / sqrt_f32(fan_in, device)).to(dtype)
+    return normal(key, shape, device).div_(sqrt_f32(fan_in, device)).to(dtype)
 
 
 def init_linear(key, d_in: int, d_out: int, device, *, bias: bool = False,

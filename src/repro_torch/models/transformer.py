@@ -1,7 +1,7 @@
-"""Decoder-only LM stack, dense / ssm / hybrid: init, forward (prefill) and
-cached decode.
+"""Decoder-only LM stack, dense / moe / ssm / hybrid: init, forward
+(prefill) and cached decode.
 
-The port of the JAX package's ``models/transformer.py`` for those three
+The port of the JAX package's ``models/transformer.py`` for those four
 arch types. The parameter tree is the JAX package's: the layers are
 stacked with a leading L axis (``params["layers"]["attn"]["wq"]["w"]`` is
 (L, d, H·hd)), and the forward pass loops over them in Python where the
@@ -12,14 +12,19 @@ Hybrid (Zamba2): stacked Mamba2 layers with ONE shared attention+MLP block
 decode keeps one KV cache per segment call site (the weights are shared,
 the caches are not).
 
+MoE (dbrx, deepseek-v2 with MLA attention): the attention layers with a
+``moe`` block in place of the MLP; ``forward`` returns the load-balance
+aux loss summed over the layers.
+
 ``remat`` and ``act_sharding`` have no meaning in eager PyTorch and are
-not taken; ``prefix_embeds`` (VLM) and MoE layers are not ported.
+not taken; ``prefix_embeds`` (VLM) is not ported.
 """
 from __future__ import annotations
 
 import torch
 
 from . import attention as attn
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, split, unembed)
@@ -47,24 +52,30 @@ def _set(stacked, i: int, tree) -> None:
 
 def _init_stack(key, n: int, init_one):
     """``n`` layers, one key each, into one tree with a leading axis,
-    filled layer by layer (never two copies of the stack at once)."""
+    filled layer by layer: the stack and one layer at a time (a layer is
+    dropped before the next one is drawn)."""
     out = None
     for i, k in enumerate(split(key, n)):
         one = init_one(k)
         if out is None:
             out = _empty_stack(one, n)
         _set(out, i, one)
+        del one
     return out
 
 
 def _init_attn_layer(cfg, device, dtype):
     def init_one(k):
         k1, k2 = split(k, 2)
-        return {"ln1": init_rmsnorm(cfg.d_model, device, dtype),
-                "attn": attn.init_attention(k1, cfg, device, dtype=dtype),
-                "ln2": init_rmsnorm(cfg.d_model, device, dtype),
-                "mlp": init_mlp(k2, cfg.d_model, cfg.d_ff, device,
-                                gated=cfg.gated_mlp, dtype=dtype)}
+        p = {"ln1": init_rmsnorm(cfg.d_model, device, dtype),
+             "attn": attn.init_attention(k1, cfg, device, dtype=dtype),
+             "ln2": init_rmsnorm(cfg.d_model, device, dtype)}
+        if cfg.arch_type == "moe":
+            p["moe"] = moe_lib.init_moe(k2, cfg, device, dtype=dtype)
+        else:
+            p["mlp"] = init_mlp(k2, cfg.d_model, cfg.d_ff, device,
+                                gated=cfg.gated_mlp, dtype=dtype)
+        return p
     return init_one
 
 
@@ -76,11 +87,11 @@ def _init_mamba_layer(cfg, device, dtype):
     return init_one
 
 
-ARCH_TYPES = ("dense", "ssm", "hybrid")
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid")
 
 
 def init_lm(cfg, key, device="cuda") -> dict:
-    """Parameters of a dense, SSM or hybrid LM. ``key`` is a threefry key
+    """Parameters of a dense, MoE, SSM or hybrid LM. ``key`` is a threefry key
     (``core.prng.PRNGKey``), which draws the JAX package's exact numbers,
     or a ``torch.Generator``."""
     if cfg.arch_type not in ARCH_TYPES:
@@ -96,7 +107,7 @@ def init_lm(cfg, key, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(k_head, cfg.padded_vocab,
                                            cfg.d_model, device, dtype)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         params["layers"] = _init_stack(k_layers, cfg.num_layers,
                                        _init_attn_layer(cfg, device, dtype))
         return params
@@ -110,10 +121,16 @@ def init_lm(cfg, key, device="cuda") -> dict:
 
 
 def _attn_layer_fwd(cfg, p, x, positions, *, window, impl):
+    """One attention layer -> (h, the MoE block's aux loss or 0)."""
     h = x + attn.attention_forward(
         p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), positions, cfg,
         causal=True, window=window, impl=impl)
-    return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+    hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+    if "moe" in p:
+        y, aux = moe_lib.moe_forward(p["moe"], hn, cfg)
+    else:
+        y, aux = mlp(p["mlp"], hn), torch.zeros((), device=x.device)
+    return h + y, aux
 
 
 def _mamba_layer_fwd(cfg, p, x):
@@ -133,14 +150,17 @@ def _segments(cfg) -> list[range]:
 def forward(cfg, params: dict, tokens: torch.Tensor, *,
             window: int | None = None, attn_impl: str = "auto"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Token ids (B, S) -> (logits (B, S, padded_vocab), aux_loss = 0)."""
+    """Token ids (B, S) -> (logits (B, S, padded_vocab), aux_loss): the
+    MoE layers' load-balance losses summed in f32 (0 for the others)."""
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    if cfg.arch_type == "dense":
+    aux = torch.zeros((), device=x.device)
+    if cfg.arch_type in ("dense", "moe"):
         for i in range(cfg.num_layers):
-            x = _attn_layer_fwd(cfg, _index(params["layers"], i), x,
-                                positions, window=window, impl=attn_impl)
+            x, a = _attn_layer_fwd(cfg, _index(params["layers"], i), x,
+                                   positions, window=window, impl=attn_impl)
+            aux = aux + a
     elif cfg.arch_type == "ssm":
         for i in range(cfg.num_layers):
             x = _mamba_layer_fwd(cfg, _index(params["layers"], i), x)
@@ -148,13 +168,14 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *,
         for seg in _segments(cfg):
             for i in seg:
                 x = _mamba_layer_fwd(cfg, _index(params["layers"], i), x)
-            x = _attn_layer_fwd(cfg, params["shared_attn"], x, positions,
-                                window=window, impl=attn_impl)
+            x, a = _attn_layer_fwd(cfg, params["shared_attn"], x,
+                                   positions, window=window, impl=attn_impl)
+            aux = aux + a
     else:
         raise ValueError(cfg.arch_type)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
-    return unembed(head, x), torch.zeros((), device=x.device)
+    return unembed(head, x), aux
 
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *, windowed=False,
@@ -168,7 +189,7 @@ def init_decode_cache(cfg, batch: int, seq_len: int, *, windowed=False,
     def stack(one: dict, n: int) -> dict:
         return {k: torch.stack([v] * n) for k, v in one.items()}
 
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         return {"layers": stack(attn.init_kv_cache(cfg, batch, cap, device,
                                                    dtype), cfg.num_layers)}
     if cfg.arch_type not in ("ssm", "hybrid"):
@@ -187,7 +208,10 @@ def _attn_layer_decode(cfg, p, x, cache, pos, windowed):
                                      rmsnorm(p["ln1"], x, cfg.norm_eps),
                                      cache, pos, cfg, windowed=windowed)
     x = x + a_out
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        return x + moe_lib.moe_forward(p["moe"], hn, cfg, decode=True)[0]
+    return x + mlp(p["mlp"], hn)
 
 
 def _mamba_layer_decode(cfg, p, x, states: dict, i: int):
@@ -207,7 +231,7 @@ def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,
     """One-token decode. tokens (B, 1); pos the current position. The
     cache is updated in place and returned."""
     x = embed(params["embed"], tokens, cfg.compute_dtype)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         for i in range(cfg.num_layers):
             x = _attn_layer_decode(cfg, _index(params["layers"], i), x,
                                    _index(cache["layers"], i), pos, windowed)

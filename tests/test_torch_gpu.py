@@ -670,6 +670,61 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype):
         assert err < tol, (causal, window, err)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,dv", [(2, 8, 8, 128, 48, 32),
+                                           (1, 4, 2, 256, 48, 32),
+                                           (1, 4, 4, 256, 192, 128),
+                                           (1, 2, 1, 192, 192, 128),
+                                           (1, 2, 2, 1024, 192, 128)])
+def test_flash_attention_mla_pairs_match_plain(cuda, b, h, kv, s, d, dv,
+                                               dtype):
+    """MLA's head dims, q/k of D = hd + dr and v of Dv = hd (deepseek's
+    smoke config and full width; at (192, 128) in f32 the kernel keeps
+    one V buffer), causal / window 96 / non-causal, at the sweep's
+    tolerances; the output is (B, S, H, Dv)."""
+    from repro_torch.kernels import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, s, kv, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, s, kv, dv, generator=gen, device=cuda).to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    blk = 128 if s % 128 == 0 else 64
+    for causal, window in ((True, None), (True, 96), (False, None)):
+        out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              window=window, block_q=blk,
+                                              block_k=blk)
+        ref = flash_attention.attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+        assert out.dtype == dtype and out.shape == (b, s, h, dv)
+        err = float((out.float() - ref.float()).abs().max())
+        assert err < tol, (causal, window, err)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention(q, k, q, block_q=blk, block_k=blk)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b"])
+def test_moe_prefill_on_card_matches_cpu(cuda, arch):
+    """The MoE smoke configs: one flash launch per layer (MLA at (48, 32),
+    dbrx at 32), the dispatch form's atomics within 1e-4 of the CPU's
+    logits, the aux loss within 1e-5."""
+    from repro_torch import configs, convert
+    from repro_torch.core import prng
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke_config(arch)
+    params = transformer.init_lm(cfg, prng.PRNGKey(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(0))
+    ref, ref_aux = transformer.forward(cfg, params, toks, attn_impl="pallas")
+    gp = convert.params_from_jax(convert.params_to_numpy(params), cuda)
+    dispatch.reset_launch_counts()
+    out, aux = transformer.forward(cfg, gp, toks.to(cuda),
+                                   attn_impl="pallas")
+    assert dispatch.launch_counts()["flash_attention"] == cfg.num_layers
+    assert float((out.cpu() - ref).abs().max()) < 1e-4
+    assert abs(float(aux) - float(ref_aux)) < 1e-5
+
+
 def test_flash_attention_launches_once_per_layer(cuda):
     """One kernel launch per layer per forward, none per decode step."""
     from repro_torch import configs

@@ -111,6 +111,20 @@ def test_tensor_threefry_and_normal_match_jax(shape):
     np.testing.assert_array_equal(out.numpy(), prng.normal(pk, shape))
 
 
+@pytest.mark.parametrize("shape", [(70_001,), (3, 50, 701)])
+def test_chunked_normal_draw_is_bit_equal(shape, monkeypatch):
+    """A numpy-key draw past ``NORMAL_CHUNK`` numbers (an expert stack at
+    full width) hashes its counters a chunk at a time: the same numbers,
+    also where a chunk ends inside a row."""
+    pk = prng.fold_in(prng.PRNGKey(3), 11)
+    whole = prng.normal_t(pk, shape, "cpu")
+    monkeypatch.setattr(prng, "NORMAL_CHUNK", 4_099)
+    chunked = prng.normal_t(pk, shape, "cpu")
+    assert tuple(chunked.shape) == shape
+    assert torch.equal(chunked, whole)
+    np.testing.assert_array_equal(chunked.numpy(), prng.normal(pk, shape))
+
+
 def test_tensor_draws_take_a_batch_of_keys():
     keys = prng.fold_in(prng.PRNGKey(4), np.arange(3))
     jkeys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(4), i))(

@@ -418,13 +418,9 @@ def test_decode_matches_prefill(arch):
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("dbrx-132b", "moe"), ("deepseek-v2-236b", "moe"),
-    ("internvl2-26b", "vlm"), ("whisper-large-v3", "encoder-decoder"),
-    ("granite-3-2b", "MLA")])
+    ("internvl2-26b", "vlm"), ("whisper-large-v3", "encoder-decoder")])
 def test_build_still_refuses_the_other_families(arch, what):
     cfg = configs.get_smoke_config(arch)
-    if what == "MLA":
-        cfg = cfg.with_(kv_lora_rank=64)
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 18"):
         build(cfg)
 
