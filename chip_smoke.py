@@ -83,8 +83,11 @@ the last line):
    bound), at zamba2-7b's
    shape (1, 4096, 32/32 heads, 112), at deepseek-v2-236b's MLA shape
    (1, 4096, 128/128 heads, D = 192, Dv = 128; causal and a 64-key window;
-   kernel, plain and SDPA times), at dbrx-132b's GQA shape (1, 4096,
-   48/8 heads of 128, causal; kernel, plain and SDPA times), on the JAX
+   kernel, plain and SDPA times), at dbrx-132b's and internvl2-26b's GQA
+   shape (1, 4096, 48/8 heads of 128, causal), at whisper-large-v3's
+   encoder (4, 2048, 20/20 heads of 64, non-causal), decoder (causal) and
+   cross-attention (512 rows over 2,048 keys, non-causal) shapes (kernel,
+   plain and SDPA times), on the JAX
    package's sweep and on MLA's (48, 32) and (192, 128) sweep in f32 and
    bf16; one full-width prefill forward
    (``attn_impl="pallas"``, tokens (2, 4096) drawn on the card) with
@@ -117,6 +120,22 @@ the last line):
    tokens, so both sides take the dense MoE form), with ms per decode
    step; dbrx's prefill of 128 tokens through the kernel against the naive
    attention's; deepseek's ``serve()``; both smoke configs card vs CPU;
+8c. VLM and enc-dec paths — ``internvl2-26b`` (GQA 48/8 heads of 128) at
+   full width, depth cut to fit the card (the most layers whose f32
+   weights and 5 GB of prefill activations fit 75 GB; printed): prefill of
+   ``make_dummy_batch``'s (1, 4096) batch on the card, 512 vision
+   embeddings before 3,584 tokens, one ``flash_attention`` launch a layer,
+   timed, profiled, peak memory under 75 GB; the kernels' prefill against
+   the naive attention's on 32 + 96 positions; decode of 64 tokens
+   against prefill (plain and a 16-slot ring); ``serve()``;
+   ``whisper-large-v3`` at full width and depth (32 + 32 layers): a
+   forward of ``make_dummy_batch``'s (4, 4096) batch (2,048 frames, 2,048
+   tokens) with exactly 96
+   ``flash_attention`` launches (encoder, decoder self and cross attention
+   a layer), a second with 512 decoder tokens over the same frames (cross
+   attention at Sq != Sk), both timed and profiled; greedy decode through
+   ``encode`` → ``prefill_cross_cache`` → the serve step at B = 4 against
+   the teacher-forced logits; both smoke configs card vs CPU;
 6d. after the baselines, the drift phase (DESIGN.md §13) and the
    availability phase (§14), the population phase (DESIGN.md §17):
    ``dirichlet_rows`` with one concentration per element against its
@@ -2906,8 +2925,10 @@ def check_flash_attention(torch, dev):
     expanded to H heads outside the timed region) and the bound of each
     mask (the FLOP of the unmasked pairs only), then zamba2-7b's D = 112
     shape, deepseek-v2-236b's MLA shape (D = 192, Dv = 128), causal and
-    with a 64-key window, and dbrx-132b's GQA shape (48/8 heads of 128),
-    causal."""
+    with a 64-key window, dbrx-132b's and internvl2-26b's GQA shape (48/8
+    heads of 128), causal, and whisper-large-v3's encoder (4, 2048, 20/20
+    heads of 64, non-causal), decoder (the same, causal) and cross
+    attention (512 rows over 2,048 keys, non-causal)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -3031,7 +3052,8 @@ def check_flash_attention(torch, dev):
     # heads, q/k of 128 + 64, v of 128; causal and a 64-key window) and
     # dbrx-132b's GQA (48/8 heads of 128, group 6; causal)
     from repro_torch import configs
-    for arch, windows in ((MLA_ARCH, (None, 64)), (MOE_ARCH, (None,))):
+    for arch, windows in ((MLA_ARCH, (None, 64)), (MOE_ARCH, (None,)),
+                          (VLM_ARCH, (None,))):
         c = configs.get_config(arch)
         b, s, h = MOE_PREFILL + (c.n_heads,)
         mla = c.kv_lora_rank > 0
@@ -3095,6 +3117,49 @@ def check_flash_attention(torch, dev):
             torch.cuda.empty_cache()
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+
+    # whisper-large-v3 (20/20 heads of 64): the encoder's self attention
+    # over 2,048 frames, non-causal; the decoder's causal self attention
+    # over 2,048 tokens; the cross attention, 512 rows over the 2,048
+    # frames (Sq != Sk), non-causal
+    c = configs.get_config(ENCDEC_ARCH)
+    b, h, d = ENCDEC_PREFILL[0], c.n_heads, c.head_dim
+    sk = ENCDEC_PREFILL[1] // 2
+    for what, sq, causal in (("encoder", sk, False), ("decoder", sk, True),
+                             ("cross", ENCDEC_CROSS_TOKENS, False)):
+        q, k, v = rand(b, sq, h, d), rand(b, sk, h, d), rand(b, sk, h, d)
+        out = kfa.flash_attention(q, k, v, causal=causal)
+        err = float((out - plain(q, k, v, causal, None)).abs().max())
+        if not err <= tols[torch.float32] or out.shape != q.shape:
+            fail(f"flash_attention {ENCDEC_ARCH} {what} {(b, sq, sk, h, d)}: "
+                 f"max error {err} > 2e-5 or out {tuple(out.shape)}")
+        worst[torch.float32] = max(worst[torch.float32], err)
+        del out
+        run = lambda: kfa.flash_attention(q, k, v, causal=causal)
+        ms = time_ms(run, reps=10)
+        plain_ms = time_ms(lambda: plain(q, k, v, causal, None), reps=3,
+                           warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms, backend = sdpa_ms(torch, qt, kt, vt, dict(is_causal=causal))
+        pairs = attended_pairs(sk, True, None) if causal else sq * sk
+        ops = 4 * d * b * h * pairs
+        b_ms, b_by = bound(4 * b * h * d * (2 * sq + 2 * sk), ops)
+        rows.append(dict(arch=ENCDEC_ARCH, what=what, causal=causal,
+                         window=None, D=d, Dv=d, shape=(b, sq, sk, h, h, d),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_backend=backend,
+                         bound_ms=b_ms, bound_by=b_by, tflops=ops / ms / 1e9,
+                         share_of_bound=b_ms / ms))
+        lib = f"{lib_ms:.4f} ms SDPA ({backend})" if lib_ms is not None \
+            else f"SDPA: none ({backend})"
+        print(f"flash_attention {ENCDEC_ARCH} {what} shape (B, Sq, Sk, H, KV, "
+              f"D) = {(b, sq, sk, h, h, d)} f32 causal={causal}: max err "
+              f"{err:.3g} (tol 2e-5); {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+              f"plain, {lib}, bound {b_ms:.4f} ms ({b_by}), "
+              f"{ops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.0%} of the bound",
+              flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     main_row = rows[0]
     return dict(name=kfa.NAME, route="cuda", source=kfa.SOURCE,
                 replaces=kfa.REPLACES, max_abs_err=worst[torch.float32],
@@ -3153,9 +3218,17 @@ def lm_profile(torch, run, label) -> None:
 def uncounted_params(cfg) -> int:
     """Parameters that ``ArchConfig.param_count`` leaves out: the norm
     scales (MLA's ``kv_norm`` too, r a layer), and per Mamba2 block the
-    depthwise conv, its bias, the dt bias, A_log, D and the gated norm."""
+    depthwise conv, its bias, the dt bias, A_log, D and the gated norm
+    (enc-dec: less what it counts twice)."""
     d = cfg.d_model
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.is_encoder_decoder:
+        # the encoder's 2 and the decoder's 3 norms a layer, enc_norm and
+        # final_norm; param_count also counts a cross attention in every
+        # encoder layer, which has none
+        hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        per_attn = d * H * hd + 2 * d * KV * hd + H * hd * d
+        return (5 * cfg.num_layers + 2) * d - cfg.num_layers * per_attn
+    if cfg.arch_type in ("dense", "moe", "vlm"):
         return (2 * cfg.num_layers + 1) * d \
             + cfg.num_layers * cfg.kv_lora_rank
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state
@@ -3175,15 +3248,19 @@ def check_param_count(label, cfg, params) -> int:
     return n_par
 
 
-def prefill(torch, label, cfg, fns, params, toks, launches: dict) -> dict:
-    """One full-width prefill forward (``attn_impl="pallas"``) with every
-    launch count set to 0 just before and read just after: it must equal
-    ``launches`` (the other kernels 0). Then three timed runs (host clock,
-    synchronised), tokens/s, peak memory and one profiled run."""
+def prefill(torch, label, cfg, fns, params, toks, launches: dict,
+            extra: dict | None = None) -> dict:
+    """One full-width prefill forward (``attn_impl="pallas"``) of ``toks``
+    (and the ``extra`` inputs: a VLM's ``vision_embeds``, an enc-dec's
+    ``encoder_frames``) with every launch count set to 0 just before and
+    read just after: it must equal ``launches`` (the other kernels 0). Then
+    three timed runs (host clock, synchronised), positions/s (every input
+    position: tokens, vision embeddings, frames), peak memory and one
+    profiled run."""
     from repro_torch.core import dispatch
 
-    forward = lambda: fns.forward(params, {"tokens": toks},
-                                  attn_impl="pallas")
+    batch = dict(extra or {}, tokens=toks)
+    forward = lambda: fns.forward(params, batch, attn_impl="pallas")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
@@ -3206,12 +3283,14 @@ def prefill(torch, label, cfg, fns, params, toks, launches: dict) -> dict:
         forward()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    n_tok = toks.numel()
-    print(f"{label} prefill: (B, S) = {tuple(toks.shape)}, launches "
+    n_pos = sum(math.prod(x.shape[:2]) for x in batch.values())
+    inputs = ", ".join(f"{name} {tuple(x.shape)}"
+                       for name, x in batch.items())
+    print(f"{label} prefill: {inputs}, launches "
           + ", ".join(f"{n} {name}" for name, n in launches.items())
           + f", logits finite; {[round(w, 1) for w in walls]} ms per "
           f"prefill (host clock, synchronised), "
-          f"{n_tok / min(walls) * 1e3:.0f} tokens/s at the best; peak "
+          f"{n_pos / min(walls) * 1e3:.0f} positions/s at the best; peak "
           f"device memory {peak_gb:.2f} GB", flush=True)
     lm_profile(torch, forward, f"{label} prefill")
     return counts
@@ -3388,21 +3467,20 @@ MOE_ACTIVATION_BYTES = 10e9    # a (1, 4096) prefill's activations, at most
 MOE_DECODE = {MLA_ARCH: (128, "pallas", 64), MOE_ARCH: (48, "naive", 16)}
 
 
-def kernel_vs_naive_prefill(torch, label, cfg, params, toks) -> None:
-    """A prefill through the kernels against the naive attention's prefill
-    of the same tokens at full width, to 1e-4 of the largest logit."""
-    from repro_torch.models import transformer
-
-    ref, _ = transformer.forward(cfg, params, toks, attn_impl="naive")
-    out, _ = transformer.forward(cfg, params, toks, attn_impl="pallas")
+def kernel_vs_naive(torch, label, what, run) -> None:
+    """``run(attn_impl)``'s logits through the kernels (``"pallas"``)
+    against the naive attention's on the same input at full width, to
+    1e-4 of the largest logit; ``what`` names the input."""
+    ref = run("naive")
+    out = run("pallas")
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
     if not err <= 1e-4 * scale:
-        fail(f"{label} prefill {tuple(toks.shape)}: kernels vs naive "
-             f"attention max error {err} > 1e-4 of max |logit| {scale:.3g}")
-    print(f"{label} prefill at full width, {tuple(toks.shape)} tokens: the "
-          f"kernels' logits vs the naive attention's, max |diff| {err:.3g} "
-          f"(tol {1e-4 * scale:.3g} = 1e-4 of max |logit| {scale:.3g})",
+        fail(f"{label} prefill {what}: kernels vs naive attention max "
+             f"error {err} > 1e-4 of max |logit| {scale:.3g}")
+    print(f"{label} prefill at full width, {what}: the kernels' logits vs "
+          f"the naive attention's, max |diff| {err:.3g} (tol "
+          f"{1e-4 * scale:.3g} = 1e-4 of max |logit| {scale:.3g})",
           flush=True)
     del ref, out
 
@@ -3426,7 +3504,7 @@ def moe_path(torch, dev, arch) -> dict:
     the naive one the kernels' prefill against it, and deepseek's
     ``serve()``. Returns the prefill's launch counts."""
     from repro_torch import configs
-    from repro_torch.models import build, moe
+    from repro_torch.models import build, moe, transformer
 
     full = configs.get_config(arch)
     depth = moe_depth(full)
@@ -3468,7 +3546,9 @@ def moe_path(torch, dev, arch) -> dict:
         decode_vs_prefill(torch, arch, cfg, params, dec_toks[:, :n_dec], w,
                           attn_impl=impl)
     if impl != "pallas":     # so the kernel is held in the model here too
-        kernel_vs_naive_prefill(torch, arch, cfg, params, dec_toks)
+        kernel_vs_naive(torch, arch, f"{tuple(dec_toks.shape)} tokens",
+                        lambda impl: transformer.forward(
+                            cfg, params, dec_toks, attn_impl=impl)[0])
     del params
     torch.cuda.empty_cache()
     if arch == MLA_ARCH:
@@ -3629,6 +3709,275 @@ def ssm_path(torch, dev, arch, tokens, launches):
     del params
     torch.cuda.empty_cache()
     return counts
+
+
+VLM_ARCH, ENCDEC_ARCH = "internvl2-26b", "whisper-large-v3"
+VLM_PREFILL = (1, 4096)           # 512 vision embeddings + 3,584 tokens
+VLM_ACTIVATION_BYTES = 5e9        # a (1, 4096) prefill's activations, at most
+ENCDEC_PREFILL = (4, 4096)        # 2,048 frames + 2,048 tokens
+ENCDEC_CROSS_TOKENS = 512         # decoder rows of the Sq != Sk forward
+ENCDEC_DECODE = 64                # greedy steps, B = 4, over 2,048 frames
+# decode against prefill: tokens, the prefill's attention (64 tokens are no
+# multiple of the kernel's 128-row block), the ring's window (wrapped)
+VLM_DECODE = (64, "naive", 16)
+
+
+def vlm_depth(cfg) -> int:
+    """The most layers of ``cfg`` whose f32 weights and a (1, 4096)
+    prefill's activations stay under ``MOE_PEAK_BYTES``."""
+    depth = cfg.num_layers
+    while depth > 1:
+        c = cfg.with_(num_layers=depth)
+        if 4 * (c.param_count() + uncounted_params(c)) \
+                + VLM_ACTIVATION_BYTES <= MOE_PEAK_BYTES:
+            return depth
+        depth -= 1
+    fail(f"{cfg.name}: one layer does not fit one card")
+
+
+def vlm_path(torch, dev) -> dict:
+    """The VLM serving slice (internvl2-26b) at full width, depth cut to fit
+    one card (``vlm_depth``, printed): a (1, 4096) prefill of
+    ``make_dummy_batch``'s batch on the card (512 vision embeddings before
+    3,584 tokens; one flash launch a layer; counted, timed, profiled,
+    peak memory under ``MOE_PEAK_BYTES``), the kernels' prefill against
+    the naive attention's on 32 + 96 positions, decode of 64 tokens
+    against the naive attention's prefill without a prefix (plain and a
+    16-slot ring), and ``serve()``. Returns the prefill's launch
+    counts."""
+    from repro_torch import configs
+    from repro_torch.models import build, make_dummy_batch, transformer
+
+    full = configs.get_config(VLM_ARCH)
+    depth = vlm_depth(full)
+    cfg = full.with_(num_layers=depth)
+    fns = build(cfg)
+    shape = configs.InputShape("vlm", VLM_PREFILL[1], VLM_PREFILL[0],
+                               "prefill")
+    batch = make_dummy_batch(cfg, shape, device=dev)
+    toks, vis = batch["tokens"], batch["vision_embeds"]
+    dec_toks = torch.randint(0, cfg.vocab_size, (1, 128), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1))
+    t0 = time.perf_counter()
+    params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = check_param_count(VLM_ARCH, cfg, params)
+    print(f"vlm: {VLM_ARCH} at full width, depth {depth} of "
+          f"{full.num_layers} layers (the most whose f32 weights, "
+          f"{4 * n_par / 1e9:.1f} GB here, and "
+          f"{VLM_ACTIVATION_BYTES / 1e9:.0f} GB of prefill activations fit "
+          f"{MOE_PEAK_BYTES / 1e9:.0f} GB): d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}; "
+          f"{n_par:,} f32 parameters from a CUDA torch.Generator in "
+          f"{init_s:.1f} s; make_dummy_batch of {VLM_PREFILL} on the card: "
+          f"vision_embeds {tuple(vis.shape)} before tokens "
+          f"{tuple(toks.shape)}; decode tokens by torch.randint", flush=True)
+    counts = prefill(torch, "vlm", cfg, fns, params, toks,
+                     {"flash_attention": depth}, {"vision_embeds": vis})
+    peak = torch.cuda.max_memory_allocated()
+    if peak > MOE_PEAK_BYTES:
+        fail(f"vlm prefill: peak device memory {peak / 1e9:.2f} GB > "
+             f"{MOE_PEAK_BYTES / 1e9:.0f} GB at depth {depth}")
+    del batch, toks
+    torch.cuda.empty_cache()
+    kernel_vs_naive(torch, "vlm", "(1, 96) tokens after 32 vision "
+                    "embeddings", lambda impl: transformer.forward(
+                        cfg, params, dec_toks[:, :96],
+                        prefix_embeds=vis[:, :32], attn_impl=impl)[0])
+    del vis
+    n_dec, impl, ring = VLM_DECODE
+    for window in (None, ring):
+        decode_vs_prefill(torch, "vlm", cfg, params, dec_toks[:, :n_dec],
+                          window, attn_impl=impl)
+    del params
+    torch.cuda.empty_cache()
+    serve_phase(torch, "vlm", cfg, dev)
+    return counts
+
+
+def encdec_decode(torch, label, cfg, params, frames, first) -> None:
+    """Greedy decode through ``encode`` → ``prefill_cross_cache`` → the
+    serve step, ``ENCDEC_DECODE`` steps from the tokens ``first`` (B, 1)
+    (ms a step, host clock, synchronised at both ends), then the generated
+    sequence decoded again through ``decode_step`` against the
+    teacher-forced forward of the same tokens (the naive attention: 64
+    tokens are no multiple of the kernel's block; the forwards above hold
+    the kernel), to 1e-4 of the largest logit; the serve step's ids must
+    be the argmax of those decode logits."""
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+
+    b, n = first.shape[0], ENCDEC_DECODE
+    serve_step = steps.make_serve_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encdec.encode(cfg, params, frames, attn_impl="pallas")
+    cache = encdec.prefill_cross_cache(
+        cfg, params, encdec.init_decode_cache(cfg, b, n, enc_len=
+                                              frames.shape[1],
+                                              device=frames.device), enc)
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.perf_counter() - t0)
+    toks = [first]
+    t0 = time.perf_counter()
+    for i in range(n - 1):
+        nxt, cache = serve_step(params, cache, toks[-1], i)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / (n - 1)
+    seq = torch.cat(toks, dim=1)
+    cache = encdec.prefill_cross_cache(
+        cfg, params, encdec.init_decode_cache(cfg, b, n, enc_len=
+                                              frames.shape[1],
+                                              device=frames.device), enc)
+    outs = []
+    with torch.no_grad():
+        for i in range(n):
+            lg, cache = encdec.decode_step(cfg, params, cache,
+                                           seq[:, i:i + 1], i)
+            outs.append(lg)
+        dec = torch.cat(outs, dim=1)
+        full = encdec.decode_train(cfg, params, seq, enc, attn_impl="naive")
+    ids = torch.argmax(dec[..., :cfg.vocab_size], dim=-1).to(torch.int32)
+    if not torch.equal(ids[:, :-1], seq[:, 1:]):
+        fail(f"{label} greedy decode: the serve step's ids are not the "
+             "argmax of the decode logits")
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    if not err <= 1e-4 * scale:
+        fail(f"{label} decode vs teacher-forced: max error {err} > 1e-4 of "
+             f"max |logit| {scale:.3g}")
+    print(f"{label} greedy decode at full width, B = {b}, {n - 1} serve "
+          f"steps over {frames.shape[1]} frames: encode + cross cache "
+          f"{enc_ms:.1f} ms, {step_ms:.2f} ms/step; decode vs the "
+          f"teacher-forced forward (naive) of the {n} tokens max |diff| "
+          f"{err:.3g} (tol {1e-4 * scale:.3g} = 1e-4 of max |logit| "
+          f"{scale:.3g}); the serve step's ids are the decode's argmax",
+          flush=True)
+    del cache, dec, full, enc
+
+
+def encdec_path(torch, dev) -> tuple[dict, dict]:
+    """The enc-dec serving slice (whisper-large-v3) at full width and
+    depth: a forward of ``make_dummy_batch``'s (4, 4096) (2,048 frames,
+    2,048 tokens; three flash launches a layer pair: encoder, decoder self,
+    cross; counted, timed, profiled), a second with 512 decoder tokens
+    over the same frames (the cross attention at Sq != Sk), and greedy
+    decode against teacher forcing. Returns the two forwards' counts."""
+    from repro_torch import configs
+    from repro_torch.models import build, encdec, make_dummy_batch
+
+    cfg = configs.get_config(ENCDEC_ARCH)
+    fns = build(cfg)
+    shape = configs.InputShape("encdec", ENCDEC_PREFILL[1],
+                               ENCDEC_PREFILL[0], "prefill")
+    batch = make_dummy_batch(cfg, shape, device=dev)
+    frames, toks = batch["encoder_frames"], batch["tokens"]
+    t0 = time.perf_counter()
+    params = fns.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = check_param_count(ENCDEC_ARCH, cfg, params)
+    print(f"encdec: {ENCDEC_ARCH} at full width and depth ({cfg.num_layers} "
+          f"encoder + {cfg.num_layers} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, gelu MLP of {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"-> {cfg.padded_vocab}), {n_par:,} f32 parameters from a CUDA "
+          f"torch.Generator in {init_s:.1f} s; make_dummy_batch of "
+          f"{ENCDEC_PREFILL} on the card: encoder_frames "
+          f"{tuple(frames.shape)}, tokens {tuple(toks.shape)}", flush=True)
+    flash = {"flash_attention": 3 * cfg.num_layers}
+    counts = prefill(torch, "encdec", cfg, fns, params, toks, flash,
+                     {"encoder_frames": frames})
+    cross = prefill(torch, "encdec cross (Sq != Sk)", cfg, fns, params,
+                    toks[:, :ENCDEC_CROSS_TOKENS].contiguous(), flash,
+                    {"encoder_frames": frames})
+    torch.cuda.empty_cache()
+    short = {"encoder_frames": frames[:1, :256], "tokens": toks[:1, :128]}
+    kernel_vs_naive(torch, "encdec", "(1, 256) frames and (1, 128) tokens",
+                    lambda impl: encdec.forward(cfg, params, short,
+                                                attn_impl=impl))
+    encdec_decode(torch, "encdec", cfg, params, frames, toks[:, :1])
+    del params, batch, frames, toks
+    torch.cuda.empty_cache()
+    return counts, cross
+
+
+def vlm_smoke_card_vs_cpu(torch, dev) -> None:
+    """internvl2-26b's smoke config: the serve CLI's ids and the prefill
+    logits card vs CPU (``lm_smoke_card_vs_cpu``), and the prefill with a
+    32-embedding vision prefix before 96 tokens."""
+    from repro_torch import configs, convert
+    from repro_torch.core import prng
+    from repro_torch.models import transformer
+
+    lm_smoke_card_vs_cpu(torch, dev, VLM_ARCH, "vlm")
+    cfg = configs.get_smoke_config(VLM_ARCH)
+    params = transformer.init_lm(cfg, prng.PRNGKey(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen)
+    vis = torch.randn(2, 32, cfg.d_model, generator=gen) * 0.02
+    ref, _ = transformer.forward(cfg, params, toks, prefix_embeds=vis,
+                                 attn_impl="pallas")
+    gp = convert.params_from_jax(convert.params_to_numpy(params), dev)
+    out, _ = transformer.forward(cfg, gp, toks.to(dev),
+                                 prefix_embeds=vis.to(dev),
+                                 attn_impl="pallas")
+    err = float((out.cpu() - ref).abs().max())
+    if not err <= 1e-4:
+        fail(f"vlm smoke prefill with a prefix: card vs CPU logits differ "
+             f"by {err} > 1e-4")
+    print(f"vlm smoke prefill, 32 vision embeddings + 96 tokens, "
+          f"attn_impl='pallas': card (kernels) vs CPU (plain) text logits "
+          f"max |diff| {err:.3g} (tol 1e-4)", flush=True)
+
+
+def encdec_smoke_card_vs_cpu(torch, dev) -> None:
+    """whisper-large-v3's smoke config card vs CPU: the forward over 256
+    frames and 128 tokens through the kernels (the cross attention at
+    Sq != Sk) and 8 decode steps after the cross cache, to 1e-4; the
+    greedy ids of the serve step equal."""
+    from repro_torch import configs, convert
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+
+    cfg = configs.get_smoke_config(ENCDEC_ARCH)
+    params = encdec.init_encdec(cfg, prng.PRNGKey(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"encoder_frames": torch.randn(2, 256, cfg.d_model,
+                                           generator=gen) * 0.02,
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 128),
+                                     generator=gen)}
+    serve_step = steps.make_serve_step(cfg)
+    res = {}
+    for device in ("cpu", dev):
+        p = params if device == "cpu" else convert.params_from_jax(
+            convert.params_to_numpy(params), dev)
+        b = {k: v.to(device) for k, v in batch.items()}
+        logits = encdec.forward(cfg, p, b, attn_impl="pallas")
+        cache = encdec.prefill_cross_cache(
+            cfg, p, encdec.init_decode_cache(cfg, 2, 8, enc_len=256,
+                                             device=device),
+            encdec.encode(cfg, p, b["encoder_frames"]))
+        ids = [b["tokens"][:, :1]]
+        for i in range(8):
+            nxt, cache = serve_step(p, cache, ids[-1], i)
+            ids.append(nxt)
+        res[str(device)] = (logits.cpu(), torch.cat(ids, 1).cpu())
+    (ref, ref_ids), (out, ids) = res["cpu"], res[str(dev)]
+    err = float((out - ref).abs().max())
+    if not err <= 1e-4 or not torch.equal(ids, ref_ids):
+        fail(f"encdec smoke: card vs CPU logits differ by {err} > 1e-4, or "
+             f"the greedy ids differ:\n{ids[0].tolist()}\n"
+             f"{ref_ids[0].tolist()}")
+    print(f"encdec smoke forward (2, 256 frames, 128 tokens), "
+          f"attn_impl='pallas': card (kernels) vs CPU (plain) logits max "
+          f"|diff| {err:.3g} (tol 1e-4); 8 greedy serve steps equal card "
+          f"vs CPU, row 0 {ids[0].tolist()}", flush=True)
 
 
 def main() -> None:
@@ -3845,6 +4194,20 @@ def main() -> None:
     print(f"moe phases: {time.perf_counter() - t_phase:.1f} s; "
           f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
 
+    # the VLM (internvl2-26b, a vision prefix; depth cut to fit the card)
+    # and enc-dec (whisper-large-v3, full depth; the flash kernel in the
+    # encoder, the decoder and the cross attention at Sq != Sk) serving
+    # slices; both smoke configs card vs CPU
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_counts = vlm_path(torch, dev)
+    vlm_smoke_card_vs_cpu(torch, dev)
+    encdec_counts, encdec_cross_counts = encdec_path(torch, dev)
+    encdec_smoke_card_vs_cpu(torch, dev)
+    print(f"vlm and encdec phases: {time.perf_counter() - t_phase:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
+
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
                    "robust": robust_counts[k["name"]],
@@ -3868,6 +4231,9 @@ def main() -> None:
         by_path.update({p: c.get(k["name"], 0)
                         for p, c in tools_counts.items()})
         by_path.update({p: c[k["name"]] for p, c in moe_counts.items()})
+        by_path.update({"vlm": vlm_counts[k["name"]],
+                        "encdec": encdec_counts[k["name"]],
+                        "encdec_cross": encdec_cross_counts[k["name"]]})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:

@@ -12,6 +12,8 @@ from .base import (  # noqa: F401
     VOCAB_PAD,
     ArchConfig,
     InputShape,
+    TensorSpec,
+    input_specs,
     pad_vocab,
 )
 

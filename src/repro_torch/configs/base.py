@@ -3,13 +3,14 @@
 The port's copy of the JAX package's ``configs/base.py``: the same fields,
 defaults and ``param_count``, with ``torch.float32`` as the parameter and
 compute type. ``InputShape``/``INPUT_SHAPES`` are the four assigned global
-shapes. Which archs the port runs is decided by ``models.factory.build``.
+shapes and :func:`input_specs` the model inputs each one asks for. Which
+archs the port runs is decided by ``models.factory.build``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -159,3 +160,53 @@ INPUT_SHAPES = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of one model input (what the JAX package's
+    ``jax.ShapeDtypeStruct`` stand-ins carry)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, *,
+                dtype=torch.int32) -> dict[str, TensorSpec]:
+    """The spec of every model input of ``shape``, in the JAX package's
+    order (DESIGN.md §4).
+
+    train/prefill: token ids (+labels for train); modality archs replace a
+    prefix of the sequence with precomputed embeddings (stub frontend):
+    enc-dec splits it into ``s // 2`` encoder frames and the rest as
+    decoder tokens, a VLM into ``int(s · vision_prefix_frac)`` vision
+    embeddings and the text tokens. decode: one new token (the cache is
+    built by the model's ``init_decode_cache``).
+    """
+    b, s = shape.global_batch, shape.seq_len
+    emb = cfg.compute_dtype
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((b, 1), dtype)}
+    if cfg.arch_type == AUDIO and cfg.is_encoder_decoder:
+        s_enc, s_dec = s // 2, s - s // 2
+        specs = {
+            # precomputed mel-frame embeddings (conv frontend stub)
+            "encoder_frames": TensorSpec((b, s_enc, cfg.d_model), emb),
+            "tokens": TensorSpec((b, s_dec), dtype),
+        }
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, s_dec), dtype)
+        return specs
+    if cfg.arch_type == VLM and cfg.vision_prefix_frac > 0:
+        s_vis = int(s * cfg.vision_prefix_frac)
+        s_txt = s - s_vis
+        specs = {
+            # precomputed ViT patch embeddings, already projected (stub)
+            "vision_embeds": TensorSpec((b, s_vis, cfg.d_model), emb),
+            "tokens": TensorSpec((b, s_txt), dtype),
+        }
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, s_txt), dtype)
+        return specs
+    specs = {"tokens": TensorSpec((b, s), dtype)}
+    if shape.kind == "train":
+        specs["labels"] = TensorSpec((b, s), dtype)
+    return specs

@@ -17,7 +17,11 @@
 // run in ascending order from the first one inside the window to the last
 // one at or before the causal diagonal, so the tiles that are masked for
 // every row of the q tile cost nothing, and the output does not depend on
-// the tile size beyond the order of f32 sums.
+// the tile size beyond the order of f32 sums. Sq and Sk may differ only
+// without a mask (the enc-dec cross-attention: every q row over all Sk
+// keys, tiles 0 .. Sk/64 - 1); a causal or windowed call at Sq != Sk is
+// refused. With Sq = Sk every row keeps its own key, so every q tile's
+// range holds at least its diagonal tile and no row is masked throughout.
 //
 // (D, Dv) pairs taken: (32, 32), (64, 64), (112, 112), (128, 128), and
 // MLA's (48, 32) (deepseek-v2-236b's smoke config, 32 + 16) and (192, 128)
@@ -524,7 +528,8 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
 // dim and the given (batch, seq, head) strides in elements (multiples of 4,
 // data on 4-element boundaries); o is a contiguous (B, Sq, H, Dv). q and k
 // have head dim D, v and o Dv; sm_scale is 1/sqrt(D). dtype 0 = f32, 1 =
-// bf16. window 0 = no sliding window. Sq and Sk are multiples of 64.
+// bf16. window 0 = no sliding window. Sq and Sk are multiples of 64, and
+// equal unless causal = 0 and window = 0.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int KV, int Sq, int Sk, int D, int Dv, long long qsb,
@@ -532,7 +537,8 @@ extern "C" int flash_attention_fwd(
     long long ksh, long long vsb, long long vss, long long vsh, int causal,
     int window, float sm_scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < kBK || Sk < kBK ||
-      Sq % kBK || Sk % kBK || B > 65535 || H > 65535 || window < 0)
+      Sq % kBK || Sk % kBK || B > 65535 || H > 65535 || window < 0 ||
+      (Sq != Sk && (causal || window)))
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = (cudaStream_t)stream;

@@ -3,7 +3,10 @@
 :func:`flash_attention` takes the model layout q/k (B, S, H or KV, D), v
 (B, Sk, KV, Dv) and returns (B, Sq, H, Dv) in q's dtype, for the (D, Dv)
 pairs of ``HEAD_DIMS`` (D = Dv, and MLA's D = hd + dr over Dv = hd); the
-scores are scaled by 1/√D. For CUDA tensors it
+scores are scaled by 1/√D. Sq and Sk may differ (the enc-dec
+cross-attention, q of the decoder over the encoder's keys) only without a
+mask: no model asks for a causal or windowed attention at Sq ≠ Sk, so
+both devices refuse one. For CUDA tensors it
 launches ``csrc/flash_attention.cu`` (one CTA per (q tile of 64 rows, or
 128 at D = 112, q head, batch); the kv loop runs inside the CTA over the
 64-key tiles the masks reach, double-buffered by cp.async);
@@ -78,6 +81,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"block_k={block_k}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window={window} must be >= 1")
+    if sq != sk and (causal or window is not None):
+        raise ValueError(f"flash_attention: Sq={sq} != Sk={sk} takes no "
+                         "mask (causal=False, window=None)")
     if q.device.type == "cpu":
         out = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,

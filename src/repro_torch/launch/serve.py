@@ -8,13 +8,14 @@ The flags are the JAX CLI's (``python -m repro.launch.serve``) plus
 same ``--seed`` both CLIs print the same token ids. The prompt is fed one
 token at a time through the decode step (prefill by repeated decode, as
 the JAX CLI does), then ``--gen`` tokens are generated greedily. The
-dense, MoE (``dbrx-132b``; ``deepseek-v2-236b`` with MLA attention), SSM
-(``mamba2-780m``) and hybrid (``zamba2-7b``) archs run; the VLM and
-enc-dec ones raise. On the card the model's GEMMs run in
-strict f32 (TF32 off), and the KV-cache attention (MLA's absorbed form over
-the compressed cache), the MoE layer's dense form (every expert a step)
-and the Mamba2 state update are plain PyTorch (decode launches none of the
-port's kernels);
+dense, VLM (``internvl2-26b``: decode takes no vision prefix), MoE
+(``dbrx-132b``; ``deepseek-v2-236b`` with MLA attention), SSM
+(``mamba2-780m``) and hybrid (``zamba2-7b``) archs run; an enc-dec arch
+(``whisper-large-v3``) exits with the JAX CLI's message. On the card the
+model's GEMMs run in strict f32 (TF32 off), and the KV-cache attention
+(MLA's absorbed form over the compressed cache), the MoE layer's dense
+form (every expert a step) and the Mamba2 state update are plain PyTorch
+(decode launches none of the port's kernels);
 ``--device cpu`` runs it on the CPU. Asking for ``cuda`` without a card is
 an error. :func:`serve` is the body, for any config (``chip_smoke.py``
 drives it at full width, with prompts drawn on the card: the stream's
@@ -49,8 +50,7 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 32,
     ``MarkovLMStream`` draw of ``seed``."""
     device = torch.device(device)
     if cfg.is_encoder_decoder:
-        raise SystemExit("enc-dec serving is not ported yet "
-                         "(ROADMAP item 18)")
+        raise SystemExit("use examples/serve_lm.py for enc-dec serving")
     fns = build(cfg)
     params = fns.init(prng.PRNGKey(seed), device)
     max_len = prompt_len + gen

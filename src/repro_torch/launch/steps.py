@@ -1,7 +1,7 @@
 """The serve step of the LM path and the FEDGS selection and Eq. 5 steps
 (the ports of ``make_serve_step``, ``make_select_step`` and
 ``external_sync_step`` in the JAX package's ``launch/steps.py``; the train
-steps wait for LM training, ROADMAP item 18)."""
+steps wait for LM training, ROADMAP item 18.4)."""
 from __future__ import annotations
 
 import numpy as np

@@ -1,1 +1,1 @@
-from .factory import ModelFns, build  # noqa: F401
+from .factory import ModelFns, build, make_dummy_batch  # noqa: F401

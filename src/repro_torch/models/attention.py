@@ -1,15 +1,20 @@
-"""GQA and MLA attention: the prefill/forward form, the KV cache and decode.
+"""GQA and MLA attention: the prefill/forward form, cross attention, the KV
+cache and decode.
 
-The port of the JAX package's ``models/attention.py`` (without cross
-attention). MLA (DeepSeek-V2, ``kv_lora_rank > 0``) prefills in the
-explicit form (q/k of head dim hd + dr, v of hd) and decodes in the
-absorbed form over the compressed (c, k_rope) cache.
-``attend`` runs two of its paths:
-  * ``naive``  — materialised scores (small shapes, the oracle);
-  * ``pallas`` — the flash-attention kernel (``kernels.flash_attention``:
+The port of the JAX package's ``models/attention.py``. MLA (DeepSeek-V2,
+``kv_lora_rank > 0``) prefills in the explicit form (q/k of head dim
+hd + dr, v of hd) and decodes in the absorbed form over the compressed
+(c, k_rope) cache. Cross attention (the enc-dec decoder) is a GQA layer
+whose K/V come from the encoder (``gqa_forward(kv_override=)``; q is not
+rotated). ``attend`` runs four paths:
+  * ``naive``     — materialised scores (small shapes, the oracle);
+  * ``blockwise`` — the online-softmax loop over (q-block, kv-block) tiles
+    in plain PyTorch (the JAX package's XLA fallback for long sequences);
+  * ``local``     — sliding-window causal attention: each q block attends
+    to the window's kv blocks only;
+  * ``pallas``    — the flash-attention kernel (``kernels.flash_attention``:
     the CUDA kernel on the card, its plain version on the CPU).
-``auto`` resolves as the JAX package resolves it; where it would pick
-``blockwise`` or ``local`` it raises (ROADMAP item 18).
+``auto`` resolves among the first three as the JAX package does.
 
 Decode writes the new token's K/V (MLA: c and k_rope) into the cache
 tensors in place (the JAX package returns a new cache); the returned cache
@@ -55,6 +60,12 @@ def init_attention(key, cfg, device, *, dtype=None) -> dict:
     }
 
 
+def init_cross_attention(key, cfg, device, *, dtype=None) -> dict:
+    """Cross-attention params: GQA's (``kv_lora_rank`` forced to 0)."""
+    return init_attention(key, cfg.with_(kv_lora_rank=0), device,
+                          dtype=dtype)
+
+
 def _group_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     """(B,S,H,D) -> (B,S,KV,G,D) for GQA."""
     b, s, h, d = q.shape
@@ -82,9 +93,94 @@ def naive_attention(q, k, v, *, causal: bool, window: int | None = None,
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
+def blockwise_attention(q, k, v, *, causal: bool,
+                        window: int | None = None, block_q: int = 512,
+                        block_k: int = 512) -> torch.Tensor:
+    """Online-softmax tiled attention (the flash-attention algorithm in
+    plain PyTorch), model layout. The blocks are clamped to the lengths,
+    which they must then divide. Every kv tile is computed and then masked
+    (no tile is skipped), as in the JAX package's XLA fallback."""
+    b, sq, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"blockwise_attention: Sq={sq}, Sk={sk} must be "
+                         f"multiples of block_q={block_q}, "
+                         f"block_k={block_k}")
+    g, dev = h // kvh, q.device
+    scale = 1.0 / sqrt_f32(d, dev)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, sq, block_q):
+        qblk = _group_heads(q[:, q0:q0 + block_q], kvh).float()
+        qpos = q0 + torch.arange(block_q, device=dev)
+        m = torch.full((b, kvh, g, block_q), NEG_INF, device=dev)
+        l = torch.zeros(b, kvh, g, block_q, device=dev)
+        acc = torch.zeros(b, kvh, g, block_q, dv, device=dev)
+        for k0 in range(0, sk, block_k):
+            kpos = k0 + torch.arange(block_k, device=dev)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qblk,
+                             kf[:, k0:k0 + block_k]) * scale
+            mask = torch.ones(block_q, block_k, dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, vf[:, k0:k0 + block_k])
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]      # B,KV,G,bq,Dv
+        outs.append(torch.einsum("bkgqd->bqkgd", out))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, dv).to(q.dtype)
+
+
+def local_attention(q, k, v, *, window: int, block: int = 512
+                    ) -> torch.Tensor:
+    """Sliding-window causal attention, sub-quadratic: q block i attends to
+    the gathered kv blocks [i − ⌈window / block⌉, i] (ids below 0 clamped
+    to block 0 and masked). Needs Sq = Sk, a multiple of ``block``."""
+    b, sq, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if sq != sk or sq % block:
+        raise ValueError(f"local_attention: Sq={sq}, Sk={sk} must be equal "
+                         f"and multiples of block={block}")
+    nblk, dev = sq // block, q.device
+    wblk = max(1, -(-window // block))                          # ceil
+    kb = k.float().reshape(b, nblk, block, kvh, d)
+    vb = v.float().reshape(b, nblk, block, kvh, dv)
+    scale = 1.0 / sqrt_f32(d, dev)
+    ar = torch.arange(block, device=dev)
+    outs = []
+    for qi in range(nblk):
+        qblk = _group_heads(q[:, qi * block:(qi + 1) * block], kvh).float()
+        offs = qi - torch.arange(wblk, -1, -1, device=dev)      # wblk+1 ids
+        offs_c = offs.clamp(0, nblk - 1)
+        kw = kb[:, offs_c].reshape(b, (wblk + 1) * block, kvh, d)
+        vw = vb[:, offs_c].reshape(b, (wblk + 1) * block, kvh, dv)
+        qpos = qi * block + ar
+        kpos = (offs_c[:, None] * block + ar[None, :]).reshape(-1)
+        valid = (offs >= 0)[:, None].expand(-1, block).reshape(-1)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kw) * scale
+        mask = (kpos[None, :] <= qpos[:, None]) \
+            & (kpos[None, :] > qpos[:, None] - window) & valid[None, :]
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, vw))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, dv).to(q.dtype)
+
+
 def attend(q, k, v, *, causal=True, window=None, impl="auto",
            block_q=512, block_k=512):
-    """Dispatch: 'naive' | 'pallas' | 'auto' (the JAX package's rule)."""
+    """Dispatch: 'naive' | 'blockwise' | 'local' | 'pallas' | 'auto' (the
+    JAX package's rule: ``local`` for a window shorter than Sq = Sk, a
+    multiple of ``block_q``; else ``blockwise`` past 2048 tokens when both
+    lengths are multiples of the blocks; else ``naive``)."""
     if impl == "auto":
         s = max(q.shape[1], k.shape[1])
         if window is not None and q.shape[1] == k.shape[1] \
@@ -97,25 +193,31 @@ def attend(q, k, v, *, causal=True, window=None, impl="auto",
             impl = "naive"
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal, window=window)
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   block_q=block_q, block_k=block_k)
+    if impl == "local":
+        return local_attention(q, k, v, window=window, block=block_q)
     if impl == "pallas":
         return fa.flash_attention(q, k, v, causal=causal, window=window)
-    if impl in ("blockwise", "local"):
-        raise NotImplementedError(
-            f"attend(impl={impl!r}) is not ported yet (ROADMAP item 18); "
-            "pass attn_impl='pallas' or 'naive'")
     raise ValueError(impl)
 
 
 def gqa_forward(p: dict, x, positions, cfg, *, causal=True, window=None,
-                impl="auto") -> torch.Tensor:
-    """Standard GQA attention layer (prefill/forward form)."""
+                impl="auto", kv_override=None) -> torch.Tensor:
+    """Standard GQA attention layer (prefill/forward form). ``kv_override``
+    = (k, v) of (B, Sk, KV, hd) makes it cross attention: those K/V are
+    used as they are, and q is not rotated (as in the JAX package)."""
     b, s, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = linear(p["wq"], x).reshape(b, s, H, hd)
-    k = linear(p["wk"], x).reshape(b, s, KV, hd)
-    v = linear(p["wv"], x).reshape(b, s, KV, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = linear(p["wk"], x).reshape(b, s, KV, hd)
+        v = linear(p["wv"], x).reshape(b, s, KV, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
     out = attend(q, k, v, causal=causal, window=window, impl=impl)
     return linear(p["wo"], out.reshape(b, s, H * hd))
 

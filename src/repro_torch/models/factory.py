@@ -1,15 +1,21 @@
 """Model factory: ArchConfig -> (init, loss, forward, decode) functions.
 
-The port of the JAX package's ``models/factory.py`` for the arch types the
-port runs: dense and MoE decoder-only LMs with GQA or MLA attention, Mamba2
-SSMs and the Zamba2 hybrid. VLM and encoder-decoder models raise
-``NotImplementedError`` naming their ROADMAP item.
+The port of the JAX package's ``models/factory.py``: dispatches on
+``cfg.is_encoder_decoder`` (whisper: ``models/encdec``) and otherwise
+builds the decoder-only stack (``models/transformer``: dense, MoE, SSM,
+hybrid and VLM). ``loss`` raises ``NotImplementedError``: LM training is
+ROADMAP item 18.4. :func:`make_dummy_batch` draws a batch of
+``configs.input_specs`` from a threefry key.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from . import transformer
+import numpy as np
+import torch
+
+from ..core import prng
+from . import encdec, transformer
 
 
 class ModelFns(NamedTuple):
@@ -20,36 +26,60 @@ class ModelFns(NamedTuple):
     decode_step: Callable[..., tuple]          # (params, cache, tokens, pos)
 
 
-def _not_ported(cfg) -> str | None:
-    if cfg.is_encoder_decoder or cfg.arch_type == "audio":
-        return "encoder-decoder (audio) models"
-    if cfg.arch_type == "vlm":
-        return "vlm models"
-    if cfg.arch_type not in transformer.ARCH_TYPES:
-        return f"arch_type {cfg.arch_type!r}"
-    return None
+def _no_training(what: str):
+    def loss(params, batch, **kw):
+        raise NotImplementedError(f"LM training ({what}) is not ported yet "
+                                  "(ROADMAP item 18.4)")
+    return loss
 
 
 def build(cfg) -> ModelFns:
-    what = _not_ported(cfg)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} are not ported to "
-                                  "PyTorch yet (ROADMAP item 18)")
-
-    def loss(params, batch, **kw):
-        raise NotImplementedError("LM training (lm_loss) is not ported yet "
-                                  "(ROADMAP item 18)")
+    if cfg.is_encoder_decoder:
+        return ModelFns(
+            init=lambda key, device="cuda": encdec.init_encdec(cfg, key,
+                                                               device),
+            loss=_no_training("encdec_loss"),
+            forward=lambda params, batch, **kw: encdec.forward(
+                cfg, params, batch, **kw),
+            init_decode_cache=lambda batch, seq_len, **kw:
+                encdec.init_decode_cache(cfg, batch, seq_len, **kw),
+            decode_step=lambda params, cache, tokens, pos, **kw:
+                encdec.decode_step(cfg, params, cache, tokens, pos, **kw),
+        )
+    if cfg.arch_type not in transformer.ARCH_TYPES:
+        raise ValueError(cfg.arch_type)
 
     def fwd(params, batch, **kw):
-        logits, _ = transformer.forward(cfg, params, batch["tokens"], **kw)
+        logits, _ = transformer.forward(
+            cfg, params, batch["tokens"],
+            prefix_embeds=batch.get("vision_embeds"), **kw)
         return logits
 
     return ModelFns(
         init=lambda key, device="cuda": transformer.init_lm(cfg, key, device),
-        loss=loss,
+        loss=_no_training("lm_loss"),
         forward=fwd,
         init_decode_cache=lambda batch, seq_len, **kw:
             transformer.init_decode_cache(cfg, batch, seq_len, **kw),
         decode_step=lambda params, cache, tokens, pos, **kw:
             transformer.decode_step(cfg, params, cache, tokens, pos, **kw),
     )
+
+
+def make_dummy_batch(cfg, shape, key=None, device="cuda") -> dict:
+    """A random batch of ``configs.input_specs(cfg, shape)`` on ``device``:
+    per spec, in order, ``key, sub = split(key)`` (from ``PRNGKey(0)`` by
+    default); integer inputs ``randint(sub, shape, 0, vocab_size)``, float
+    inputs ``normal(sub, shape) · 0.02`` — the JAX package's numbers."""
+    from ..configs import input_specs
+    key = np.asarray(key if key is not None else prng.PRNGKey(0), np.uint32)
+    batch = {}
+    for name, spec in input_specs(cfg, shape).items():
+        key, sub = prng.split(key)
+        if spec.dtype.is_floating_point:
+            x = prng.normal_t(sub, spec.shape, device) * 0.02
+        else:
+            x = torch.as_tensor(prng.randint(sub, spec.shape, 0,
+                                             cfg.vocab_size), device=device)
+        batch[name] = x.to(spec.dtype)
+    return batch

@@ -1,11 +1,11 @@
-"""Decoder-only LM stack, dense / moe / ssm / hybrid: init, forward
+"""Decoder-only LM stack, dense / moe / ssm / hybrid / vlm: init, forward
 (prefill) and cached decode.
 
-The port of the JAX package's ``models/transformer.py`` for those four
-arch types. The parameter tree is the JAX package's: the layers are
-stacked with a leading L axis (``params["layers"]["attn"]["wq"]["w"]`` is
-(L, d, H·hd)), and the forward pass loops over them in Python where the
-JAX package runs a ``lax.scan``.
+The port of the JAX package's ``models/transformer.py``. The parameter
+tree is the JAX package's: the layers are stacked with a leading L axis
+(``params["layers"]["attn"]["wq"]["w"]`` is (L, d, H·hd)), and the
+forward pass loops over them in Python where the JAX package runs a
+``lax.scan``.
 
 Hybrid (Zamba2): stacked Mamba2 layers with ONE shared attention+MLP block
 (weight sharing) applied after every segment of ``attn_every`` layers;
@@ -16,8 +16,13 @@ MoE (dbrx, deepseek-v2 with MLA attention): the attention layers with a
 ``moe`` block in place of the MLP; ``forward`` returns the load-balance
 aux loss summed over the layers.
 
+VLM (internvl2): the dense stack; ``forward(prefix_embeds=)`` puts the
+precomputed ViT patch embeddings (stub frontend) in front of the token
+embeddings, and the logits cover the text part only. Decode takes no
+prefix, as in the JAX package.
+
 ``remat`` and ``act_sharding`` have no meaning in eager PyTorch and are
-not taken; ``prefix_embeds`` (VLM) is not ported.
+not taken.
 """
 from __future__ import annotations
 
@@ -87,16 +92,16 @@ def _init_mamba_layer(cfg, device, dtype):
     return init_one
 
 
-ARCH_TYPES = ("dense", "moe", "ssm", "hybrid")
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm")
+ATTN_TYPES = ("dense", "moe", "vlm")      # the attention-layer stacks
 
 
 def init_lm(cfg, key, device="cuda") -> dict:
-    """Parameters of a dense, MoE, SSM or hybrid LM. ``key`` is a threefry key
-    (``core.prng.PRNGKey``), which draws the JAX package's exact numbers,
-    or a ``torch.Generator``."""
+    """Parameters of a dense, MoE, SSM, hybrid or VLM LM. ``key`` is a
+    threefry key (``core.prng.PRNGKey``), which draws the JAX package's
+    exact numbers, or a ``torch.Generator``."""
     if cfg.arch_type not in ARCH_TYPES:
-        raise NotImplementedError(f"init_lm: arch_type {cfg.arch_type!r} "
-                                  "is not ported yet (ROADMAP item 18)")
+        raise ValueError(cfg.arch_type)
     dtype = cfg.param_dtype
     k_emb, k_layers, k_shared, k_head = split(key, 4)
     params: dict = {
@@ -107,7 +112,7 @@ def init_lm(cfg, key, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(k_head, cfg.padded_vocab,
                                            cfg.d_model, device, dtype)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ATTN_TYPES:
         params["layers"] = _init_stack(k_layers, cfg.num_layers,
                                        _init_attn_layer(cfg, device, dtype))
         return params
@@ -148,15 +153,22 @@ def _segments(cfg) -> list[range]:
 
 
 def forward(cfg, params: dict, tokens: torch.Tensor, *,
+            prefix_embeds: torch.Tensor | None = None,
             window: int | None = None, attn_impl: str = "auto"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Token ids (B, S) -> (logits (B, S, padded_vocab), aux_loss): the
-    MoE layers' load-balance losses summed in f32 (0 for the others)."""
+    """Token ids (B, S) (+ optional (B, P, d) prefix embeddings, cast to
+    the compute dtype and put in front) -> (logits (B, S, padded_vocab)
+    of the token positions only, aux_loss): the MoE layers' load-balance
+    losses summed in f32 (0 for the others)."""
     x = embed(params["embed"], tokens, cfg.compute_dtype)
+    n_prefix = 0
+    if prefix_embeds is not None:
+        n_prefix = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ATTN_TYPES:
         for i in range(cfg.num_layers):
             x, a = _attn_layer_fwd(cfg, _index(params["layers"], i), x,
                                    positions, window=window, impl=attn_impl)
@@ -174,6 +186,8 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *,
     else:
         raise ValueError(cfg.arch_type)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     head = params.get("lm_head", params["embed"])
     return unembed(head, x), aux
 
@@ -189,7 +203,7 @@ def init_decode_cache(cfg, batch: int, seq_len: int, *, windowed=False,
     def stack(one: dict, n: int) -> dict:
         return {k: torch.stack([v] * n) for k, v in one.items()}
 
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ATTN_TYPES:
         return {"layers": stack(attn.init_kv_cache(cfg, batch, cap, device,
                                                    dtype), cfg.num_layers)}
     if cfg.arch_type not in ("ssm", "hybrid"):
@@ -231,7 +245,7 @@ def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,
     """One-token decode. tokens (B, 1); pos the current position. The
     cache is updated in place and returned."""
     x = embed(params["embed"], tokens, cfg.compute_dtype)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ATTN_TYPES:
         for i in range(cfg.num_layers):
             x = _attn_layer_decode(cfg, _index(params["layers"], i), x,
                                    _index(cache["layers"], i), pos, windowed)

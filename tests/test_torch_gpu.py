@@ -725,6 +725,90 @@ def test_moe_prefill_on_card_matches_cpu(cuda, arch):
     assert abs(float(aux) - float(ref_aux)) < 1e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(128, 512), (512, 128)])
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_flash_attention_cross_shape_matches_plain(cuda, sq, sk, h, kv,
+                                                   dtype):
+    """The enc-dec cross-attention form: non-causal q of Sq rows over
+    Sk != Sq keys at D = 64 (whisper's 1280 / 20), at the sweep's
+    tolerances; a causal or windowed call at Sq != Sk is refused."""
+    from repro_torch.kernels import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(sq + 3 * sk + h)
+    q = torch.randn(2, sq, h, 64, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(2, sk, kv, 64, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    out = flash_attention.flash_attention(q, k, v, causal=False)
+    ref = flash_attention.attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=False).transpose(1, 2)
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert float((out.float() - ref.float()).abs().max()) < tol
+    for causal, window in ((True, None), (False, 64)):
+        with pytest.raises(ValueError, match="takes no mask"):
+            flash_attention.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+
+
+def test_vlm_prefill_on_card_matches_cpu(cuda):
+    """internvl2-26b's smoke config with a 32-embedding vision prefix and
+    96 tokens (128 positions): one flash launch a layer, the text logits
+    within 1e-4 of the CPU's."""
+    from repro_torch import configs, convert
+    from repro_torch.core import prng
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke_config("internvl2-26b")
+    params = transformer.init_lm(cfg, prng.PRNGKey(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen)
+    vis = torch.randn(2, 32, cfg.d_model, generator=gen) * 0.02
+    ref, _ = transformer.forward(cfg, params, toks, prefix_embeds=vis,
+                                 attn_impl="pallas")
+    gp = convert.params_from_jax(convert.params_to_numpy(params), cuda)
+    dispatch.reset_launch_counts()
+    out, _ = transformer.forward(cfg, gp, toks.to(cuda),
+                                 prefix_embeds=vis.to(cuda),
+                                 attn_impl="pallas")
+    assert dispatch.launch_counts()["flash_attention"] == cfg.num_layers
+    assert out.shape == (2, 96, cfg.padded_vocab)
+    assert float((out.cpu() - ref).abs().max()) < 1e-4
+
+
+def test_encdec_on_card_matches_cpu(cuda):
+    """whisper-large-v3's smoke config: 256 frames, 128 tokens; three flash
+    launches a layer pair (encoder, decoder self, cross at Sq != Sk), the
+    logits and 4 decode steps within 1e-4 of the CPU's."""
+    from repro_torch import configs, convert
+    from repro_torch.core import prng
+    from repro_torch.models import encdec
+    cfg = configs.get_smoke_config("whisper-large-v3")
+    params = encdec.init_encdec(cfg, prng.PRNGKey(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"encoder_frames": torch.randn(2, 256, cfg.d_model,
+                                           generator=gen) * 0.02,
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 128),
+                                     generator=gen)}
+    gp = convert.params_from_jax(convert.params_to_numpy(params), cuda)
+    gb = {k: v.to(cuda) for k, v in batch.items()}
+    ref = encdec.forward(cfg, params, batch, attn_impl="pallas")
+    dispatch.reset_launch_counts()
+    out = encdec.forward(cfg, gp, gb, attn_impl="pallas")
+    assert dispatch.launch_counts()["flash_attention"] == 3 * cfg.num_layers
+    assert float((out.cpu() - ref).abs().max()) < 1e-4
+    for p, b, dev in ((params, batch, "cpu"), (gp, gb, cuda)):
+        enc = encdec.encode(cfg, p, b["encoder_frames"])
+        cache = encdec.prefill_cross_cache(
+            cfg, p, encdec.init_decode_cache(cfg, 2, 8, enc_len=256,
+                                             device=dev), enc)
+        steps = [encdec.decode_step(cfg, p, cache, b["tokens"][:, i:i + 1],
+                                    i)[0].cpu() for i in range(4)]
+        if dev == "cpu":
+            ref_steps = steps
+    for a, r in zip(steps, ref_steps):
+        assert float((a - r).abs().max()) < 1e-4
+
+
 def test_flash_attention_launches_once_per_layer(cuda):
     """One kernel launch per layer per forward, none per decode step."""
     from repro_torch import configs

@@ -24,7 +24,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     examples = sorted((REPO / "examples").glob("torch_*.py"))
-    assert len(examples) == 3
+    assert len(examples) == 4
     files += examples
     assert len(files) > 10
     bad = [(str(p.relative_to(REPO)), mod) for p in files

@@ -14,6 +14,7 @@ from repro import configs as jconfigs
 from repro.data import lm_data as jlm_data
 from repro.kernels.flash_attention import ops as jfa
 from repro.launch import serve as jserve
+from repro.models import attention as jattention
 from repro.models import build as jbuild
 from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
@@ -149,11 +150,13 @@ def test_mlp_matches_reference(gated):
                                   "whisper-large-v3"])
 def test_init_matches_reference_leaf_by_leaf(arch):
     """``init_lm(PRNGKey(0))`` draws the JAX package's numbers (whisper:
-    the gelu MLP's two matrices, through ``init_mlp`` directly, since its
-    enc-dec stack is not ported)."""
+    ``init_encdec``, the enc-dec stack with the gelu MLP's two matrices)."""
     if arch == "whisper-large-v3":
-        ref = jlayers.init_mlp(jax.random.PRNGKey(5), 256, 512, gated=False)
-        got = layers.init_mlp(prng.PRNGKey(5), 256, 512, "cpu", gated=False)
+        cfg = jconfigs.get_smoke_config(arch)
+        ref = jbuild(cfg).init(jax.random.PRNGKey(0))
+        got = build(configs.get_smoke_config(arch)).init(prng.PRNGKey(0),
+                                                         "cpu")
+        assert "gate" not in got["decoder"]["mlp"]
     else:
         cfg = jconfigs.get_smoke_config(arch)
         ref = jtransformer.init_lm(cfg, jax.random.PRNGKey(0))
@@ -272,21 +275,18 @@ def test_flash_wrapper_never_falls_back(monkeypatch, tmp_path):
 
 
 def test_attend_auto_resolves_as_reference():
-    q = torch.zeros(1, 64, 2, 32)
-    out = attention.attend(q, q, q)                       # naive
-    assert tuple(out.shape) == (1, 64, 2, 32)
-    long = torch.zeros(1, 4096, 1, 32)
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        attention.attend(long, long, long)
-    mid = torch.zeros(1, 1024, 1, 32)
-    with pytest.raises(NotImplementedError, match="local"):
-        attention.attend(mid, mid, mid, window=64)
-
-
-@pytest.mark.parametrize("arch", ["internvl2-26b", "whisper-large-v3"])
-def test_build_refuses_unported_archs(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        build(configs.get_smoke_config(arch))
+    """``impl="auto"``: naive at 64 tokens, blockwise at 4096, local for a
+    64-key window at 1024; each output equals the JAX ``attend``'s."""
+    rng = np.random.default_rng(0)
+    for s, window in ((64, None), (4096, None), (1024, 64)):
+        q = rng.normal(size=(1, s, 2, 32)).astype(np.float32)
+        k, v = (rng.normal(size=(1, s, 1, 32)).astype(np.float32)
+                for _ in range(2))
+        ref = np.asarray(jattention.attend(q, k, v, window=window))
+        out = attention.attend(*(torch.tensor(a) for a in (q, k, v)),
+                               window=window)
+        assert tuple(out.shape) == (1, s, 2, 32)
+        np.testing.assert_allclose(_np(out), ref, rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -417,14 +417,6 @@ def test_decode_matches_prefill(arch):
     assert err < 5e-4, err
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("internvl2-26b", "vlm"), ("whisper-large-v3", "encoder-decoder")])
-def test_build_still_refuses_the_other_families(arch, what):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 18"):
-        build(cfg)
-
-
 # ---------------------------------------------------------------------------
 # the serve CLI
 # ---------------------------------------------------------------------------
