@@ -1440,6 +1440,7 @@ DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
                  "robust_agg": "robust_agg_kernel",
                  "topk_compress": "topk_hist0", "int8_quant": "int8_absmax",
                  "flash_attention": "flash_fwd", "ssd_scan": "ssd_chunk_scan",
+                 "ssd_scan_bwd": "ssd_bwd_dt",
                  "corrupt_rows": "corrupt_rows_kernel",
                  "dirichlet_rows": "dirichlet_rows_kernel",
                  "avail_rows": "avail_rows_kernel"}
@@ -3193,7 +3194,8 @@ def lm_profile(torch, run, label) -> None:
     busy = sum(k[0] for k in kern)
     tags = {"flash_attention": ("flash_fwd",),
             "ssd_scan": ("ssd_gram", "ssd_chunk_state", "ssd_state_pass",
-                         "ssd_chunk_scan")}
+                         "ssd_chunk_scan"),
+            "ssd_scan_bwd": ("ssd_bwd_",)}
     mine = lambda key: any(t in key for ts in tags.values() for t in ts)
     ours = {name: sum(k[0] for k in kern if any(t in k[2] for t in ts))
             for name, ts in tags.items()}
@@ -3980,6 +3982,348 @@ def encdec_smoke_card_vs_cpu(torch, dev) -> None:
           f"vs CPU, row 0 {ids[0].tolist()}", flush=True)
 
 
+TRAIN_ARCH = SSM_ARCH             # mamba2-780m, trained at full width
+TRAIN_SHAPE = (4, 2048)           # each pod's "train" batch (B, S)
+TRAIN_PODS, TRAIN_ACCUM, TRAIN_LR = 2, 2, 0.1
+TRAIN_ITERS, TRAIN_ROUNDS = 2, 2  # T internal steps a round, R rounds
+TRAIN_CUT_LAYERS = 4              # the full-width comparisons, depth cut
+TRAIN_SMOKE_SHAPE = (4, 256)      # the smoke configs' card-vs-CPU step
+
+
+def ssd_bwd_work(bt, s, h, p, n) -> tuple[int, int]:
+    """(bytes, FLOP) the scan's gradient needs at the least: x, dt, A, B,
+    C and dy read once, dx, ddt, dA, dB and dC written once; per (token,
+    head) the state gradient's update (C dy^T) and its three contractions
+    (with B for dx, with xd for dB, and dC's with the state), 2NP each:
+    8NP, whatever blocking a kernel picks (a chunked form adds the causal
+    triangles, as in the forward's ``ssd_work``)."""
+    flop = 8 * bt * s * h * n * p
+    bytes_ = 4 * (3 * bt * s * h * p + 2 * bt * s * h + 4 * bt * s * n
+                  + 2 * h)
+    return bytes_, flop
+
+
+def check_ssd_scan_bwd(torch, dev):
+    """The ``ssd_scan`` gradient (``csrc/ssd_scan_bwd.cu``, through the
+    wrapper's autograd function) against autograd of ``ssd_scan_plain``
+    on the card: the sweep and both full-width shapes (mamba2-780m's
+    training microbatch (2, 2048, 48, 64, 128), zamba2-7b's (1, 4096, 112,
+    64, 64)), each of dx, ddt, dA, dB and dC to 1e-4 * max(1, max |ref|)
+    of the plain version run in float64. The f32 plain version's own
+    distance to it is printed beside the kernel's: its cumsum-difference
+    exponents and its f32 sums lose up to ~1e-4 of the largest gradient
+    at these shapes, so an f32 reference cannot hold the kernel to 1e-4.
+    Then the kernel's and the plain backward's times and the FLOP bound."""
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.kernels import ssd_scan_bwd as kb
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    worst = {"kernel": 0.0, "plain32": 0.0}
+
+    def compare(case, chunk):
+        args = kssd.example_inputs(gen, *case)
+        dy = torch.randn(args[0].shape, generator=gen, device=dev)
+        ins = [t.detach().requires_grad_(True) for t in args]
+        out = torch.autograd.grad(kssd.ssd_scan(*ins, chunk=chunk), ins, dy)
+        ref32 = kb.backward_plain(*args, dy, chunk=chunk)
+        ref = kb.backward_plain(*(t.double() for t in args), dy.double(),
+                                chunk=chunk)
+        rel, rel32, absolute = {}, {}, 0.0
+        for name, a, r32, r in zip(names, out, ref32, ref):
+            scale = max(1.0, float(r.abs().max()))
+            err = float((a.double() - r).abs().max())
+            rel[name] = err / scale
+            rel32[name] = float((r32.double() - r).abs().max()) / scale
+            absolute = max(absolute, err)
+            if not err <= 1e-4 * scale:
+                fail(f"ssd_scan backward {case} chunk={chunk}: {name} max "
+                     f"error {err} > 1e-4 * {scale:.4g} (float64 plain)")
+        worst["kernel"] = max(worst["kernel"], max(rel.values()))
+        worst["plain32"] = max(worst["plain32"], max(rel32.values()))
+        return args, dy, rel, rel32, absolute
+
+    for bt, s, h, p, n, chunk in kssd.SWEEP:
+        compare((bt, s, h, p, n), min(chunk, s))
+    print(f"ssd_scan backward sweep {kssd.SWEEP}: max err "
+          f"{worst['kernel']:.3g} of max(1, max |grad|) against the float64 "
+          f"plain version (tol 1e-4); the f32 plain version's own: "
+          f"{worst['plain32']:.3g}", flush=True)
+
+    rows = []
+    for arch, (bt, s) in ((SSM_ARCH, (TRAIN_SHAPE[0] // TRAIN_ACCUM,
+                                      TRAIN_SHAPE[1])),
+                          (HYBRID_ARCH, HYBRID_PREFILL)):
+        cfg = configs.get_config(arch)
+        h, p, n, q = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+        args, dy, rel, rel32, absolute = compare((bt, s, h, p, n), q)
+        x, dt, A, B, C = args
+        call = kssd.prepare(x, dt, A, B, C, q)
+        kssd.run(call)
+        ms = time_ms(lambda: kb.backward(call["x"], dt, A, call["B"],
+                                         call["C"], call["states"], dy, q),
+                     reps=10)
+        ins = [t.detach().requires_grad_(True) for t in args]
+        y = kssd.ssd_scan_plain(*ins, chunk=q)
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            y, ins, dy, retain_graph=True), reps=3, warmup=1)
+        bytes_, flop = ssd_bwd_work(bt, s, h, p, n)
+        b_ms, b_by = bound(bytes_, flop)
+        rows.append(dict(arch=arch, shape=(bt, s, h, p, n, q),
+                         max_abs_err=absolute, rel_err=rel,
+                         plain32_rel_err=rel32, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, gflop=flop / 1e9))
+        print(f"ssd_scan backward {arch} (Bt, S, H, P, N, Q) = "
+              f"{(bt, s, h, p, n, q)}: err of max(1, max |grad|) against "
+              f"float64 " + ", ".join(f"{k} {v:.2g}" for k, v in rel.items())
+              + "; the f32 plain version's " + ", ".join(
+                  f"{k} {v:.2g}" for k, v in rel32.items())
+              + f"; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain backward "
+              f"(autograd), bound {b_ms:.4f} ms ({b_by}: "
+              f"{flop / 1e9:.2f} GFLOP), {100 * b_ms / ms:.1f}% of it; no "
+              "single PyTorch call computes the gradient", flush=True)
+        del args, dy, call, ins, y, x, dt, A, B, C
+        torch.cuda.empty_cache()
+    main_row = rows[0]
+    return dict(name=kb.NAME, route="cuda", source=kb.SOURCE,
+                replaces=kb.REPLACES, max_abs_err=main_row["max_abs_err"],
+                tol="1e-4 * max(1, max |grad|) of the float64 plain version",
+                max_rel_err_all=worst["kernel"],
+                plain32_max_rel_err_all=worst["plain32"],
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=main_row["bound_ms"],
+                bound_by=main_row["bound_by"], library_ms=None,
+                shape="Bt=2 S=2048 H=48 P=64 N=128 Q=128 f32 (mamba2-780m, "
+                      "one microbatch of the train step)", cases=rows)
+
+
+def pod_batch(torch, cfg, shape, pods: int, device):
+    """``pods`` ``make_dummy_batch`` "train" batches of (B, S) = shape,
+    keys 1, 2, ..., stacked on a leading pod axis."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.models import make_dummy_batch
+
+    spec = configs.InputShape("train", shape[1], shape[0], "train")
+    each = [make_dummy_batch(cfg, spec, prng.PRNGKey(1 + m), device)
+            for m in range(pods)]
+    return {k: torch.stack([b[k] for b in each]) for k in each[0]}
+
+
+def leaf_err(a, b) -> float:
+    """max |a - b| over max(1, max |b|)."""
+    return float((a.float() - b.float()).abs().max()) / max(
+        1.0, float(b.float().abs().max()))
+
+
+def train_path(torch, dev) -> dict:
+    """The FEDGS pod train step on mamba2-780m at full width and depth:
+    two pods, each its own fixed "train" batch, ``grad_accum`` 2, remat;
+    T internal steps a round, R rounds, Eq. 5 after each round. Launch
+    counts over the run against the formulas, ms per step and per Eq. 5,
+    peak memory, the loss per step; the pods differ after a step and are
+    equal after Eq. 5, which is within 1e-6 of ``torch.mean``; the loss
+    falls. Returns the run's launch counts."""
+    from repro_torch import configs, tree
+    from repro_torch.core import dispatch
+    from repro_torch.launch import steps
+    from repro_torch.models import build
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    one = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    n_par = check_param_count(TRAIN_ARCH, cfg, one)
+    stacked = tree.map(lambda leaf: torch.stack([leaf] * TRAIN_PODS), one)
+    del one
+    batch = pod_batch(torch, cfg, TRAIN_SHAPE, TRAIN_PODS, dev)
+    step = steps.make_train_step(cfg, lr=TRAIN_LR, grad_accum=TRAIN_ACCUM,
+                                 remat=True)
+    torch.cuda.synchronize()
+    print(f"train {TRAIN_ARCH}: full width and depth ({L} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}), "
+          f"{n_par:,} f32 parameters a pod from a CUDA torch.Generator, "
+          f"{TRAIN_PODS} pods, each a fixed make_dummy_batch 'train' batch "
+          f"{TRAIN_SHAPE}, grad_accum {TRAIN_ACCUM}, remat, lr {TRAIN_LR}, "
+          f"T = {TRAIN_ITERS}, R = {TRAIN_ROUNDS}; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_steps = TRAIN_ITERS * TRAIN_ROUNDS
+    # per pod and step: each layer's forward once and once more in the
+    # remat recompute, per microbatch; one backward per layer and microbatch
+    expect = expect_only(
+        ssd_scan=2 * L * TRAIN_ACCUM * TRAIN_PODS * n_steps,
+        ssd_scan_bwd=L * TRAIN_ACCUM * TRAIN_PODS * n_steps,
+        agg_weighted=TRAIN_ROUNDS)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    losses, step_ms, sync_ms, sync_extra = [], [], [], []
+    peak = 0
+    for r in range(TRAIN_ROUNDS):
+        for _ in range(TRAIN_ITERS):
+            t1 = time.perf_counter()
+            stacked, loss = step(stacked, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            losses.append(float(loss))
+            if not math.isfinite(losses[-1]):
+                fail(f"train {TRAIN_ARCH}: loss {losses[-1]} at step "
+                     f"{len(losses)}")
+            if len(losses) == 1 and not any(
+                    bool((leaf[0] != leaf[1]).any())
+                    for leaf in tree.leaves(stacked)):
+                fail(f"train {TRAIN_ARCH}: the pods saw different batches "
+                     "but are equal after a step")
+        # Eq. 5's own peak above what it starts from: the flat (M, P4)
+        # copy, the mean and the new stacked tree
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        synced = steps.external_sync_step(stacked)
+        torch.cuda.synchronize()
+        sync_ms.append(1e3 * (time.perf_counter() - t1))
+        sync_extra.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+        err = 0.0
+        for s_leaf, leaf in zip(tree.leaves(synced), tree.leaves(stacked)):
+            if not all(torch.equal(s_leaf[0], s_leaf[m])
+                       for m in range(1, TRAIN_PODS)):
+                fail(f"train {TRAIN_ARCH}: the pods differ after Eq. 5")
+            err = max(err, float((s_leaf[0] - leaf.mean(0)).abs().max()))
+        if not err <= 1e-6:
+            fail(f"train {TRAIN_ARCH}: Eq. 5 differs from torch.mean over "
+                 f"the pods by {err} > 1e-6")
+        stacked = synced
+        del synced
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    if counts != expect:
+        fail(f"train {TRAIN_ARCH}: launch counts {counts} != {expect}")
+    peak_gb = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+    if not losses[-1] < losses[0]:
+        fail(f"train {TRAIN_ARCH}: the loss on the fixed batches did not "
+             f"fall: {losses}")
+    print(f"train {TRAIN_ARCH}: losses {[round(v, 5) for v in losses]} over "
+          f"{n_steps} steps; {[round(v, 1) for v in step_ms]} ms per train "
+          f"step (host clock, synchronised; {TRAIN_PODS} pods x "
+          f"{TRAIN_SHAPE[0] * TRAIN_SHAPE[1]} tokens), "
+          f"{[round(v, 1) for v in sync_ms]} ms per Eq. 5 (its peak "
+          f"{[round(v, 2) for v in sync_extra]} GB above the "
+          f"{TRAIN_PODS} x {4 * n_par / 1e9:.2f} GB of stacked parameters "
+          f"it starts from); Eq. 5 within {err:.3g} of torch.mean; peak "
+          f"device memory {peak_gb:.2f} GB; "
+          f"launches ssd_scan {counts['ssd_scan']} = 2 L ga pods steps "
+          f"(remat runs each forward twice), ssd_scan_bwd "
+          f"{counts['ssd_scan_bwd']} = L ga pods steps, agg_weighted "
+          f"{counts['agg_weighted']} = R", flush=True)
+    lm_profile(torch, lambda: step(stacked, batch), f"train {TRAIN_ARCH} step")
+    del stacked, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_cut_checks(torch, dev) -> None:
+    """mamba2-780m at full width, 4 of 48 layers, one pod: one step with
+    remat against one without (parameters within 1e-6 of max(1, max
+    |leaf|)), and ``grad_accum`` 2 against 1 (test_launch.py's atol 2e-5,
+    rtol 2e-4)."""
+    from repro_torch import configs, tree
+    from repro_torch.launch import steps
+    from repro_torch.models import build
+
+    cfg = configs.get_config(TRAIN_ARCH).with_(num_layers=TRAIN_CUT_LAYERS)
+    one = build(cfg).init(torch.Generator(device=dev).manual_seed(2), dev)
+    stacked = tree.map(lambda leaf: leaf[None], one)
+    batch = pod_batch(torch, cfg, TRAIN_SHAPE, 1, dev)
+    run = lambda ga, remat: steps.make_train_step(
+        cfg, lr=TRAIN_LR, grad_accum=ga, remat=remat)(stacked, batch)
+    new_r, loss_r = run(TRAIN_ACCUM, True)
+    new_p, loss_p = run(TRAIN_ACCUM, False)
+    remat_err = max(leaf_err(a, b) for a, b in zip(tree.leaves(new_r),
+                                                   tree.leaves(new_p)))
+    if not remat_err <= 1e-6 or float(loss_r) != float(loss_p):
+        fail(f"train cut: remat on vs off: params differ by {remat_err} of "
+             f"max(1, max |leaf|), losses {float(loss_r)} {float(loss_p)}")
+    del new_p
+    new_1, loss_1 = run(1, True)
+    for a, b in zip(tree.leaves(new_1), tree.leaves(new_r)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-4)
+    accum_err = max(float((a - b).abs().max())
+                    for a, b in zip(tree.leaves(new_1), tree.leaves(new_r)))
+    print(f"train cut ({TRAIN_ARCH}, full width, {TRAIN_CUT_LAYERS} of 48 "
+          f"layers, one pod, {TRAIN_SHAPE}): remat on vs off params "
+          f"{remat_err:.3g} of max(1, max |leaf|) (tol 1e-6), losses "
+          f"equal; grad_accum 1 vs {TRAIN_ACCUM}: max |diff| "
+          f"{accum_err:.3g} (atol 2e-5, rtol 2e-4), losses "
+          f"{float(loss_1):.6f} / {float(loss_r):.6f}", flush=True)
+    del one, stacked, batch, new_r, new_1
+    torch.cuda.empty_cache()
+
+
+def train_smoke_card_vs_cpu(torch, dev) -> None:
+    """Every arch's smoke config: one train step (two pods, the second's
+    weights 1.1 x the first's, ``grad_accum`` 2, remat) on the card and on
+    the CPU from the same threefry weights and batches; the loss and every
+    parameter within 1e-5 of max(1, max |leaf|). Then the refusal: flash
+    attention under grad raises on the card."""
+    from repro_torch import configs, tree
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import build
+
+    worst = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_smoke_config(arch)
+        one = build(cfg).init(prng.PRNGKey(0), "cpu")
+        stacked = tree.map(lambda leaf: torch.stack([leaf, leaf * 1.1]), one)
+        batch = pod_batch(torch, cfg, TRAIN_SMOKE_SHAPE, 2, "cpu")
+        step = steps.make_train_step(cfg, lr=TRAIN_LR,
+                                     grad_accum=TRAIN_ACCUM, remat=True)
+        new_c, loss_c = step(stacked, batch)
+        new_g, loss_g = step(tree.map(lambda leaf: leaf.to(dev), stacked),
+                             {k: v.to(dev) for k, v in batch.items()})
+        err = max([leaf_err(a.cpu(), b) for a, b in zip(
+            tree.leaves(new_g), tree.leaves(new_c))]
+            + [leaf_err(loss_g.cpu(), loss_c)])
+        if not err <= 1e-5:
+            fail(f"train smoke {arch}: card vs CPU differ by {err} of "
+                 "max(1, max |leaf|) (tol 1e-5)")
+        worst[arch] = err
+    print(f"train smoke, one step each (2 pods, ga {TRAIN_ACCUM}, remat, "
+          f"{TRAIN_SMOKE_SHAPE}), card vs CPU, loss and params of max(1, "
+          f"max |leaf|): " + ", ".join(f"{a} {e:.2g}"
+                                      for a, e in worst.items())
+          + " (tol 1e-5)", flush=True)
+    cfg = configs.get_smoke_config(LM_ARCH)
+    one = build(cfg).init(prng.PRNGKey(0), dev)
+    stacked = tree.map(lambda leaf: leaf[None], one)
+    batch = pod_batch(torch, cfg, TRAIN_SMOKE_SHAPE, 1, dev)
+    try:
+        steps.make_train_step(cfg, attn_impl="pallas")(stacked, batch)
+    except RuntimeError as err:
+        if "cannot differentiate" not in str(err):
+            raise
+        print(f"train refusal on the card: attn_impl='pallas' under grad "
+              f"raises: {str(err)[:100]}...", flush=True)
+    else:
+        fail("train: flash_attention under grad did not raise on the card")
+
+
+def train_phase(torch, dev) -> tuple[dict, dict]:
+    """LM training (the FEDGS pod train step): the ssd_scan backward
+    against its plain version, mamba2-780m trained at full width and
+    depth, the cut-depth comparisons, every smoke config card vs CPU."""
+    t_phase = time.perf_counter()
+    entry = check_ssd_scan_bwd(torch, dev)
+    counts = train_path(torch, dev)
+    train_cut_checks(torch, dev)
+    train_smoke_card_vs_cpu(torch, dev)
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, entry
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4023,7 +4367,8 @@ def main() -> None:
                    "conv_fused": 2 * rounds * iters + 2 * (rounds // every),
                    "agg_weighted": rounds, "robust_agg": 0,
                    "topk_compress": 0, "int8_quant": 0, "flash_attention": 0,
-                   "ssd_scan": 0, "corrupt_rows": 0, "dirichlet_rows": 0,
+                   "ssd_scan": 0, "ssd_scan_bwd": 0, "corrupt_rows": 0,
+                   "dirichlet_rows": 0,
                    "avail_rows": 0}
     _, main_counts, main_ms = drive("main path", flags, main_expect, torch)
     profile_round("main path", [], torch)
@@ -4208,6 +4553,16 @@ def main() -> None:
     print(f"vlm and encdec phases: {time.perf_counter() - t_phase:.1f} s; "
           f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
 
+    # LM training (the FEDGS pod train step): the ssd_scan backward at the
+    # sweep and both full-width shapes, mamba2-780m trained at full width
+    # and depth (two pods, Eq. 5 each round), the full-width comparisons at
+    # 4 layers, the ten smoke configs card vs CPU, the refusal under grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts, bwd_entry = train_phase(torch, dev)
+    kernels.append(bwd_entry)
+    print(f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
+
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
                    "robust": robust_counts[k["name"]],
@@ -4233,7 +4588,8 @@ def main() -> None:
         by_path.update({p: c[k["name"]] for p, c in moe_counts.items()})
         by_path.update({"vlm": vlm_counts[k["name"]],
                         "encdec": encdec_counts[k["name"]],
-                        "encdec_cross": encdec_cross_counts[k["name"]]})
+                        "encdec_cross": encdec_cross_counts[k["name"]],
+                        "train": train_counts[k["name"]]})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:

@@ -18,6 +18,7 @@ There is no backend switch and no fallback.
 | §14 availability trace (up-mask and latency) | ``kernels.avail.avail_rows`` | ``kernels.avail.avail_rows_plain`` |
 | LM attention (``attend(impl="pallas")``) | ``kernels.flash_attention.flash_attention`` | ``kernels.flash_attention.attention_plain`` |
 | Mamba2 SSD scan (``models.ssm.mamba_forward``) | ``kernels.ssd_scan.ssd_scan`` | ``kernels.ssd_scan.ssd_scan_plain`` |
+| its gradient (autograd through ``ssd_scan``) | ``kernels.ssd_scan_bwd.backward`` | autograd through ``ssd_scan_plain`` |
 
 :func:`launch_counts` reports how many times each kernel was launched since
 :func:`reset_launch_counts`; a run whose counts stay 0 did not go through
@@ -29,12 +30,12 @@ import functools
 
 from ..kernels import (agg_weighted, avail, conv_fused, corrupt, dirichlet,
                        flash_attention, gbp_cs, int8_quant, robust_agg,
-                       ssd_scan, topk_compress)
+                       ssd_scan, ssd_scan_bwd, topk_compress)
 
 KERNELS = {mod.NAME: mod for mod in (gbp_cs, conv_fused, agg_weighted,
                                      robust_agg, topk_compress, int8_quant,
-                                     flash_attention, ssd_scan, corrupt,
-                                     dirichlet, avail)}
+                                     flash_attention, ssd_scan, ssd_scan_bwd,
+                                     corrupt, dirichlet, avail)}
 
 gbp_cs_loop = gbp_cs.minimize
 conv_block_grouped = conv_fused.conv_block_grouped

@@ -32,6 +32,7 @@ def agg_plain(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 def agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Σ_k w_k X_k: kernel on the card (P % 4 == 0), plain on CPU."""
+    build.refuse_grad(NAME, stacked, weights)
     if stacked.device.type == "cpu":
         return agg_plain(stacked, weights)
     lib = build.library()

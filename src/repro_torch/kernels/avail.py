@@ -122,6 +122,7 @@ def avail_rows(ids: torch.Tensor, t, sched: Schedule
     """(mask, latency) of the devices ``ids`` (R,) at iteration ``t`` (an
     int, or a 0-d integer tensor on the ids' device, read there):
     kernel on the card, plain on CPU."""
+    build.refuse_grad(NAME, ids)
     if ids.device.type == "cpu":
         return avail_rows_plain(ids, t, sched)
     _check(ids, sched)

@@ -44,6 +44,7 @@ SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_L] * 9
     + [_I, _I, _F, _P],
     "ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P],
+    "ssd_scan_bwd_f32": [_P] * 23 + [_I] * 6 + [_L] * 10 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -150,6 +151,20 @@ def require(t, name: str, shape: tuple, dtype, align: int = 4) -> None:
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data must start on a {align}-byte "
                          "boundary")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would have to differentiate through a kernel
+    that has no backward: grad mode on and an input that requires grad (the
+    kernel's output would carry no ``grad_fn``, and the gradient would be
+    dropped without a word). Both devices refuse, so that a CPU run refuses
+    what the card would."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
 
 
 def stream(t) -> int:

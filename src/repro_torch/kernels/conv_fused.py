@@ -79,6 +79,7 @@ def fused(pat: torch.Tensor, wm: torch.Tensor, b: torch.Tensor, w_img: int,
     """GEMM + bias + ReLU (+ 2×2 pool): kernel on the card, plain on CPU.
     Any C with C % 4 == 0; with ``pool``, W even and R a multiple of 2W
     (whole image row-pairs), as the Pallas wrapper asserts."""
+    build.refuse_grad(NAME, pat, wm, b)
     if pat.device.type == "cpu":
         return fused_plain(pat, wm, b, w_img, pool)
     lib = build.library()

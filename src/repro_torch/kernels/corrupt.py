@@ -126,6 +126,7 @@ def corrupt_rows(x: torch.Tensor, code: torch.Tensor, keys, sizes, modes,
     of the S leaves, None when no mode is ``gauss_noise``), ``sizes`` the S
     leaves' coordinate counts in x's column order, ``modes`` the mix.
     Kernel on the card, plain on CPU. Returns x."""
+    build.refuse_grad(NAME, x)
     if x.device.type == "cpu":
         return corrupt_rows_plain(x, code, keys, sizes, modes, scale, sigma)
     _check(x, code, keys, sizes, modes)

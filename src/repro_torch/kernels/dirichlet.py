@@ -106,6 +106,7 @@ def drift_rows(base: torch.Tensor | None, trace: torch.Tensor,
     device and the Dirichlet concentration ``alpha`` (a float, or an (R,
     F) float32 tensor on that device); ``base`` None draws every row:
     kernel on the card, plain on CPU."""
+    build.refuse_grad(NAME, base, alpha)
     if trace.device.type == "cpu":
         return drift_rows_plain(base, trace, alpha)
     _check(base, trace, alpha)

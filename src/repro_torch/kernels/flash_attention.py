@@ -68,7 +68,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model layout q (B, Sq, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv) →
     (B, Sq, H, Dv). Sq and Sk must be multiples of ``block_q``/``block_k``,
     as the Pallas wrapper asserts; (D, Dv) must be one of ``HEAD_DIMS`` on
-    either device, so that a CPU run refuses what the card would."""
+    either device, so that a CPU run refuses what the card would. Both
+    devices refuse a call that autograd would have to differentiate (grad
+    mode on and q, k or v requiring grad): the kernel has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: no gradient. The JAX package cannot "
+            "differentiate its Pallas flash kernel (jax.grad through it "
+            "raises), so the port gives the kernel no backward either; "
+            "training takes attn_impl='auto'. Call it under torch.no_grad() "
+            "or on tensors that do not require grad.")
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if (d, v.shape[-1]) not in HEAD_DIMS:

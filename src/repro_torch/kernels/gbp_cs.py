@@ -109,6 +109,7 @@ def minimize(A: torch.Tensor, y: torch.Tensor, x0: torch.Tensor,
     """The GBP-CS loop for all groups: kernel on the card, plain on CPU.
     The card's outputs are four allocations, which cost the host less than
     one buffer cut into four views (PERF.md, the ``gbp_cs`` row)."""
+    build.refuse_grad(NAME, A, y, x0)
     if A.device.type == "cpu":
         return minimize_plain(A, y, x0, max_iters)
     g, f, k = A.shape

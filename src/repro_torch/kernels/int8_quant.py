@@ -64,6 +64,7 @@ def quantize(x: torch.Tensor, keys) -> torch.Tensor:
     CPU."""
     m, p = x.shape
     keys = _key_tensor(keys, m, x.device)
+    build.refuse_grad(NAME, x)
     if x.device.type == "cpu":
         return quantize_plain(x, keys)
     lib = build.library()

@@ -71,6 +71,7 @@ def aggregate(stacked: torch.Tensor, active: torch.Tensor, method: str,
     """Per-coordinate trimmed mean / median of (M, K, P) over the active
     members of each group → (M, P): kernel on the card (K <= 64), plain on
     CPU."""
+    build.refuse_grad(NAME, stacked)
     if stacked.device.type == "cpu":
         return aggregate_plain(stacked, active, method, trim)
     if method not in METHODS:

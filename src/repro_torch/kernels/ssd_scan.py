@@ -14,12 +14,20 @@ and C may be strided views (the model passes slices of one projection) as
 long as their last axis has unit stride; the wrapper copies one whose
 strides the kernel's 16-byte copies cannot take, and pads N to a multiple
 of 4 with zero columns.
+
+On the card the scan is a ``torch.autograd.Function`` (:class:`Scan`): the
+forward saves the prepared inputs and the states entering each chunk,
+and its backward is ``csrc/ssd_scan_bwd.cu`` (``kernels.ssd_scan_bwd``),
+which returns dx, ddt, dA, dB and dC, dB and dC cut back to N. On the CPU
+autograd runs through :func:`ssd_scan_plain`. ``LAUNCHES`` counts forward
+launches: under remat a layer's forward runs again in the backward, and is
+counted again.
 """
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, ssd_scan_bwd
 
 NAME = "ssd_scan"
 SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
@@ -82,12 +90,33 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"chunk={chunk}")
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-    build.library()
-    call = prepare(x, dt, A, B, C, chunk)
-    run(call)
-    global LAUNCHES
-    LAUNCHES += 1
-    return call["y"]
+    return Scan.apply(x, dt, A, B, C, chunk)
+
+
+class Scan(torch.autograd.Function):
+    """The kernel's forward, and its backward through
+    ``csrc/ssd_scan_bwd.cu``: the prepared x, B and C and the states
+    buffer are saved (through ``save_for_backward``, so that a checkpointed
+    region drops them and recomputes them)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        build.library()
+        call = prepare(x, dt, A, B, C, chunk)
+        run(call)
+        global LAUNCHES
+        LAUNCHES += 1
+        ctx.chunk, ctx.n = chunk, B.shape[-1]
+        ctx.save_for_backward(call["x"], dt, A, call["B"], call["C"],
+                              call["states"])
+        return call["y"]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, B, C, states = ctx.saved_tensors
+        dx, ddt, dA, dB, dC = ssd_scan_bwd.backward(x, dt, A, B, C, states,
+                                                    dy, ctx.chunk)
+        return dx, ddt, dA, dB[..., :ctx.n], dC[..., :ctx.n], None
 
 
 def plan(bt: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:

@@ -77,6 +77,7 @@ def select_with_stats(x: torch.Tensor, k: int
     m, p = x.shape
     if not 1 <= k <= p:
         raise ValueError(f"topk_compress: k={k} must lie in [1, P={p}]")
+    build.refuse_grad(NAME, x)
     if x.device.type == "cpu":
         return select_plain(x, k), None
     lib = build.library()

@@ -25,9 +25,10 @@ from __future__ import annotations
 import torch
 
 from . import attention as attn
-from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, linear,
-                     mlp, rmsnorm, split, unembed)
-from .transformer import _index, _init_stack
+from .layers import (cross_entropy_loss, embed, init_embedding, init_mlp,
+                     init_rmsnorm, linear, mlp, rmsnorm, split, unembed)
+from .transformer import (_index, _init_stack, layer_call, refuse_sharding,
+                          unstack)
 
 
 def init_encdec(cfg, key, device="cuda") -> dict:
@@ -75,17 +76,23 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def encode(cfg, params: dict, frames: torch.Tensor, *,
-           attn_impl: str = "auto") -> torch.Tensor:
+           attn_impl: str = "auto", remat: bool = False,
+           act_sharding=None) -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings (B, S_enc,
-    d) -> the normed encoder output (B, S_enc, d)."""
+    d) -> the normed encoder output (B, S_enc, d). ``remat``: each layer
+    under a checkpoint."""
+    refuse_sharding(act_sharding=act_sharding)
     x = frames.to(cfg.compute_dtype)
     positions = _positions(x)
-    for i in range(cfg.num_layers):
-        p = _index(params["encoder"], i)
-        x = x + attn.attention_forward(
-            p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), positions, cfg,
+
+    def layer(p, h):
+        h = h + attn.attention_forward(
+            p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), positions, cfg,
             causal=False, impl=attn_impl)
-        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+
+    for p in unstack(params["encoder"], cfg.num_layers):
+        x = layer_call(remat, layer, p, x)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -100,33 +107,50 @@ def _cross_kv(cfg, p: dict, enc_out: torch.Tensor):
 
 def decode_train(cfg, params: dict, tokens: torch.Tensor,
                  enc_out: torch.Tensor, *, window: int | None = None,
-                 attn_impl: str = "auto") -> torch.Tensor:
+                 attn_impl: str = "auto", remat: bool = False,
+                 act_sharding=None) -> torch.Tensor:
     """Teacher-forced decoder forward: tokens (B, S_dec) over the encoder
-    output -> logits (B, S_dec, padded_vocab)."""
+    output -> logits (B, S_dec, padded_vocab). ``remat``: each layer under
+    a checkpoint."""
+    refuse_sharding(act_sharding=act_sharding)
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     positions = _positions(x)
-    for i in range(cfg.num_layers):
-        p = _index(params["decoder"], i)
-        x = x + attn.attention_forward(
-            p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), positions, cfg,
+
+    def layer(p, h):
+        h = h + attn.attention_forward(
+            p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), positions, cfg,
             causal=True, window=window, impl=attn_impl)
-        x = x + attn.gqa_forward(
-            p["xattn"], rmsnorm(p["ln_x"], x, cfg.norm_eps), positions, cfg,
+        h = h + attn.gqa_forward(
+            p["xattn"], rmsnorm(p["ln_x"], h, cfg.norm_eps), positions, cfg,
             causal=False, impl=attn_impl,
             kv_override=_cross_kv(cfg, p["xattn"], enc_out))
-        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+
+    for p in unstack(params["decoder"], cfg.num_layers):
+        x = layer_call(remat, layer, p, x)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["lm_head"], x)
 
 
 def forward(cfg, params: dict, batch: dict, *, window: int | None = None,
-            attn_impl: str = "auto") -> torch.Tensor:
+            attn_impl: str = "auto", remat: bool = False,
+            act_sharding=None) -> torch.Tensor:
     """``batch["encoder_frames"]`` and ``batch["tokens"]`` -> the decoder's
     logits (B, S_dec, padded_vocab)."""
     enc_out = encode(cfg, params, batch["encoder_frames"],
-                     attn_impl=attn_impl)
+                     attn_impl=attn_impl, remat=remat,
+                     act_sharding=act_sharding)
     return decode_train(cfg, params, batch["tokens"], enc_out,
-                        window=window, attn_impl=attn_impl)
+                        window=window, attn_impl=attn_impl, remat=remat,
+                        act_sharding=act_sharding)
+
+
+def encdec_loss(cfg, params: dict, batch: dict, **kw) -> torch.Tensor:
+    """Mean next-token cross-entropy of the decoder's logits (positions
+    :-1 against ``batch["labels"]`` at 1:, the padded vocab masked)."""
+    logits = forward(cfg, params, batch, **kw)
+    return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                              valid_vocab=cfg.vocab_size)
 
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *,

@@ -3,8 +3,9 @@
 The port of the JAX package's ``models/factory.py``: dispatches on
 ``cfg.is_encoder_decoder`` (whisper: ``models/encdec``) and otherwise
 builds the decoder-only stack (``models/transformer``: dense, MoE, SSM,
-hybrid and VLM). ``loss`` raises ``NotImplementedError``: LM training is
-ROADMAP item 18.4. :func:`make_dummy_batch` draws a batch of
+hybrid and VLM). ``loss`` is the training loss (``transformer.lm_loss``,
+``encdec.encdec_loss``), taking ``window``, ``attn_impl``, ``remat`` and
+``act_sharding``. :func:`make_dummy_batch` draws a batch of
 ``configs.input_specs`` from a threefry key.
 """
 from __future__ import annotations
@@ -26,19 +27,13 @@ class ModelFns(NamedTuple):
     decode_step: Callable[..., tuple]          # (params, cache, tokens, pos)
 
 
-def _no_training(what: str):
-    def loss(params, batch, **kw):
-        raise NotImplementedError(f"LM training ({what}) is not ported yet "
-                                  "(ROADMAP item 18.4)")
-    return loss
-
-
 def build(cfg) -> ModelFns:
     if cfg.is_encoder_decoder:
         return ModelFns(
             init=lambda key, device="cuda": encdec.init_encdec(cfg, key,
                                                                device),
-            loss=_no_training("encdec_loss"),
+            loss=lambda params, batch, **kw: encdec.encdec_loss(
+                cfg, params, batch, **kw),
             forward=lambda params, batch, **kw: encdec.forward(
                 cfg, params, batch, **kw),
             init_decode_cache=lambda batch, seq_len, **kw:
@@ -57,7 +52,8 @@ def build(cfg) -> ModelFns:
 
     return ModelFns(
         init=lambda key, device="cuda": transformer.init_lm(cfg, key, device),
-        loss=_no_training("lm_loss"),
+        loss=lambda params, batch, **kw: transformer.lm_loss(
+            cfg, params, batch, **kw),
         forward=fwd,
         init_decode_cache=lambda batch, seq_len, **kw:
             transformer.init_decode_cache(cfg, batch, seq_len, **kw),

@@ -131,6 +131,20 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, p["table"].to(x.dtype).T)
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       valid_vocab: int | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy: the padded vocab ids are masked to
+    ``finfo(logits.dtype).min`` in the logits' own dtype, then
+    ``log_softmax`` in f32, the labels gathered, and the mean taken."""
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        mask = torch.arange(logits.shape[-1], device=logits.device) \
+            < valid_vocab
+        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())
+    return torch.mean(nll)
+
+
 def num_params(tree) -> int:
     """Element count of a parameter tree."""
     if isinstance(tree, dict):

@@ -8,10 +8,11 @@ the chunks where the JAX package runs a ``lax.scan``. ``ssd_reference``
 materialises the full S×S semiseparable matrix (the test oracle).
 
 ``mamba_forward`` sends the scan to ``kernels.ssd_scan.ssd_scan`` (the
-CUDA kernel for CUDA tensors, :func:`ssd_chunked` for CPU tensors) when
-the kernel's contract holds: no initial state in and no final state out,
-as in every ``transformer.forward``. With a state in or out it runs
-:func:`ssd_chunked` on any device.
+CUDA kernel for CUDA tensors, differentiated by its backward kernel
+``csrc/ssd_scan_bwd.cu``; :func:`ssd_chunked` for CPU tensors) when the
+kernel's contract holds: no initial state in and no final state out, as
+in every ``transformer.forward`` and so in training. With a state in or
+out it runs :func:`ssd_chunked` on any device.
 
 Decode is the O(1) recurrent update: h ← h·exp(dtA) + dt·B⊗x, y = C·h.
 
@@ -88,7 +89,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
       A: (H,) negative decay rates. B, C: (Bt, S, N) (ngroups=1).
       chunk: intra-chunk length Q; S must be a multiple of it.
       init_state: optional (Bt, H, N, P) initial state.
-    Returns: (y (Bt,S,H,P), final_state (Bt,H,N,P)).
+    Returns: (y (Bt,S,H,P), final_state (Bt,H,N,P)). The state is
+    carried in f32 (f64 for f64 inputs, as the kernel's float64 yardstick
+    takes it).
     """
     bt, s, h, p = x.shape
     n = B.shape[-1]
@@ -120,8 +123,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     st = init_state if init_state is not None else \
         torch.zeros(bt, h, n, p, dtype=x.dtype, device=x.device)
-    st = st.float()
-    states, chunk_decay = states.float(), chunk_decay.float()
+    acc = torch.promote_types(x.dtype, torch.float32)   # f32, or f64 for f64
+    st = st.to(acc)
+    states, chunk_decay = states.to(acc), chunk_decay.to(acc)
     prev = []
     for c in range(nc):                                   # the lax.scan
         prev.append(st)
@@ -131,8 +135,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # inter-chunk (off-diagonal): Y_i += exp(cum_i) C_i · S_prev
     state_decay = torch.exp(cum)                          # (bt,nc,H,Q)
     y_off = torch.einsum("bcin,bchnp,bchi->bcihp",
-                         Cr.float(), prev_states, state_decay)
-    y = (y_diag.float() + y_off).reshape(bt, s, h, p)
+                         Cr.to(acc), prev_states, state_decay)
+    y = (y_diag.to(acc) + y_off).reshape(bt, s, h, p)
     return y.to(x.dtype), st.to(x.dtype)
 
 

@@ -21,24 +21,59 @@ precomputed ViT patch embeddings (stub frontend) in front of the token
 embeddings, and the logits cover the text part only. Decode takes no
 prefix, as in the JAX package.
 
-``remat`` and ``act_sharding`` have no meaning in eager PyTorch and are
-not taken.
+``forward(remat=True)`` runs each layer (each Mamba2 layer of the hybrid,
+whose shared attention block runs as it is, as in the JAX package) under
+``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+and recomputed in the backward, the same numbers as without remat.
+``act_sharding`` pins activations to a device mesh, an SPMD knob of
+ROADMAP item 19: only its default (None) is taken. :func:`lm_loss` is the
+training loss (next-token cross-entropy plus the MoE aux loss).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .layers import (embed, init_embedding, init_mlp, init_rmsnorm, mlp,
-                     rmsnorm, split, unembed)
+from .layers import (cross_entropy_loss, embed, init_embedding, init_mlp,
+                     init_rmsnorm, mlp, rmsnorm, split, unembed)
+
+
+def refuse_sharding(**knobs) -> None:
+    """Raise ``NotImplementedError`` for an SPMD knob (a mesh, a sharding,
+    ``spmd_pod``) set to anything but its default: they are ROADMAP item
+    19, not ported yet."""
+    for name, value in knobs.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"{name}={value!r}: the SPMD knobs are not ported yet "
+                "(ROADMAP item 19); the port takes only the default")
+
+
+def layer_call(remat: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant checkpoint when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf a view from one
+    ``unbind``: under autograd their gradients are stacked once, where
+    ``_index`` per layer would add ``n`` full-size zero-padded gradients
+    into each stacked leaf."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _empty_stack(tree, n: int):
@@ -154,12 +189,15 @@ def _segments(cfg) -> list[range]:
 
 def forward(cfg, params: dict, tokens: torch.Tensor, *,
             prefix_embeds: torch.Tensor | None = None,
-            window: int | None = None, attn_impl: str = "auto"
+            window: int | None = None, attn_impl: str = "auto",
+            remat: bool = False, act_sharding=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token ids (B, S) (+ optional (B, P, d) prefix embeddings, cast to
     the compute dtype and put in front) -> (logits (B, S, padded_vocab)
     of the token positions only, aux_loss): the MoE layers' load-balance
-    losses summed in f32 (0 for the others)."""
+    losses summed in f32 (0 for the others). ``remat``: each layer under a
+    checkpoint."""
+    refuse_sharding(act_sharding=act_sharding)
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     n_prefix = 0
     if prefix_embeds is not None:
@@ -168,18 +206,26 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *,
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
+
+    def attn_layer(p, h):
+        return _attn_layer_fwd(cfg, p, h, positions, window=window,
+                               impl=attn_impl)
+
+    def mamba_layer(p, h):
+        return _mamba_layer_fwd(cfg, p, h)
+
+    layers = unstack(params["layers"], cfg.num_layers)
     if cfg.arch_type in ATTN_TYPES:
-        for i in range(cfg.num_layers):
-            x, a = _attn_layer_fwd(cfg, _index(params["layers"], i), x,
-                                   positions, window=window, impl=attn_impl)
+        for p in layers:
+            x, a = layer_call(remat, attn_layer, p, x)
             aux = aux + a
     elif cfg.arch_type == "ssm":
-        for i in range(cfg.num_layers):
-            x = _mamba_layer_fwd(cfg, _index(params["layers"], i), x)
+        for p in layers:
+            x = layer_call(remat, mamba_layer, p, x)
     elif cfg.arch_type == "hybrid":
         for seg in _segments(cfg):
             for i in seg:
-                x = _mamba_layer_fwd(cfg, _index(params["layers"], i), x)
+                x = layer_call(remat, mamba_layer, layers[i], x)
             x, a = _attn_layer_fwd(cfg, params["shared_attn"], x,
                                    positions, window=window, impl=attn_impl)
             aux = aux + a
@@ -190,6 +236,22 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *,
         x = x[:, n_prefix:]
     head = params.get("lm_head", params["embed"])
     return unembed(head, x), aux
+
+
+def lm_loss(cfg, params: dict, batch: dict, *, window=None,
+            attn_impl: str = "auto", remat: bool = False,
+            aux_weight: float = 0.01, act_sharding=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (logits at
+    positions :-1 against ``batch["labels"]`` at 1:, the padded vocab
+    masked; a VLM's logits cover its text only) plus ``aux_weight`` times
+    the MoE load-balance loss."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          prefix_embeds=batch.get("vision_embeds"),
+                          window=window, attn_impl=attn_impl, remat=remat,
+                          act_sharding=act_sharding)
+    loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                              valid_vocab=cfg.vocab_size)
+    return loss + aux_weight * aux
 
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *, windowed=False,

@@ -197,11 +197,6 @@ def test_encoder_is_bidirectional():
     assert float((out1[:, 0] - out2[:, 0]).abs().max()) > 1e-6
 
 
-def test_loss_waits_for_training():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18.4"):
-        build(configs.get_smoke_config(ARCH)).loss({}, {})
-
-
 # ---------------------------------------------------------------------------
 # the cross cache and decode
 # ---------------------------------------------------------------------------

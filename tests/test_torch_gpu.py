@@ -9,7 +9,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import dispatch, gbp_cs as core_gbp
 from repro_torch.kernels import (agg_weighted, conv_fused, corrupt, gbp_cs,
-                                 robust_agg, ssd_scan)
+                                 robust_agg, ssd_scan, ssd_scan_bwd)
 
 pytestmark = pytest.mark.gpu
 
@@ -904,6 +904,74 @@ def test_mamba_forward_launches_the_scan_once(cuda):
     assert dispatch.launch_counts()["ssd_scan"] == 1
     err = float((out - ref).abs().max())
     assert err <= 1e-4 * max(1.0, float(ref.abs().max())), err
+
+
+@pytest.mark.parametrize("bt,s,h,p,n,chunk", ssd_scan.SWEEP)
+def test_ssd_scan_backward_matches_plain(cuda, bt, s, h, p, n, chunk):
+    """dx, ddt, dA, dB and dC of the scan's autograd function (one
+    forward and one ``csrc/ssd_scan_bwd.cu`` launch) to 1e-4 · max(1, max
+    |ref|) of autograd through the plain version in float64, the
+    tolerance of chip_smoke.py (the f32 plain version is itself up to
+    ~1e-4 off that at the full-width shapes)."""
+    gen = torch.Generator(device=cuda).manual_seed(s + h + n + 1)
+    args = _ssd_inputs(gen, bt, s, h, p, n)
+    dy = torch.randn(args[0].shape, generator=gen, device=cuda)
+    ins = [t.detach().requires_grad_(True) for t in args]
+    chunk = min(chunk, s)
+    dispatch.reset_launch_counts()
+    out = torch.autograd.grad(ssd_scan.ssd_scan(*ins, chunk=chunk), ins, dy)
+    counts = dispatch.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+    ref = ssd_scan_bwd.backward_plain(*(t.double() for t in args),
+                                      dy.double(), chunk=chunk)
+    for g, r, t in zip(out, ref, args):
+        assert g.shape == t.shape and torch.isfinite(g).all()
+        err = float((g.double() - r).abs().max())
+        assert err <= 1e-4 * max(1.0, float(r.abs().max())), err
+
+
+def test_flash_attention_refuses_under_grad_on_card(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 128, 2, 32, device=cuda, requires_grad=True)
+    k = torch.randn(1, 128, 1, 32, device=cuda)
+    dispatch.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="attn_impl='auto'"):
+        fa.flash_attention(q, k, k)
+    assert dispatch.launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        fa.flash_attention(q, k, k)
+    assert dispatch.launch_counts()["flash_attention"] == 1
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One mamba2 smoke train step (two pods, grad_accum 2, remat) on the
+    card against the CPU: 2 L ga pods scan launches (the remat recompute
+    runs each forward again) and L ga pods backward launches; loss and
+    parameters to 1e-5 of max(1, max |leaf|)."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import build, make_dummy_batch
+    cfg = configs.get_smoke_config("mamba2-780m")
+    one = build(cfg).init(prng.PRNGKey(0), "cpu")
+    stacked = tree.map(lambda leaf: torch.stack([leaf, leaf * 1.1]), one)
+    shape = configs.InputShape("t", 256, 4, "train")
+    each = [make_dummy_batch(cfg, shape, prng.PRNGKey(k), "cpu")
+            for k in (1, 2)]
+    batch = {k: torch.stack([b[k] for b in each]) for k in each[0]}
+    step = steps.make_train_step(cfg, lr=0.1, grad_accum=2, remat=True)
+    new_c, loss_c = step(stacked, batch)
+    dispatch.reset_launch_counts()
+    new_g, loss_g = step(tree.map(lambda leaf: leaf.to(cuda), stacked),
+                         {k: v.to(cuda) for k, v in batch.items()})
+    counts = dispatch.launch_counts()
+    L = cfg.num_layers
+    assert counts["ssd_scan"] == 2 * L * 2 * 2
+    assert counts["ssd_scan_bwd"] == L * 2 * 2
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * max(1.0, float(loss_c))
+    for a, b in zip(tree.leaves(new_g), tree.leaves(new_c)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-5 * max(1.0, float(b.abs().max())), err
 
 
 def test_hybrid_forward_launch_counts(cuda):

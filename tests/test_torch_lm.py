@@ -400,12 +400,6 @@ def test_windowed_ring_decode_matches_windowed_prefill():
     assert err < 5e-4, err
 
 
-def test_loss_waits_for_training():
-    fns = build(configs.get_smoke_config("granite-3-2b"))
-    with pytest.raises(NotImplementedError, match="training"):
-        fns.loss({}, {})
-
-
 # ---------------------------------------------------------------------------
 # data and the serve CLI
 # ---------------------------------------------------------------------------

@@ -226,11 +226,6 @@ def test_serve_cli_prints_reference_token_ids(flags, capsys, monkeypatch):
     assert res["tokens"].shape == (4, 40 if "--windowed" in flags else 32)
 
 
-def test_loss_waits_for_training():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18.4"):
-        build(configs.get_smoke_config(ARCH)).loss({}, {})
-
-
 # ---------------------------------------------------------------------------
 # input_specs and make_dummy_batch
 # ---------------------------------------------------------------------------
