@@ -940,8 +940,7 @@ def profile_round(label, flags, torch) -> None:
     torch.cuda.synchronize()
     fedgs.SPANS = {}
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, _, t0 = run_cli(main_flags(1, iters, 1) + flags)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -1082,6 +1081,7 @@ def fused_rounds(torch, exp, rounds: int) -> tuple[list, list, list]:
 # The Table II strategies (``--strategy``) at the paper's traffic and full
 # CNN width: C = M·L = 100 clients a round, S = 10 local steps, n = 32.
 BASELINE_ROUNDS, BASELINE_EVERY = 2, 2
+BASELINE_EXTRA = 1               # rounds replayed and run eagerly after
 BASELINE_CLIENTS, BASELINE_STEPS = 100, 10
 # strategies whose client objective also runs the frozen global model's
 # features (one G = 1 forward, two conv launches, per local step)
@@ -1093,6 +1093,11 @@ TWO_AVERAGES = ("fedfusion_conv", "fedfusion_multi", "fedfusion_single",
                 "cgau", "ida", "ida_intrac", "ida_fedavg")
 BASELINE_SMOKE = ("fedavg", "fedmmd", "fedfusion_conv", "ida_intrac",
                   "fedyogi")
+# strategies the card runs on both engines, held equal bit for bit: one of
+# each family (the smoke set and the two with their own local step); the
+# others run on the fused engine alone, whose round step the host loop
+# shares (core/baselines.make_round_step; the CPU tests hold the two equal)
+BASELINE_BOTH = BASELINE_SMOKE + ("fedprox", "cgau")
 BASELINE_PROFILED = "fedavg"     # one traced replayed round
 
 
@@ -1129,23 +1134,23 @@ def baseline_expect(name: str, fused: bool, draws: int = 0,
 
 
 def baseline_strategy(torch, dev, name: str, extra: tuple = (),
-                      iters: int = 1, draws: int = 0,
-                      tables: int = 0) -> dict:
-    """One strategy at full width through the CLI, on the host loop and on
-    the fused engine, each with its launch counts set to 0 before and read
-    after and held to :func:`baseline_expect` (the fused capture to one
-    round's :func:`baseline_round_launches`). The host loop runs each
-    round eagerly, the fused engine as a CUDA graph: their final params
-    and extras and their records must be equal bit for bit. Then the fused
-    run's round function, its graph still held, runs two more rounds
-    replayed and the same two eagerly from a copy of the same state: the
-    whole states (server state included) and records bit for bit, and
-    their times. Peak device memory of the
-    host loop's run (eager) and of the fused run (warm-up and capture
-    included). ``extra`` flags (a drift schedule, its clock ``iters``
-    internal iterations a round; ``draws``: its Dirichlet launches a
-    round; a lazy population's, whose table adds ``tables`` launches) go to
-    both CLI runs."""
+                      iters: int = 1, draws: int = 0, tables: int = 0,
+                      host: bool = True) -> dict:
+    """One strategy at full width through the CLI, on the host loop (unless
+    ``host`` is false) and on the fused engine, each with its launch counts
+    set to 0 before and read after and held to :func:`baseline_expect`
+    (the fused capture to one round's :func:`baseline_round_launches`).
+    The host loop runs each round eagerly, the fused engine as a CUDA
+    graph: their final params and extras and their records must be equal
+    bit for bit. Then the fused run's round function, its graph still
+    held, runs ``BASELINE_EXTRA`` more rounds replayed and the same rounds
+    eagerly from a copy of the same state: the whole states (server state
+    included) and records bit for bit, and their times. Peak device memory
+    of the host loop's run (eager) and of the fused run (warm-up and
+    capture included). ``extra`` flags (a drift schedule, its clock
+    ``iters`` internal iterations a round; ``draws``: its Dirichlet
+    launches a round; a lazy population's, whose table adds ``tables``
+    launches) go to both CLI runs."""
     from repro_torch import tree
     from repro_torch.core import baselines, dispatch
 
@@ -1166,7 +1171,7 @@ def baseline_strategy(torch, dev, name: str, extra: tuple = (),
         runs[engine_name] = res[0]
         return res
 
-    for engine_name in ("host", "fused"):
+    for engine_name in ("host", "fused") if host else ("fused",):
         baselines.make_baseline_experiment = spy_make
         baselines.run_baseline = spy_run
         gc.collect()
@@ -1206,10 +1211,10 @@ def baseline_strategy(torch, dev, name: str, extra: tuple = (),
         fail(f"{label}: the capture counted {per} for "
              f"{rf.replays} replays, one round being "
              f"{baseline_round_launches(name, draws)}")
-    if out["host"]["records"] != out["fused"]["records"] or not all(
+    if host and (out["host"]["records"] != out["fused"]["records"] or not all(
             torch.equal(a, b) for a, b in zip(tree.leaves(runs["host"]),
                                               tree.leaves(runs["fused"]),
-                                              strict=True)):
+                                              strict=True))):
         fail(f"{label}: the fused engine's graph rounds differ "
              f"from the host loop's eager rounds: {out['host']['records']} "
              f"vs {out['fused']['records']}")
@@ -1222,7 +1227,7 @@ def baseline_strategy(torch, dev, name: str, extra: tuple = (),
         rf.graph, secs[graph], mets[graph] = graph, [], []
         state = rf.static[0] if graph else tree.unflatten(
             rf.static[0], [leaf.clone() for leaf in snap])
-        for r in range(BASELINE_ROUNDS, BASELINE_ROUNDS + 2):
+        for r in range(BASELINE_ROUNDS, BASELINE_ROUNDS + BASELINE_EXTRA):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             state, m = rf(state, r)
@@ -1236,24 +1241,29 @@ def baseline_strategy(torch, dev, name: str, extra: tuple = (),
         fail(f"{label}: two replayed rounds differ from the same "
              f"rounds run eagerly: {mets[True]} vs {mets[False]}")
     del snap, finals
-    out.update(host_ms=1e3 * out["host"]["round_s"][-1],
+    out.update(host_ms=1e3 * out["host"]["round_s"][-1] if host else None,
                replayed_ms=1e3 * secs[True][-1],
                eager_ms=1e3 * secs[False][-1])
     if name == BASELINE_PROFILED and not extra:
         rf.graph = True
         baseline_profile(torch, rf, name, out["replayed_ms"])
-    print(f"{label}: host loop round {out['host_ms']:.1f} ms (CLI "
-          f"rounds {[round(1e3 * t, 1) for t in out['host']['round_s']]} "
-          f"ms, the first with the CLI's set-up, the last with its eval), "
-          f"fused replayed {out['replayed_ms']:.1f} ms, eager "
+    hosted = (
+        f"host loop round {out['host_ms']:.1f} ms (CLI rounds "
+        f"{[round(1e3 * t, 1) for t in out['host']['round_s']]} ms, the "
+        f"first with the CLI's set-up, the last with its eval; its params, "
+        f"extras and records == the fused engine's bit for bit), "
+        if host else "fused engine only (host loop: not run), ")
+    print(f"{label}: {hosted}fused replayed {out['replayed_ms']:.1f} ms, eager "
           f"{out['eager_ms']:.1f} ms (fused CLI rounds "
           f"{[round(1e3 * t, 1) for t in out['fused']['round_s']]} ms; then "
           f"replays {[round(1e3 * t, 1) for t in secs[True]]}, eager "
           f"{[round(1e3 * t, 1) for t in secs[False]]} ms, no eval); peak "
-          f"device memory host loop {out['host']['peak_gb']:.2f} GB, fused "
-          f"{out['fused']['peak_gb']:.2f} GB; launches host "
-          f"{out['host']['counts']}, fused (warm-up + capture + eval) "
-          f"{out['fused']['counts']}; graph == eager bit for bit", flush=True)
+          f"device memory " + (f"host loop {out['host']['peak_gb']:.2f} GB, "
+                               if host else "") +
+          f"fused {out['fused']['peak_gb']:.2f} GB; launches " +
+          (f"host {out['host']['counts']}, " if host else "") +
+          f"fused (warm-up + capture + eval) {out['fused']['counts']}; "
+          "graph == eager bit for bit", flush=True)
     del exps, rf
     gc.collect()
     torch.cuda.empty_cache()
@@ -1269,10 +1279,9 @@ def baseline_profile(torch, rf, name: str, replayed_ms: float) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rf(rf.static[0], BASELINE_ROUNDS + 2)
+        rf(rf.static[0], BASELINE_ROUNDS + BASELINE_EXTRA)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -1395,8 +1404,9 @@ def check_baseline_kernels(torch, dev) -> dict:
 
 
 def baselines_phase(torch, dev) -> tuple[dict, dict, dict]:
-    """Every Table II strategy at full width on both engines
-    (:func:`baseline_strategy`), five of them card vs CPU on the smoke
+    """Every Table II strategy at full width (:func:`baseline_strategy`):
+    on the fused engine, and those of ``BASELINE_BOTH`` also on the host
+    loop, equal bit for bit; five of them card vs CPU on the smoke
     configuration to 1e-4, and the two kernels at the path's shapes.
     Returns (the host runs' summed counts, the fused runs' summed counts,
     the kernels' rows at the path's shapes)."""
@@ -1412,18 +1422,20 @@ def baselines_phase(torch, dev) -> tuple[dict, dict, dict]:
     sums = {e: {k: 0 for k in dispatch.KERNELS} for e in ("host", "fused")}
     rows = []
     for name in names:
-        res = baseline_strategy(torch, dev, name)
+        res = baseline_strategy(torch, dev, name,
+                                host=name in BASELINE_BOTH)
         rows.append(res)
         for e in sums:
-            for k, v in res[e]["counts"].items():
+            for k, v in res.get(e, {"counts": {}})["counts"].items():
                 sums[e][k] += v
     print("baselines table (ms per round at C=100, S=10, n=32, full CNN: "
           "host loop's last CLI round with its eval / fused replayed / "
           "fused eager, no eval; peak GB host loop / fused): " +
-          "; ".join(f"{r['strategy']} {r['host_ms']:.1f} / "
-                    f"{r['replayed_ms']:.1f} / {r['eager_ms']:.1f}, "
-                    f"{r['host']['peak_gb']:.2f} / "
-                    f"{r['fused']['peak_gb']:.2f} GB" for r in rows),
+          "; ".join(f"{r['strategy']} " + (
+              f"{r['host_ms']:.1f}" if "host" in r else "-") +
+              f" / {r['replayed_ms']:.1f} / {r['eager_ms']:.1f}, " + (
+              f"{r['host']['peak_gb']:.2f}" if "host" in r else "-") +
+              f" / {r['fused']['peak_gb']:.2f} GB" for r in rows),
           flush=True)
     for name in BASELINE_SMOKE:
         for engine_name in ("host", "fused"):
@@ -1453,10 +1465,11 @@ TRACE_ATTEMPTS = 3
 
 
 def device_launches(torch, argv) -> tuple[dict, dict]:
-    """The CLI run once under ``torch.profiler``, every launch count set to
-    0 just before and read just after: (the wrappers' counts, each
-    kernel's executions on the card as the trace names them; a kernel
-    replayed in a CUDA graph counts once per replay)."""
+    """The CLI run once under ``torch.profiler`` (the device's activity
+    alone), every launch count set to 0 just before and read just after:
+    (the wrappers' counts, each kernel's executions on the card as the
+    trace names them; a kernel replayed in a CUDA graph counts once per
+    replay)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1464,8 +1477,7 @@ def device_launches(torch, argv) -> tuple[dict, dict]:
 
     torch.cuda.synchronize()
     dispatch.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_cli(argv)
         torch.cuda.synchronize()
     counts = dispatch.launch_counts()
@@ -1651,8 +1663,7 @@ def fused_path(label, flags, extra, host_expect, host_ms, torch, dev,
     rf = g_exp.round_fn
     state = g_state
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = rf(state, t_rounds)
         torch.cuda.synchronize()
@@ -3176,14 +3187,15 @@ def check_flash_attention(torch, dev):
 
 def lm_profile(torch, run, label) -> None:
     """Device time of one ``run()`` by kernel class: the port's flash and
-    SSD kernels, the GEMMs and the rest, against the host clock."""
+    SSD kernels, the GEMMs and the rest, against the host clock. The
+    device's activity alone is traced: a train step's host ops (tens of
+    thousands) would cost over half a minute to record and sort."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
@@ -3299,17 +3311,21 @@ def prefill(torch, label, cfg, fns, params, toks, launches: dict,
 
 
 def decode_vs_prefill(torch, label, cfg, params, toks, window=None,
-                      attn_impl="pallas") -> None:
+                      attn_impl="pallas", steps=None) -> None:
     """Decode step by step against the prefill of the same tokens (through
     the kernels unless ``attn_impl`` says otherwise), to 1e-4 of the
     largest logit (windowed: a ring cache of ``window`` slots); ms per
-    decode step on the host clock, synchronised at both ends."""
+    decode step on the host clock, synchronised at both ends. ``steps``
+    decodes only the first ``steps`` tokens against the prefill's first
+    ``steps`` positions (causal: they see no later token), so that the
+    prefill keeps a length the flash kernel's blocks take."""
     from repro_torch.models import transformer
 
     c = cfg if window is None else cfg.with_(sliding_window=window)
-    s = toks.shape[1]
     full, _ = transformer.forward(c, params, toks, window=window,
                                   attn_impl=attn_impl)
+    s = steps or toks.shape[1]
+    full = full[:, :s]
     cache = transformer.init_decode_cache(c, toks.shape[0], s,
                                           windowed=window is not None,
                                           device=toks.device)
@@ -3371,6 +3387,11 @@ def serve_phase(torch, label, cfg, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# decode steps of a plain-cache decode-vs-prefill run (a windowed run takes
+# all 128 tokens, so that its ring cache wraps)
+PLAIN_DECODE = 64
+
+
 def random_tokens(torch, dev, vocab, shape):
     """Prefill tokens of ``shape`` and 128 decode tokens drawn on the card:
     the model does the same work for any ids, and ``MarkovLMStream``'s
@@ -3409,11 +3430,12 @@ def lm_path(torch, dev):
                      {"flash_attention": cfg.num_layers})
 
     # decode against prefill at full width (the JAX package's tests)
-    for window in (None, 64):
-        decode_vs_prefill(torch, "lm", cfg, params, dec_toks, window)
+    for window in (None, 64):     # a ring of 64 wraps over 128 steps
+        decode_vs_prefill(torch, "lm", cfg, params, dec_toks, window,
+                          steps=None if window else PLAIN_DECODE)
     del params
     torch.cuda.empty_cache()
-    serve_phase(torch, "lm", cfg, dev)
+    serve_phase(torch, "lm", cfg.with_(num_layers=SERVE_DEPTH[LM_ARCH]), dev)
     return counts
 
 
@@ -3546,7 +3568,8 @@ def moe_path(torch, dev, arch) -> dict:
     n_dec, impl, window = MOE_DECODE[arch]
     for w in (None, window):
         decode_vs_prefill(torch, arch, cfg, params, dec_toks[:, :n_dec], w,
-                          attn_impl=impl)
+                          attn_impl=impl,
+                          steps=None if w else min(n_dec, PLAIN_DECODE))
     if impl != "pallas":     # so the kernel is held in the model here too
         kernel_vs_naive(torch, arch, f"{tuple(dec_toks.shape)} tokens",
                         lambda impl: transformer.forward(
@@ -3554,7 +3577,7 @@ def moe_path(torch, dev, arch) -> dict:
     del params
     torch.cuda.empty_cache()
     if arch == MLA_ARCH:
-        serve_phase(torch, arch, cfg, dev)
+        serve_phase(torch, arch, cfg.with_(num_layers=SERVE_DEPTH[arch]), dev)
     return counts
 
 
@@ -3602,6 +3625,35 @@ def ssd_split(kssd, args, chunk) -> dict:
             key, amount = work[part]
             split[part][key] = amount / ms / 1e9
     return split
+
+
+def ssd_bwd_split(kb, call) -> dict:
+    """Each launch of ``csrc/ssd_scan_bwd.cu`` timed on its own (CUDA
+    events, on the buffers of one full call), with its CTAs and its rate:
+    TFLOP/s of the FLOP it does as tiled, or TB/s of the bytes it moves
+    (``kb.work``)."""
+    x, B = call["x"], call["B"]
+    shape = (*x.shape, B.shape[-1], call["chunk"])
+    kb.run(call)
+    ctas, work = kb.plan(*shape)["ctas"], kb.work(*shape)
+    split = {}
+    for i, part in enumerate(kb.PARTS):
+        ms = time_ms(lambda: kb.run(call, 1 << i), reps=10)
+        kind, amount = work[part]
+        split[part] = {"ms": ms, "ctas": ctas[part],
+                       "tflops" if kind == "flop" else "tbps":
+                       amount / ms / 1e9}
+    return split
+
+
+def split_line(split: dict) -> str:
+    """A per-launch split as one line: ms, CTAs and rate of each launch."""
+    return "; ".join(
+        f"{part} {v['ms']:.4f} ms ({v['ctas']} CTAs"
+        + (f", {v['tflops']:.1f} TFLOP/s" if "tflops" in v else "")
+        + (f", {v['tbps']:.2f} TB/s" if "tbps" in v else "") + ")"
+        for part, v in split.items()) + \
+        f"; sum {sum(v['ms'] for v in split.values()):.4f} ms"
 
 
 def check_ssd_scan(torch, dev):
@@ -3658,12 +3710,8 @@ def check_ssd_scan(torch, dev):
               f"bound {b_ms:.4f} ms ({b_by}: {flop / 1e9:.2f} GFLOP), "
               f"{flop / ms / 1e9:.1f} TFLOP/s; no single PyTorch call "
               "computes the scan", flush=True)
-        print(f"ssd_scan {arch} launches, each timed alone: " + "; ".join(
-            f"{part} {v['ms']:.4f} ms ({v['ctas']} CTAs"
-            + (f", {v['tflops']:.1f} TFLOP/s" if "tflops" in v else "")
-            + (f", {v['tbps']:.2f} TB/s" if "tbps" in v else "") + ")"
-            for part, v in split.items()) + "; sum "
-            f"{sum(v['ms'] for v in split.values()):.4f} ms", flush=True)
+        print(f"ssd_scan {arch} launches, each timed alone: "
+              f"{split_line(split)}", flush=True)
         del args
         torch.cuda.empty_cache()
     main_row = rows[0]
@@ -3707,13 +3755,17 @@ def ssm_path(torch, dev, arch, tokens, launches):
     counts = prefill(torch, arch, cfg, fns, params, toks, launches)
     del toks
     torch.cuda.empty_cache()
-    decode_vs_prefill(torch, arch, cfg, params, dec_toks)
+    decode_vs_prefill(torch, arch, cfg, params, dec_toks,
+                      steps=PLAIN_DECODE)
     del params
     torch.cuda.empty_cache()
     return counts
 
 
 VLM_ARCH, ENCDEC_ARCH = "internvl2-26b", "whisper-large-v3"
+# serve() at a cut depth where a full-depth init dominates its run: the
+# prefill and decode checks run at the path's own depth
+SERVE_DEPTH = {LM_ARCH: 8, SSM_ARCH: 8, MLA_ARCH: 1, VLM_ARCH: 8}
 VLM_PREFILL = (1, 4096)           # 512 vision embeddings + 3,584 tokens
 VLM_ACTIVATION_BYTES = 5e9        # a (1, 4096) prefill's activations, at most
 ENCDEC_PREFILL = (4, 4096)        # 2,048 frames + 2,048 tokens
@@ -3796,7 +3848,7 @@ def vlm_path(torch, dev) -> dict:
                           window, attn_impl=impl)
     del params
     torch.cuda.empty_cache()
-    serve_phase(torch, "vlm", cfg, dev)
+    serve_phase(torch, "vlm", cfg.with_(num_layers=SERVE_DEPTH[VLM_ARCH]), dev)
     return counts
 
 
@@ -4044,9 +4096,9 @@ def check_ssd_scan_bwd(torch, dev):
         worst["plain32"] = max(worst["plain32"], max(rel32.values()))
         return args, dy, rel, rel32, absolute
 
-    for bt, s, h, p, n, chunk in kssd.SWEEP:
+    for bt, s, h, p, n, chunk in kssd.SWEEP + kb.EDGES:
         compare((bt, s, h, p, n), min(chunk, s))
-    print(f"ssd_scan backward sweep {kssd.SWEEP}: max err "
+    print(f"ssd_scan backward sweep {kssd.SWEEP} and edges {kb.EDGES}: max err "
           f"{worst['kernel']:.3g} of max(1, max |grad|) against the float64 "
           f"plain version (tol 1e-4); the f32 plain version's own: "
           f"{worst['plain32']:.3g}", flush=True)
@@ -4065,6 +4117,15 @@ def check_ssd_scan_bwd(torch, dev):
         ms = time_ms(lambda: kb.backward(call["x"], dt, A, call["B"],
                                          call["C"], call["states"], dy, q),
                      reps=10)
+        bwd = kb.prepare(call["x"], dt, A, call["B"], call["C"],
+                         call["states"], dy, q)
+        split = ssd_bwd_split(kb, bwd)
+        kb.run(bwd)
+        first = [bwd[k].clone() for k in names]
+        kb.run(bwd)
+        if not all(torch.equal(a, bwd[k]) for a, k in zip(first, names)):
+            fail(f"ssd_scan backward {arch}: two calls on the same inputs "
+                 "differ")
         ins = [t.detach().requires_grad_(True) for t in args]
         y = kssd.ssd_scan_plain(*ins, chunk=q)
         plain_ms = time_ms(lambda: torch.autograd.grad(
@@ -4074,7 +4135,8 @@ def check_ssd_scan_bwd(torch, dev):
         rows.append(dict(arch=arch, shape=(bt, s, h, p, n, q),
                          max_abs_err=absolute, rel_err=rel,
                          plain32_rel_err=rel32, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, gflop=flop / 1e9))
+                         bound_ms=b_ms, bound_by=b_by, gflop=flop / 1e9,
+                         split=split))
         print(f"ssd_scan backward {arch} (Bt, S, H, P, N, Q) = "
               f"{(bt, s, h, p, n, q)}: err of max(1, max |grad|) against "
               f"float64 " + ", ".join(f"{k} {v:.2g}" for k, v in rel.items())
@@ -4084,7 +4146,10 @@ def check_ssd_scan_bwd(torch, dev):
               f"(autograd), bound {b_ms:.4f} ms ({b_by}: "
               f"{flop / 1e9:.2f} GFLOP), {100 * b_ms / ms:.1f}% of it; no "
               "single PyTorch call computes the gradient", flush=True)
-        del args, dy, call, ins, y, x, dt, A, B, C
+        print(f"ssd_scan backward {arch} launches, each timed alone: "
+              f"{split_line(split)}; two calls bit-equal in dx, ddt, dA, "
+              "dB and dC", flush=True)
+        del args, dy, call, bwd, first, ins, y, x, dt, A, B, C
         torch.cuda.empty_cache()
     main_row = rows[0]
     return dict(name=kb.NAME, route="cuda", source=kb.SOURCE,
@@ -4516,7 +4581,8 @@ def main() -> None:
         torch, dev, SSM_ARCH,
         random_tokens(torch, dev, ssm_cfg.vocab_size, SSM_PREFILL),
         {"ssd_scan": ssm_cfg.num_layers})
-    serve_phase(torch, SSM_ARCH, ssm_cfg, dev)
+    serve_phase(torch, SSM_ARCH,
+                ssm_cfg.with_(num_layers=SERVE_DEPTH[SSM_ARCH]), dev)
     n_seg = -(-hyb_cfg.num_layers // hyb_cfg.attn_every)
     hybrid_counts = ssm_path(
         torch, dev, HYBRID_ARCH,

@@ -44,7 +44,7 @@ SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_L] * 9
     + [_I, _I, _F, _P],
     "ssd_scan_f32": [_P] * 9 + [_I] * 7 + [_L] * 10 + [_P],
-    "ssd_scan_bwd_f32": [_P] * 23 + [_I] * 6 + [_L] * 10 + [_P],
+    "ssd_scan_bwd_f32": [_P] * 28 + [_I] * 9 + [_L] * 10 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None

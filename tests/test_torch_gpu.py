@@ -930,6 +930,43 @@ def test_ssd_scan_backward_matches_plain(cuda, bt, s, h, p, n, chunk):
         assert err <= 1e-4 * max(1.0, float(r.abs().max())), err
 
 
+@pytest.mark.parametrize("bt,s,h,p,n,chunk", ssd_scan_bwd.EDGES)
+def test_ssd_scan_backward_head_group_edges(cuda, bt, s, h, p, n, chunk):
+    """The backward where its head groups do not divide H (``EDGES``), to
+    1e-4 · max(1, max |ref|) of autograd through the float64 plain
+    version, as on the sweep."""
+    gen = torch.Generator(device=cuda).manual_seed(s + h + n + 2)
+    args = _ssd_inputs(gen, bt, s, h, p, n)
+    dy = torch.randn(args[0].shape, generator=gen, device=cuda)
+    ins = [t.detach().requires_grad_(True) for t in args]
+    lay = ssd_scan_bwd.plan(bt, s, h, p, n, chunk)
+    assert h % lay["hg"] and h % lay["hk"]
+    out = torch.autograd.grad(ssd_scan.ssd_scan(*ins, chunk=chunk), ins, dy)
+    ref = ssd_scan_bwd.backward_plain(*(t.double() for t in args),
+                                      dy.double(), chunk=chunk)
+    for g, r in zip(out, ref):
+        err = float((g.double() - r).abs().max())
+        assert err <= 1e-4 * max(1.0, float(r.abs().max())), err
+
+
+def test_ssd_scan_backward_same_bits(cuda):
+    """Two backward calls on the same inputs give bit-equal dx, ddt, dA, dB
+    and dC: every sum is taken in a fixed order (mamba2-780m's head and
+    state widths, two groups of heads in each grouped launch)."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    x, dt, A, B, C = _ssd_inputs(gen, 2, 1024, 48, 64, 128)
+    dy = torch.randn(x.shape, generator=gen, device=cuda)
+    call = ssd_scan.prepare(x, dt, A, B, C, 128)
+    ssd_scan.run(call)
+    args = (call["x"], dt, A, call["B"], call["C"], call["states"], dy, 128)
+    first = [g.clone() for g in ssd_scan_bwd.backward(*args)]
+    second = ssd_scan_bwd.backward(*args)
+    lay = ssd_scan_bwd.plan(2, 1024, 48, 64, 128, 128)
+    assert lay["groups_gram"] > 1 and lay["groups_dbc"] > 1
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
 def test_flash_attention_refuses_under_grad_on_card(cuda):
     from repro_torch.kernels import flash_attention as fa
     q = torch.randn(1, 128, 2, 32, device=cuda, requires_grad=True)

@@ -20,6 +20,7 @@ from repro_torch import configs, convert
 from repro_torch.core import dispatch, prng
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ssd_scan as kssd
+from repro_torch.kernels import ssd_scan_bwd as kbwd
 from repro_torch.launch import serve
 from repro_torch.models import build, ssm, transformer
 
@@ -185,6 +186,67 @@ def test_ssd_plan_scratch_and_grids(shape, n4, ctas):
     assert lay["decay"] == bt * nc * h
     assert lay["ctas"] == ctas
     assert tuple(lay["ctas"]) == kssd.PARTS and kssd.ALL_PARTS == 15
+
+
+@pytest.mark.parametrize("shape,groups,ctas", [
+    # mamba2-780m's training microbatch: 192 Gram CTAs (64 x 32 tiles)
+    # with every head in one -> 3 groups of 16 heads; 256 dB/dC CTAs -> 3
+    # groups of 16
+    ((2, 2048, 48, 64, 128, 128), (16, 3, 16, 3),
+     {"prep": 384, "gram": 576, "dstate": 2880, "yinter": 2880, "pass": 768,
+      "dxd": 3072,
+      "dbc": 768, "dt": 1536, "intra": 264}),
+    # zamba2-7b's: groups of 38 and 23 heads that do not divide 112
+    ((1, 4096, 112, 64, 64, 128), (38, 3, 23, 5),
+     {"prep": 896, "gram": 576, "dstate": 3472, "yinter": 6944, "pass": 448,
+      "dxd": 7168,
+      "dbc": 640, "dt": 3584, "intra": 132}),
+    # a head count below the groups wanted: one head a group
+    ((1, 128, 2, 32, 16, 64), (1, 2, 1, 2),
+     {"prep": 1, "gram": 8, "dstate": 2, "yinter": 2, "pass": 2, "dxd": 4,
+      "dbc": 8,
+      "dt": 4, "intra": 6}),
+    # grids that reach the target alone: every head in one CTA; one
+    # chunk: no state gradient launches
+    ((8, 4096, 8, 64, 128, 128), (8, 1, 8, 1),
+     {"prep": 512, "gram": 1536, "dstate": 3968, "yinter": 3968,
+      "pass": 512, "dxd": 4096,
+      "dbc": 2048, "dt": 2048, "intra": 2056}),
+    ((1, 96, 2, 64, 16, 96), (1, 2, 1, 2),
+     {"prep": 1, "gram": 12, "dstate": 0, "yinter": 0, "pass": 0, "dxd": 4,
+      "dbc": 8,
+      "dt": 2, "intra": 8})])
+def test_ssd_backward_plan_groups_scratch_and_grids(shape, groups, ctas):
+    """The backward's host-side plan (``kernels.ssd_scan_bwd.plan``): head
+    groups sized so that the Gram and dB/dC grids reach about
+    ``TARGET_CTAS``, every scratch buffer's size and every launch's grid
+    (``csrc/ssd_scan_bwd.cu`` computes the grids from hg and hk alone)."""
+    bt, s, h, p, n4, chunk = shape
+    lay = kbwd.plan(*shape)
+    hg, ng, hk, ks = groups
+    assert (lay["hg"], lay["groups_gram"], lay["hk"], lay["groups_dbc"]) \
+        == groups
+    assert ng == -(-h // hg) and ks == -(-h // hk)
+    assert lay["ctas"] == ctas and tuple(lay["ctas"]) == kbwd.PARTS
+    nc = s // chunk
+    rows, qt, pt = bt * nc * h, -(-chunk // 64), -(-p // 64)
+    sc = lay["scratch"]
+    assert tuple(sc) == kbwd.SCRATCH and kbwd.ALL_PARTS == 511
+    assert sc["cum"] == sc["ein"] == sc["eo"] == sc["dtp"] == 128 * rows
+    assert sc["dec"] == sc["dap"] == rows
+    assert sc["gm"] == bt * nc * 128 * 128 and sc["eg"] == ng * sc["gm"]
+    assert sc["gs"] == rows * n4 * p
+    assert sc["trp"] == rows * 8 * -(-(n4 * p // 4) // 256)
+    assert sc["trow"] == 2 * sc["tcol"] == 2 * bt * s * h * qt
+    assert sc["xdd"] == sc["xin"] == sc["yo"] == bt * s * h * pt
+    assert sc["part"] == ks * 2 * bt * s * n4
+    work = kbwd.work(*shape)
+    assert tuple(work) == kbwd.PARTS
+    assert {k for k, (kind, _) in work.items() if kind == "flop"} == {
+        "gram", "dstate", "yinter", "dxd", "dbc", "intra"}
+    # the inter parts of dB and dC: 2NP each per (token, head) but the
+    # chunks without a state
+    assert work["dbc"][1] == 4 * bt * (nc - 1) * chunk * n4 * h * p
 
 
 def test_ssd_check_inputs_refuses_what_the_kernel_cannot_take():
