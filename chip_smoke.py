@@ -23,7 +23,11 @@ the last line):
    gradient rows for top-k, with each row's candidates and route, and
    with an all-ties and an overflow row, and for int8; ``corrupt_rows`` on
    its sweep and on the robust path's (M·L, P4) member buffer, with the
-   CLI's typical fault trace and with every row Gaussian), with times;
+   CLI's typical fault trace (also per launch in a CUDA graph), its byte
+   rows and its Gaussian rows alone, every row ``scale`` and every row
+   Gaussian, beside the card's threefry rate from
+   ``csrc/probe/latency_probe.cu``; ``dirichlet_rows`` at the drift's
+   shape, eagerly and in a graph, beside its latency floor), with times;
 4. main path — ``python -m repro_torch.launch.train`` at full width for
    2 rounds of 3 iterations, with every kernel's launch count checked
    against what the path implies; one profiled full-width round (host
@@ -286,6 +290,7 @@ def bound(bytes_: float, ops: float, rate: float = FP32_FLOPS
 PROBE_SRC = os.path.join(ROOT, "src", "repro_torch", "csrc", "probe",
                          "latency_probe.cu")
 CHAIN_OPS = ("shfl", "lds", "fma", "div", "sqrt")
+RNG_CHAIN_OPS = ("mix", "normal", "logf", "expf")
 
 
 def start_probe_build():
@@ -309,24 +314,44 @@ def load_probe(proc, out) -> ctypes.CDLL:
     lib.noop_launch.argtypes = [ctypes.c_void_p]
     lib.latency_probe.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_void_p]
+    lib.hash_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p]
     lib.noop_launch.restype = lib.latency_probe.restype = ctypes.c_int
+    lib.hash_rate.restype = ctypes.c_int
     return lib
 
 
 def chain_latencies(torch, probe, dev, n: int = 4096) -> dict[str, float]:
     """Cycles per dependent operation on the card: a shuffle+add round, a
-    shared-memory load, an FMA, an IEEE division and a square root, and
-    the SM clock in GHz over the same kernel."""
+    shared-memory load, an FMA, an IEEE division, a square root, a
+    threefry mix round (``mix``: add, funnel rotate, xor), a normal from
+    its bits, a ``logf`` and an ``expf``; and the SM clock in GHz over the
+    same kernel."""
     from repro_torch.kernels import build
-    out = torch.zeros(8, dtype=torch.int64, device=dev)
+    out = torch.zeros(16, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for _ in range(2):                    # the second run is the one read
         build.check(probe.latency_probe(out.data_ptr(), n, stream),
                     "latency_probe")
     c = out.cpu().tolist()
     lat = {name: c[i] / n for i, name in enumerate(CHAIN_OPS)}
+    lat.update({name: c[8 + i] / n for i, name in enumerate(RNG_CHAIN_OPS)})
     lat["ghz"] = c[5] / c[6]
     return lat
+
+
+def hash_rate(torch, probe, dev, n: int = 4096) -> float:
+    """Threefry hashes a second over the whole card: 8 blocks of 256
+    threads an SM, each thread ``n`` hashes four at a time under one key
+    (``threefry_bits``, as ``corrupt_rows``' Gaussian rows draw them),
+    CUDA events over 5 launches."""
+    from repro_torch.kernels import build
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = time_ms(lambda: build.check(probe.hash_rate(
+        out.data_ptr(), blocks, n, stream), "hash_rate"), reps=5)
+    return blocks * 256 * n / (ms * 1e-3)
 
 
 def gbp_cs_chain(f: int, k: int) -> tuple[dict, dict]:
@@ -342,6 +367,26 @@ def gbp_cs_chain(f: int, k: int) -> tuple[dict, dict]:
 def chain_ms(chain: dict[str, int], lat: dict[str, float]) -> float:
     """A chain of dependent operations priced in ms at ``lat``."""
     return sum(n * lat[op] for op, n in chain.items()) / lat["ghz"] * 1e-6
+
+
+def dirichlet_chain(p_max: int) -> dict[str, int]:
+    """The chain that no implementation of ``dirichlet_rows`` can shorten,
+    by kind: the worst element's key hash, its split, the p_max − 1 further
+    key-chain hashes to the accepted pass's key, that pass's candidate (the
+    normal's key, its split and its bits: 3 hashes; the normal; v, v², v³),
+    log V and the two adds into the log-gamma value; then the row's softmax
+    (the max butterfly, the subtraction, expf, the sum butterfly, the
+    division). A hash counts as its 20 mix rounds, its key injections left
+    out, so the price is a floor."""
+    return {"mix": 20 * (p_max + 4), "normal": 1, "fma": 6, "logf": 1,
+            "expf": 1, "shfl": 10, "div": 1}
+
+
+def node_ms(torch, probe, dev) -> float:
+    """An empty kernel's time per node of a CUDA graph of 50."""
+    from repro_torch.kernels import build
+    return graph_ms(torch, lambda: build.check(probe.noop_launch(
+        torch.cuda.current_stream(dev).cuda_stream), "noop"))
 
 
 def graph_ms(torch, fn, n: int = 50, reps: int = 5) -> float:
@@ -432,14 +477,13 @@ def check_gbp_cs(torch, dev, probe):
     ms = time_ms(lambda: kgbp.minimize(A, y, x0, max_iters), reps=50)
     g_ms = graph_ms(torch, lambda: kgbp.minimize(A, y, x0, max_iters))
     setup_ms = graph_ms(torch, lambda: kgbp.minimize(A, y, x0, 0))
-    node_ms = graph_ms(torch, lambda: build.check(probe.noop_launch(
-        torch.cuda.current_stream(dev).cuda_stream), "noop"))
+    n_ms = node_ms(torch, probe, dev)
     plain_ms = time_ms(lambda: kgbp.minimize_plain(A, y, x0, max_iters),
                        reps=5, warmup=1)
     lat = chain_latencies(torch, probe, dev)
     step, init = gbp_cs_chain(f, kc)
     s, s_max = int(iters.sum()), int(iters.max())
-    floor_ms = node_ms + chain_ms(init, lat) + s_max * chain_ms(step, lat)
+    floor_ms = n_ms + chain_ms(init, lat) + s_max * chain_ms(step, lat)
     # bytes and FLOP of the carried design: A, y, x0 in, the outputs out;
     # the first product, then per step A^T r and the column update
     ops = g * (2 * f * kc + 3 * f) + s * (2 * f * kc + 8 * f + 3 * kc)
@@ -451,7 +495,7 @@ def check_gbp_cs(torch, dev, probe):
           f"{int(outb[2].sum())} steps), max |d err| {err:.3g} (tol {tol}); "
           f"first draw {s} steps, s_max {s_max}: {ms:.4f} ms eager, "
           f"{g_ms:.5f} ms per launch in a graph ({setup_ms:.5f} at "
-          f"max_iters 0), empty node {node_ms:.5f} "
+          f"max_iters 0), empty node {n_ms:.5f} "
           f"ms; latency floor {floor_ms:.5f} ms (step chain {step}, set-up "
           f"{init}; cycles per op "
           f"{', '.join(f'{n} {v:.1f}' for n, v in lat.items() if n != 'ghz')}"
@@ -461,7 +505,7 @@ def check_gbp_cs(torch, dev, probe):
                 replaces=kgbp.REPLACES, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, graph_ms=g_ms, setup_ms=setup_ms,
-                node_ms=node_ms,
+                node_ms=n_ms,
                 floor_ms=floor_ms, latencies=lat,
                 shape=f"G={g} F={f} K={kc} steps={s} s_max={s_max}")
 
@@ -754,16 +798,37 @@ def check_int8(torch, dev):
                 library_ms=None, shape=f"M={m} P4={p}")
 
 
-def check_corrupt_rows(torch, dev):
+def corrupt_fills(code, modes) -> dict:
+    """The fills ``check_corrupt_rows`` times, from the CLI's trace
+    ``code`` over ``modes``: the trace itself (``typical``), its byte rows
+    alone and its Gaussian rows alone (the other codes set to 0), every row
+    ``scale`` and every row Gaussian."""
+    import torch
+    gauss = 1 + modes.index("gauss_noise")
+    return {"typical": code, "bytes": torch.where(code == gauss, 0, code),
+            "gauss": torch.where(code == gauss, code, 0),
+            "all scale": torch.full_like(code, 1 + modes.index("scale")),
+            "all gauss": torch.full_like(code, gauss)}
+
+
+def check_corrupt_rows(torch, dev, probe):
     """The fault injection against its plain version: the sweep
     (``kernels.corrupt.SWEEP``), then the robust path's member stack
     (M·L, P4) = (100, 6,603,712) with the CLI's fault trace at an
-    iteration that seats a Gaussian row (its typical fill) and with every
-    row Gaussian. NaN/Inf/scale/sign rows, untouched rows and pads must be
-    bit-equal, Gaussian rows within 2e-6·σ (``log1pf`` against
-    ``torch.log1p``, and the plain erfinv's Horner steps rounded through
-    double). The all-Gaussian plain version runs in 25-row slices (its
-    int64 threefry takes ~10 GB a row slice of 25)."""
+    iteration that seats a Gaussian row (its typical fill), that trace's
+    byte rows alone and Gaussian rows alone, every row ``scale`` and every
+    row Gaussian (:func:`corrupt_fills`). NaN/Inf/scale/sign rows,
+    untouched rows and pads must be bit-equal, Gaussian rows within
+    2e-6·σ (``log1pf`` against ``torch.log1p``, and the plain erfinv's
+    Horner steps rounded through double). Each fill timed eagerly, the
+    typical one also per launch inside a CUDA graph (as the fused robust
+    round pays it). A fill's bound prices its Gaussian coordinates' hashes
+    at the card's threefry rate as ``csrc/probe/latency_probe.cu``
+    measures it (faster than ``THREEFRY_INT_OPS`` at ``INT32_OPS``); the
+    bound at that formula's rate is printed beside it (``formula_bound``).
+    The all-Gaussian plain
+    version runs in 25-row slices (its int64 threefry takes ~10 GB a row
+    slice of 25)."""
     import numpy as np
 
     from repro_torch import tree
@@ -791,6 +856,7 @@ def check_corrupt_rows(torch, dev):
           f"exact rows bit-equal, gauss max err {worst:.3g} sigma (tol {tol})",
           flush=True)
 
+    rate = hash_rate(torch, probe, dev)
     params = cnn.init_cnn(prng.PRNGKey(0), femnist_cnn.CONFIG, dev)
     sizes = [leaf.numel() for leaf in tree.leaves(params)]
     del params
@@ -804,12 +870,11 @@ def check_corrupt_rows(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(m * l, p4, generator=gen, device=dev) * 1e-2
     x[:, p:] = 0.0
-    fills = {"typical": code, "all gauss": torch.full_like(code, gauss)}
     res = {}
-    for fill, c in fills.items():
+    for fill, c in corrupt_fills(code, cfn.modes).items():
         out = cfn.apply(x.clone(), c, keys, sizes)
         ref = x.clone()
-        step = m * l if fill == "typical" else 25
+        step = 25 if fill == "all gauss" else m * l
         for r0 in range(0, m * l, step):        # in place, row slices
             kc.corrupt_rows_plain(ref[r0:r0 + step], c[r0:r0 + step],
                                   keys[r0:r0 + step], sizes, cfn.modes,
@@ -820,12 +885,15 @@ def check_corrupt_rows(torch, dev):
             fail(f"corrupt_rows {fill} at ({m * l}, {p4}): exact {exact}, "
                  f"gauss error {err} sigma > {tol}")
         buf = x.clone()
-        ms = time_ms(lambda: cfn.apply(buf, c, keys, sizes), reps=20)
+        call = lambda: cfn.apply(buf, c, keys, sizes)
+        ms = time_ms(call, reps=3 if fill == "all gauss" else 20)
+        g_ms = graph_ms(torch, call) if fill == "typical" else None
+        plain_ms = None
         if fill == "typical":
             plain_ms = time_ms(lambda: kc.corrupt_rows_plain(
                 buf, c, keys, sizes, cfn.modes, cfn.config.scale,
                 cfn.config.sigma), reps=3, warmup=1)
-        else:
+        elif fill == "all gauss":
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for r0 in range(0, m * l, 25):
@@ -839,32 +907,50 @@ def check_corrupt_rows(torch, dev):
         counts = {mode: int((c == j + 1).sum()) for j, mode in
                   enumerate(cfn.modes)}
         # each hit row's P coordinates written once and, but for NaN/Inf,
-        # read once; 74 int32 operations per Gaussian coordinate
+        # read once; one threefry hash per Gaussian coordinate, at the
+        # measured rate (the bound) and at 74 int32 operations each
         read = sum(v for mode, v in counts.items()
                    if mode not in ("nan_burst", "inf_spike"))
-        b_ms, b_by = bound(4 * p * (sum(counts.values()) + read),
-                           THREEFRY_INT_OPS * p * counts["gauss_noise"],
-                           INT32_OPS)
-        res[fill] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, err=err, counts=counts)
+        moved, hashes = 4 * p * (sum(counts.values()) + read), \
+            p * counts["gauss_noise"]
+        b_ms, b_by = bound(moved, hashes, rate)
+        f_ms, f_by = bound(moved, THREEFRY_INT_OPS * hashes, INT32_OPS)
+        res[fill] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, err=err,
+                         counts=counts, formula_bound_ms=f_ms,
+                         formula_bound_by=f_by)
+        in_graph = f", {100 * b_ms / g_ms:.1f}% in a graph" if g_ms else ""
         print(f"corrupt_rows {fill} (t={t}, rows hit by mode {counts} of "
               f"{m * l}, P4={p4}): exact rows bit-equal, gauss max err "
-              f"{err:.3g} sigma; {ms:.4f} ms kernel, {plain_ms:.4f} ms plain"
-              f"{' (25-row slices)' if fill != 'typical' else ''}, bound "
-              f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call draws "
-              "threefry normals)", flush=True)
+              f"{err:.3g} sigma; {ms:.4f} ms kernel"
+              f"{f', {g_ms:.4f} per launch in a graph' if g_ms else ''}"
+              f"{f', {plain_ms:.4f} ms plain' if plain_ms else ''}"
+              f"{' (25-row slices)' if fill == 'all gauss' else ''}, bound "
+              f"{b_ms:.4f} ms ({b_by}, hashes at the measured rate; "
+              f"{100 * b_ms / ms:.1f}%{in_graph}), "
+              f"formula bound {f_ms:.4f} ms ({f_by}, {THREEFRY_INT_OPS} "
+              f"int32 ops a hash at {INT32_OPS / 1e12:.1f} Tops/s; "
+              f"{100 * f_ms / ms:.1f}%); library: none (no PyTorch call "
+              "draws threefry normals)", flush=True)
+    print(f"corrupt_rows: the card hashes {rate:.4g} threefry draws a "
+          f"second ({rate * THREEFRY_INT_OPS / 1e12:.2f} T int32 ops/s at "
+          f"{THREEFRY_INT_OPS} a draw; the bound's rate is "
+          f"{INT32_OPS / 1e12:.2f} T)", flush=True)
     del x
     torch.cuda.empty_cache()
     typ, full = res["typical"], res["all gauss"]
+    parts = {f"{fill.replace(' ', '_')}_{key}": row[key]
+             for fill, row in res.items() if fill != "typical"
+             for key in ("ms", "bound_ms", "bound_by", "formula_bound_ms")}
     return dict(name=kc.NAME, route="cuda", source=kc.SOURCE,
                 replaces=kc.REPLACES,
-                max_abs_err=max(worst, typ["err"], full["err"]), tol=tol,
-                ms=typ["ms"], plain_ms=typ["plain_ms"],
+                max_abs_err=max(worst, *(r["err"] for r in res.values())),
+                tol=tol, ms=typ["ms"], plain_ms=typ["plain_ms"],
                 bound_ms=typ["bound_ms"], bound_by=typ["bound_by"],
-                library_ms=None, all_gauss_ms=full["ms"],
-                all_gauss_plain_ms=full["plain_ms"],
-                all_gauss_bound_ms=full["bound_ms"],
-                all_gauss_bound_by=full["bound_by"],
+                formula_bound_ms=typ["formula_bound_ms"],
+                library_ms=None, graph_ms=typ["graph_ms"],
+                all_gauss_plain_ms=full["plain_ms"], hash_rate=rate,
+                **parts,
                 shape=f"R={m * l} P4={p4}, typical {typ['counts']}")
 
 
@@ -1945,18 +2031,38 @@ DRIFT_KEYS = ("loss", "divergence", "group_discrepancy",
               "selection_distance", "test_loss", "test_accuracy")
 
 
-def check_dirichlet_rows(torch, dev):
+def dirichlet_work(trace, alpha, f: int) -> dict:
+    """The work of one ``dirichlet_rows`` draw, from its plain version's
+    loops (``prng.dirichlet_t``'s stats over the drawn rows of ``trace``):
+    elements, outer passes, inner normal draws, the worst element's passes
+    (``max_passes``) and hashes, 4 an element (its key, ``split``, the
+    exponential), 4 an outer pass, 3 an inner draw."""
+    from repro_torch.core import prng
+    stats = {}
+    prng.dirichlet_t(trace[:, 2:], alpha, f, stats)
+    stats["hashes"] = 4 * stats["elements"] + 4 * stats["passes"] \
+        + 3 * stats["draws"]
+    return stats
+
+
+def dirichlet_floor(work: dict, node: float, lat: dict) -> float:
+    """The latency floor of one ``dirichlet_rows`` launch in a CUDA graph:
+    an empty node plus :func:`dirichlet_chain` at the worst element's
+    passes, priced at the latencies of ``csrc/probe/latency_probe.cu``."""
+    return node + chain_ms(dirichlet_chain(work["max_passes"]), lat)
+
+
+def check_dirichlet_rows(torch, dev, probe):
     """The Dirichlet redraw against its plain version at the drift's
     shape, the paper's 350 devices of 62 classes: a ``redraw`` trace of
     epoch 1 (every row drawn) and a ``churn`` one (a quarter drawn, the
-    rest kept), α = 0.3. Kept rows bit-equal, drawn rows to 1e-6. The
-    bound counts this draw's work, from the plain version: ~74 integer
-    operations (``THREEFRY_INT_OPS``) per threefry hash, 4 hashes per
-    element (its key, ``split``, the exponential), 4 per outer pass, 3
-    per inner normal draw."""
+    rest kept), α = 0.3. Kept rows bit-equal, drawn rows to 1e-6. Each
+    timed eagerly and per launch inside a CUDA graph. The bound counts
+    this draw's work (:func:`dirichlet_work`): ~74 integer operations
+    (``THREEFRY_INT_OPS``) per threefry hash; beside it the latency floor
+    (:func:`dirichlet_floor`)."""
     import numpy as np
 
-    from repro_torch.core import prng
     from repro_torch.data import (DriftConfig, PartitionConfig,
                                   make_drift_fn, make_partition)
     from repro_torch.kernels import dirichlet as kd
@@ -1966,6 +2072,7 @@ def check_dirichlet_rows(torch, dev):
     r, f = 350, 62
     base = torch.as_tensor(part.class_probs.reshape(r, f), device=dev)
     ids = np.arange(r)
+    node, lat = node_ms(torch, probe, dev), chain_latencies(torch, probe, dev)
     tol, res = 1e-6, {}
     for sched in ("redraw", "churn"):
         fn = make_drift_fn(DriftConfig(schedule=sched, period=2), 0, f)
@@ -1978,36 +2085,47 @@ def check_dirichlet_rows(torch, dev):
         if not torch.equal(out[~drawn], ref[~drawn]) or err > tol:
             fail(f"dirichlet_rows {sched}: drawn rows err {err} > {tol} or "
                  "kept rows differ")
-        stats = {}
-        prng.dirichlet_t(trace[drawn, 2:], fn.config.alpha, f, stats)
-        hashes = 4 * stats["elements"] + 4 * stats["passes"] \
-            + 3 * stats["draws"]
-        ms = time_ms(lambda: kd.drift_rows(base, trace, fn.config.alpha),
-                     reps=50)
+        work = dirichlet_work(trace[drawn], fn.config.alpha, f)
+        call = lambda: kd.drift_rows(base, trace, fn.config.alpha)
+        ms, g_ms = time_ms(call, reps=50), graph_ms(torch, call)
         plain_ms = time_ms(lambda: kd.drift_rows_plain(
             base, trace, fn.config.alpha), reps=3, warmup=1)
-        b_ms, b_by = bound(8 * r * f + 32 * r, THREEFRY_INT_OPS * hashes,
-                           INT32_OPS)
-        res[sched] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, drawn=int(drawn.sum()))
+        b_ms, b_by = bound(8 * r * f + 32 * r,
+                           THREEFRY_INT_OPS * work["hashes"], INT32_OPS)
+        floor = dirichlet_floor(work, node, lat)
+        res[sched] = dict(err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, floor_ms=floor,
+                          drawn=int(drawn.sum()),
+                          max_passes=work["max_passes"])
         print(f"dirichlet_rows {sched} (R={r}, F={f}, alpha "
               f"{fn.config.alpha}, {int(drawn.sum())} rows drawn: "
-              f"{stats['elements']} elements, {stats['passes']} outer "
-              f"passes, {stats['draws']} normal draws): kept rows "
-              f"bit-equal, drawn max err {err:.3g} (tol {tol}), {exact} "
-              f"drawn rows bit-equal; {ms:.4f} ms kernel, {plain_ms:.4f} ms "
-              f"plain, bound {b_ms:.5f} ms ({b_by}); library: none (no "
-              "PyTorch call draws JAX's threefry gamma)", flush=True)
-    red = res["redraw"]
+              f"{work['elements']} elements, {work['passes']} outer "
+              f"passes, at most {work['max_passes']} an element, "
+              f"{work['draws']} normal draws): kept rows bit-equal, drawn "
+              f"max err {err:.3g} (tol {tol}), {exact} drawn rows "
+              f"bit-equal; {ms:.4f} ms kernel eager, {g_ms:.5f} per launch "
+              f"in a graph (empty node {node:.5f}), {plain_ms:.4f} ms "
+              f"plain; bound {b_ms:.5f} ms ({b_by}), latency floor "
+              f"{floor:.5f} ms ({100 * max(b_ms, floor) / g_ms:.1f}% of "
+              f"the larger in a graph; mix round {lat['mix']:.2f}, normal "
+              f"{lat['normal']:.1f}, logf {lat['logf']:.1f}, expf "
+              f"{lat['expf']:.1f} cycles at {lat['ghz']:.3f} GHz); "
+              "library: none (no PyTorch call draws JAX's threefry gamma)",
+              flush=True)
+    red, churn = res["redraw"], res["churn"]
     return dict(name=kd.NAME, route="cuda", source=kd.SOURCE,
                 replaces=kd.REPLACES, max_abs_err=max(v["err"] for v in
                                                       res.values()),
                 tol=tol, ms=red["ms"], plain_ms=red["plain_ms"],
                 bound_ms=red["bound_ms"], bound_by=red["bound_by"],
-                library_ms=None, churn_ms=res["churn"]["ms"],
-                churn_plain_ms=res["churn"]["plain_ms"],
+                library_ms=None, graph_ms=red["graph_ms"],
+                floor_ms=red["floor_ms"], node_ms=node,
+                max_passes=red["max_passes"], latencies=lat,
+                churn_ms=churn["ms"], churn_graph_ms=churn["graph_ms"],
+                churn_plain_ms=churn["plain_ms"],
+                churn_floor_ms=churn["floor_ms"],
                 shape=f"R={r} F={f}, redraw all rows / churn "
-                      f"{res['churn']['drawn']} rows drawn")
+                      f"{churn['drawn']} rows drawn")
 
 
 def fedgs_expect(rounds: int, iters: int, every: int, reselect: int,
@@ -2425,7 +2543,7 @@ README_FLAGS = ["--devices", "1000000", "--groups", "8",
 POP_MEMORY_TOL = 16 * 2 ** 20           # bytes of peak device memory
 
 
-def check_population_rows(torch, dev) -> dict:
+def check_population_rows(torch, dev, probe) -> dict:
     """``dirichlet_rows`` with one concentration per element, against its
     plain version on the card, bit for bit: the 350 devices seated at t =
     0 by the full-width CLI at D = 10⁶ (the committee of 35 from each
@@ -2434,7 +2552,8 @@ def check_population_rows(torch, dev) -> dict:
     timed per launch inside a CUDA graph (as the fused round pays it) and
     eagerly (CUDA events, the host wrapper included), and the plain
     version on the card. The bound counts the draw's hashes from the plain
-    version's loop passes, as :func:`check_dirichlet_rows` does."""
+    version's loop passes, and the latency floor its worst element's, as
+    :func:`check_dirichlet_rows` does."""
     import numpy as np
 
     from repro_torch.core import prng
@@ -2453,6 +2572,7 @@ def check_population_rows(torch, dev) -> dict:
                             pop.table[staged[:, 1]].contiguous()),
              "prior": (torch.as_tensor(prior, device=dev),
                        torch.ones(10, 62, device=dev))}
+    node, lat = node_ms(torch, probe, dev), chain_latencies(torch, probe, dev)
     res = {}
     for name, (trace, alpha) in cases.items():
         r, f = alpha.shape
@@ -2461,24 +2581,26 @@ def check_population_rows(torch, dev) -> dict:
         if not torch.equal(out, ref):
             fail(f"dirichlet_rows {name}: the kernel differs from its plain "
                  f"version by {float((out - ref).abs().max())}")
-        stats = {}
-        prng.dirichlet_t(trace[:, 2:], alpha, f, stats)
-        hashes = 4 * stats["elements"] + 4 * stats["passes"] \
-            + 3 * stats["draws"]
+        work = dirichlet_work(trace, alpha, f)
         call = lambda: kd.draw_rows(trace, alpha)
         ms, eager = graph_ms(torch, call), time_ms(call, reps=50)
         plain_ms = time_ms(lambda: kd.drift_rows_plain(None, trace, alpha),
                            reps=3, warmup=1)
-        b_ms, b_by = bound(8 * r * f + 32 * r, THREEFRY_INT_OPS * hashes,
-                           INT32_OPS)
+        b_ms, b_by = bound(8 * r * f + 32 * r,
+                           THREEFRY_INT_OPS * work["hashes"], INT32_OPS)
+        floor = dirichlet_floor(work, node, lat)
         res[name] = dict(ms=ms, eager_ms=eager, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, rows=r)
+                         bound_ms=b_ms, bound_by=b_by, floor_ms=floor,
+                         max_passes=work["max_passes"], rows=r)
         print(f"dirichlet_rows {name} (R={r}, F={f}, one concentration per "
-              f"element, {stats['elements']} elements, {stats['passes']} "
-              f"outer passes, {stats['draws']} normal draws): kernel == "
-              f"plain bit for bit; {ms:.4f} ms per launch in a graph, "
-              f"{eager:.4f} eager, {plain_ms:.4f} ms plain, bound "
-              f"{b_ms:.5f} ms ({b_by}); library: none", flush=True)
+              f"element, {work['elements']} elements, {work['passes']} "
+              f"outer passes, at most {work['max_passes']} an element, "
+              f"{work['draws']} normal draws): kernel == plain bit for bit; "
+              f"{ms:.5f} ms per launch in a graph, {eager:.4f} eager, "
+              f"{plain_ms:.4f} ms plain, bound {b_ms:.5f} ms ({b_by}), "
+              f"latency floor {floor:.5f} ms "
+              f"({100 * max(b_ms, floor) / ms:.1f}% of the larger); "
+              "library: none", flush=True)
     return res
 
 
@@ -2497,7 +2619,7 @@ def pop_host(label, flags, draws, torch) -> tuple:
     return counts, ms, torch.cuda.max_memory_allocated()
 
 
-def population_phase(torch, dev) -> tuple[dict, dict]:
+def population_phase(torch, dev, probe) -> tuple[dict, dict]:
     """The lazy population at full width and the paper's traffic (M = 10,
     K = 35 slots, L = 10, L_rnd = 2, n = 32; committees redrawn every 3
     iterations): ``dirichlet_rows`` per element against its plain version
@@ -2513,7 +2635,7 @@ def population_phase(torch, dev) -> tuple[dict, dict]:
     alone and composed with the availability, robust and drift flags.
     Returns (each path's counts, the kernel's numbers)."""
     t0 = time.perf_counter()
-    rows = check_population_rows(torch, dev)
+    rows = check_population_rows(torch, dev, probe)
     out, peaks, ms = {}, {}, {}
     for d in (POP_DEVICES, POP_SMALL):
         flags = ["--devices", str(d)] + POP_FLAGS
@@ -4417,8 +4539,8 @@ def main() -> None:
     kernels = [check_gbp_cs(torch, dev, probe), check_conv(torch, dev),
                check_agg(torch, dev), check_robust_agg(torch, dev),
                check_topk_compress(torch, dev), check_int8(torch, dev),
-               check_corrupt_rows(torch, dev),
-               check_dirichlet_rows(torch, dev)]
+               check_corrupt_rows(torch, dev, probe),
+               check_dirichlet_rows(torch, dev, probe)]
     torch.cuda.synchronize()
 
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s since the "
@@ -4542,7 +4664,7 @@ def main() -> None:
     # the lazy population (DESIGN.md §17): a million devices on both
     # engines and the baselines, each resident device's Dirichlet row drawn
     # by dirichlet_rows with its factory's concentrations
-    pop_counts, pop_entry = population_phase(torch, dev)
+    pop_counts, pop_entry = population_phase(torch, dev, probe)
     entry = next(k for k in kernels if k["name"] == "dirichlet_rows")
     for name, row in pop_entry["rows"].items():
         entry.update({f"{name}_{key}": v for key, v in row.items()})

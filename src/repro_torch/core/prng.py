@@ -318,7 +318,9 @@ def loggamma_t(keys: torch.Tensor, alpha: torch.Tensor,
     ``log`` and ``log1p`` are PyTorch's, so a result can differ from JAX's
     in its last bits (tests/test_torch_drift.py states by how much).
     ``stats``, if given, accumulates the work the draw took: ``elements``,
-    outer ``passes`` and inner normal ``draws``, summed over elements."""
+    outer ``passes`` and inner normal ``draws``, summed over elements, and
+    keeps ``max_passes``, the most outer passes any one element took (the
+    loop's pass count: the worst element's key chain)."""
     alpha = alpha.float()
     n = alpha.shape[0]
     boost = alpha >= 1.0
@@ -339,9 +341,11 @@ def loggamma_t(keys: torch.Tensor, alpha: torch.Tensor,
 
     active = rejects(X, V, U, d)
     work = {"elements": n, "passes": 0, "draws": 0}
+    rounds = 0
     while bool(active.any()):
         idx = torch.nonzero(active).flatten()
         work["passes"] += idx.numel()
+        rounds += 1
         k3 = split_t(key[idx], 3)
         key[idx] = k3[:, 0]
         x_key, u_key = k3[:, 1].clone(), k3[:, 2]
@@ -366,6 +370,7 @@ def loggamma_t(keys: torch.Tensor, alpha: torch.Tensor,
     if stats is not None:
         for name, v in work.items():
             stats[name] = stats.get(name, 0) + v
+        stats["max_passes"] = max(stats.get("max_passes", 0), rounds)
     log_u = -exponential_t(sub)
     log_boost = torch.where(boost | (log_u == 0), 0.0,
                             log_u * (torch.ones_like(alpha) / alpha))

@@ -21,21 +21,38 @@
 // plain version does not do. Coordinates past P (the P4 pad) are never
 // read or written.
 //
-// What bounds it: bytes for the scale/sign/NaN/Inf rows, 8 per coordinate
-// of a read-modify-write row and 4 of a NaN/Inf row (written only); the
-// threefry's integer work for gauss rows, 74 32-bit integer operations
-// per coordinate (as in int8_quant.cu) against 8 bytes. At the robust
-// path's (R, P) = (100, 6,603,710) with every row gauss that is 4.9e10
-// operations, 2.9 ms at the H100's 16.7 Tops/s int32 (5.3 GB moved,
-// 1.6 ms); the erfinv's ~30 float operations a coordinate run on the FP32
-// pipes beside it. A typical iteration hits a handful of rows: well under
-// 0.1 ms.
-// Design: one launch whatever fired. Rows with code 0 cost nothing: every
-// block compacts the hit rows (one warp, ballots over code[]) into shared
-// memory and walks work items of (hit row, 4096-vector chunk) in a
-// grid-stride loop, so no block is spent on an untouched row and the grid
-// does not depend on the trace (a CUDA graph captures it). One float4 per
-// thread per step; a NaN/Inf row skips the load.
+// What bounds it: two resources, used by two kinds of row. A scale or
+// sign row moves 8 bytes a coordinate (read, write) and a NaN/Inf row 4
+// (written only): HBM's rate. A gauss row moves 8 bytes too, but its
+// threefry draw is 74 32-bit integer operations a coordinate (chip_smoke
+// prices them at 16.7 Tops/s, 64 INT32 lanes an SM; the card measures
+// 3.6e11 hashes a second, ptxas moving some adds to the FMA pipes), and
+// its normal ~40 more instructions: issue-bound. At the robust path's
+// (R, P) = (100, 6,603,710) the CLI's typical trace (4 scale, 2 NaN, 4
+// gauss rows) is 475 MB, 0.142 ms at 3.35 TB/s, and 2.0e9 integer
+// operations, 0.117 ms at 16.7 Tops/s; every row gauss is 2.9 ms of
+// integer work. So a launch is as fast as the two kinds overlap: the byte
+// rows' traffic has to flow while the gauss rows hash.
+// Design: one launch whatever fired, a persistent grid (kMinBlocks blocks
+// an SM; the grid depends on R and P, not on the trace, so a CUDA graph
+// captures it). Every block compacts the hit rows into two lists in
+// shared memory, the gauss rows and the byte rows (row and op packed), and
+// cuts each list into work items of 32 float4 vectors, one per lane of a
+// warp. Warp w of W takes the w-th of W equal slices of each kind's items
+// and walks them interleaved in proportion (Bresenham: after each gauss
+// item, the byte items now due): the first due byte item's load is
+// issued before the gauss item's hashes, so that it is in flight while
+// they run, the rest follow kBatch loads at a time. Every warp carries
+// the same mix, so int-bound and byte-bound work share each SM to the
+// end, with no tail of gauss items; a warp whose slice holds no gauss item
+// streams its byte items kBatch at a time. A lane keeps its leaf segment
+// and the leaf key's words across items (its coordinates only move
+// forward within a row), so a float4 inside one leaf (all but those that
+// straddle a leaf boundary) hashes its four counters ctr = i - off[s] ..
+// + 3 in 32 bits, four chains side by side; a straddling float4 or the
+// row's last takes the per-coordinate path. Every helper is inlined: a
+// call out of line made ptxas save registers around it (spills), and
+// cost 9% at the typical trace on the card.
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
@@ -43,95 +60,225 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 3;     // resident blocks an SM (launch bounds)
 constexpr int kMaxSegs = 64;
 constexpr int kMaxModes = 8;
-constexpr long long kChunk = 4096;   // float4 vectors per work item
+constexpr int kAhead = 1;         // byte items in flight during a gauss item
+constexpr int kBatch = 6;         // byte items in flight together after it
 
 enum Op { kNan = 0, kInf = 1, kScale = 2, kSign = 3, kGauss = 4 };
 
 struct Layout {
-  long long off[kMaxSegs + 1];   // leaf segment offsets; off[nseg] = P
-  int ops[kMaxModes];            // mode index -> Op
+  unsigned off[kMaxSegs + 1];     // leaf segment offsets; off[nseg] = P
+  int ops[kMaxModes];             // mode index -> Op
   int nseg, nmodes;
+  unsigned P, nvec, per_row;      // P, vectors with a coordinate, items a row
 };
 
-__global__ void __launch_bounds__(kThreads)
+// A list's position: the row's index in the list and the item in the row
+struct Cursor {
+  int row;
+  unsigned item;
+  __device__ void next(unsigned per_row) {
+    if (++item == per_row) {
+      item = 0;
+      ++row;
+    }
+  }
+};
+
+// A byte row's op on one coordinate (NaN and Inf ignore x)
+__device__ __forceinline__ float byte_op(float x, int op, float scale) {
+  if (op == kScale) return __fmul_rn(x, scale);
+  if (op == kSign) return -x;
+  return __int_as_float(op == kNan ? 0x7fc00000 : 0x7f800000);
+}
+
+// The row's last vector when P % 4 != 0: its n coordinates one by one
+__device__ __forceinline__ void byte_tail(float* p, int n, int op,
+                                          float scale) {
+  for (int j = 0; j < n; ++j) p[j] = byte_op(p[j], op, scale);
+}
+
+// Up to N byte items of one lane: load() issues every load (a NaN or Inf
+// row loads nothing), store() writes them
+template <int N>
+struct ByteBatch {
+  float4 v[N];
+  float* p[N];
+  int opn[N];                     // op << 3 | coordinates, 0 past the end
+
+  __device__ __forceinline__ void load(int m, Cursor& bc, const int* lists,
+                                       int R, float* X, long long P4,
+                                       unsigned P, unsigned nvec,
+                                       unsigned per_row, int lane) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      opn[k] = 0;
+      if (k < m) {
+        const int entry = lists[R - 1 - bc.row];
+        const unsigned vec = bc.item * 32 + lane;
+        bc.next(per_row);
+        if (vec < nvec) {
+          const unsigned i0 = 4 * vec;
+          const int n = P - i0 < 4u ? (int)(P - i0) : 4;
+          opn[k] = (entry >> 16) << 3 | n;
+          p[k] = X + (long long)(entry & 0xffff) * P4 + i0;
+          if (n == 4 && entry >> 16 >= kScale)
+            v[k] = *reinterpret_cast<const float4*>(p[k]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float scale) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int op = opn[k] >> 3, n = opn[k] & 7;
+      if (n == 4) {
+        *reinterpret_cast<float4*>(p[k]) = make_float4(
+            byte_op(v[k].x, op, scale), byte_op(v[k].y, op, scale),
+            byte_op(v[k].z, op, scale), byte_op(v[k].w, op, scale));
+      } else if (n > 0) {
+        byte_tail(p[k], n, op, scale);
+      }
+    }
+  }
+};
+
+// x plus sigma times the normal of a coordinate's threefry bits
+__device__ __forceinline__ float noisy(float x, unsigned bits, float sigma) {
+  return __fadd_rn(x, __fmul_rn(sigma, threefry::normal_from_bits(bits)));
+}
+
+// A gauss float4 that straddles a leaf boundary, or the row's last: its n
+// coordinates one by one, each under its own leaf's key
+__device__ __forceinline__ void gauss_boundary(float* xr,
+                                               const unsigned* kr,
+                                               const unsigned* off, int s,
+                                               unsigned i0, int n,
+                                               float sigma) {
+  for (int j = 0; j < n; ++j) {
+    const unsigned i = i0 + j;
+    while (off[s + 1] <= i) ++s;
+    xr[i] = noisy(xr[i],
+                  threefry::threefry_bits(kr[2 * s], kr[2 * s + 1], i - off[s]),
+                  sigma);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 corrupt_rows_kernel(float* __restrict__ X, const int* __restrict__ code,
                     const unsigned* __restrict__ keys, int R, long long P4,
                     Layout lay, float scale, float sigma) {
-  extern __shared__ int hit_rows[];          // R entries
-  __shared__ long long off[kMaxSegs + 1];
+  // gauss rows from the front, byte rows (row | op << 16) from the back
+  extern __shared__ int lists[];             // R entries
+  __shared__ unsigned off[kMaxSegs + 1];
   __shared__ int ops[kMaxModes];
-  __shared__ int nhit;
+  __shared__ int counts[2];
+  const int lane = threadIdx.x & 31;
   for (int s = threadIdx.x; s <= lay.nseg; s += kThreads) off[s] = lay.off[s];
   if (threadIdx.x < kMaxModes) ops[threadIdx.x] = lay.ops[threadIdx.x];
+  __syncthreads();
   if (threadIdx.x < 32) {                    // compact the hit rows in order
-    int n = 0;
+    int ng = 0, nb = 0;
+    const unsigned below = (1u << lane) - 1u;
     for (int base = 0; base < R; base += 32) {
-      const int r = base + threadIdx.x;
+      const int r = base + lane;
       const int c = r < R ? code[r] : 0;
-      const bool h = c >= 1 && c <= lay.nmodes;
-      const unsigned ball = __ballot_sync(0xffffffffu, h);
-      if (h) hit_rows[n + __popc(ball & ((1u << threadIdx.x) - 1u))] = r;
-      n += __popc(ball);
+      const int op = c >= 1 && c <= lay.nmodes ? ops[c - 1] : -1;
+      const unsigned g = __ballot_sync(0xffffffffu, op == kGauss);
+      const unsigned b = __ballot_sync(0xffffffffu, op >= 0 && op != kGauss);
+      if (op == kGauss) lists[ng + __popc(g & below)] = r;
+      else if (op >= 0) lists[R - 1 - nb - __popc(b & below)] = r | op << 16;
+      ng += __popc(g);
+      nb += __popc(b);
     }
-    if (threadIdx.x == 0) nhit = n;
+    if (lane == 0) {
+      counts[0] = ng;
+      counts[1] = nb;
+    }
   }
   __syncthreads();
   const int nseg = lay.nseg;
-  const long long P = off[nseg];
-  const long long nvec = (P + 3) / 4;        // vectors holding a coordinate
-  const long long chunks = (nvec + kChunk - 1) / kChunk;
-  const long long items = (long long)nhit * chunks;
-  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
-    const int r = hit_rows[w / chunks];
-    const int op = ops[code[r] - 1];
-    float* xr = X + (long long)r * P4;
-    const long long v0 = (w % chunks) * kChunk;
-    const long long v1 = v0 + kChunk < nvec ? v0 + kChunk : nvec;
-    for (long long v = v0 + threadIdx.x; v < v1; v += kThreads) {
-      const long long i0 = 4 * v;
-      const int n = P - i0 < 4 ? (int)(P - i0) : 4;
-      float e[4] = {0.f, 0.f, 0.f, 0.f};
-      if (op == kNan || op == kInf) {
-        const float f = __int_as_float(op == kNan ? 0x7fc00000 : 0x7f800000);
-        e[0] = e[1] = e[2] = e[3] = f;
-      } else {
-        if (n == 4) {
-          const float4 f = reinterpret_cast<const float4*>(xr)[v];
-          e[0] = f.x; e[1] = f.y; e[2] = f.z; e[3] = f.w;
-        } else {
-          for (int j = 0; j < n; ++j) e[j] = xr[i0 + j];
-        }
-        if (op == kScale) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) e[j] = __fmul_rn(e[j], scale);
-        } else if (op == kSign) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) e[j] = -e[j];
-        } else {
-          const unsigned* kr = keys + 2ll * nseg * r;
-          int s = 0;
-          while (off[s + 1] <= i0) ++s;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const long long i = i0 + j;
-            if (j < n) {
-              while (off[s + 1] <= i) ++s;
-              const unsigned bits = threefry::threefry_bits(
-                  kr[2 * s], kr[2 * s + 1], (unsigned)(i - off[s]));
-              e[j] = __fadd_rn(
-                  e[j], __fmul_rn(sigma, threefry::normal_from_bits(bits)));
-            }
-          }
-        }
+  const unsigned P = lay.P, nvec = lay.nvec, per_row = lay.per_row;
+  // this warp's slice of each list's items (the host keeps a slice < 2^31)
+  const long long warps = (long long)gridDim.x * kWarps;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long gall = (long long)counts[0] * per_row;
+  const long long ball = (long long)counts[1] * per_row;
+  const long long g0 = gall * w / warps, b0 = ball * w / warps;
+  const unsigned ng = (unsigned)(gall * (w + 1) / warps - g0);
+  const unsigned nb_all = (unsigned)(ball * (w + 1) / warps - b0);
+  Cursor gc = {(int)(g0 / per_row), (unsigned)(g0 % per_row)};
+  Cursor bc = {(int)(b0 / per_row), (unsigned)(b0 % per_row)};
+  unsigned nb = nb_all;                      // byte items left
+
+  // the lane's gauss state: row, leaf segment, the leaf key's schedule
+  int grow = -1, s = 0;
+  float* xr = nullptr;
+  const unsigned* kr = nullptr;
+  threefry::Schedule ks;
+
+  unsigned acc = 0;
+  for (unsigned g = 0; g < ng; ++g) {
+    acc += nb_all;                           // the byte items due with it
+    int due = 0;
+    while (acc >= ng) {
+      acc -= ng;
+      ++due;
+    }
+    nb -= due;
+    ByteBatch<kAhead> ahead;
+    const int first = due < kAhead ? due : kAhead;
+    ahead.load(first, bc, lists, R, X, P4, P, nvec, per_row, lane);
+
+    const int r = lists[gc.row];
+    const unsigned vec = gc.item * 32 + lane;
+    gc.next(per_row);
+    if (r != grow) {
+      grow = r;
+      s = 0;
+      xr = X + (long long)r * P4;
+      kr = keys + 2ll * nseg * r;
+      ks = threefry::schedule(kr[0], kr[1]);
+    }
+    if (vec < nvec) {
+      const unsigned i0 = 4 * vec;
+      if (off[s + 1] <= i0) {
+        do ++s; while (off[s + 1] <= i0);
+        ks = threefry::schedule(kr[2 * s], kr[2 * s + 1]);
       }
-      if (n == 4) {
-        reinterpret_cast<float4*>(xr)[v] = make_float4(e[0], e[1], e[2], e[3]);
+      if (off[s + 1] - i0 >= 4) {            // inside leaf s: 32-bit counters
+        float4 f = *reinterpret_cast<const float4*>(xr + i0);
+        const unsigned ctr = i0 - off[s];
+        unsigned bits[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bits[j] = threefry::bits(ks, ctr + j);
+        f.x = noisy(f.x, bits[0], sigma);
+        f.y = noisy(f.y, bits[1], sigma);
+        f.z = noisy(f.z, bits[2], sigma);
+        f.w = noisy(f.w, bits[3], sigma);
+        *reinterpret_cast<float4*>(xr + i0) = f;
       } else {
-        for (int j = 0; j < n; ++j) xr[i0 + j] = e[j];
+        gauss_boundary(xr, kr, off, s, i0, P - i0 < 4u ? (int)(P - i0) : 4,
+                       sigma);
       }
     }
+    ahead.store(scale);
+    for (due -= first; due > 0; due -= kBatch) {
+      ByteBatch<kBatch> batch;
+      batch.load(due < kBatch ? due : kBatch, bc, lists, R, X, P4, P, nvec,
+                 per_row, lane);
+      batch.store(scale);
+    }
+  }
+  for (; nb > 0; nb -= nb < kBatch ? nb : kBatch) {  // no gauss item left
+    ByteBatch<kBatch> batch;
+    batch.load(nb < kBatch ? (int)nb : kBatch, bc, lists, R, X, P4, P, nvec,
+               per_row, lane);
+    batch.store(scale);
   }
 }
 
@@ -153,7 +300,7 @@ extern "C" int corrupt_rows_f32(void* X, const void* code, const void* keys,
   Layout lay = {};
   for (int s = 0; s <= nseg; ++s) {
     if (s && offsets[s] <= offsets[s - 1]) return (int)cudaErrorInvalidValue;
-    lay.off[s] = offsets[s];
+    lay.off[s] = (unsigned)offsets[s];
   }
   for (int j = 0; j < nmodes; ++j) {
     if (ops[j] < kNan || ops[j] > kGauss) return (int)cudaErrorInvalidValue;
@@ -162,17 +309,27 @@ extern "C" int corrupt_rows_f32(void* X, const void* code, const void* keys,
   }
   lay.nseg = nseg;
   lay.nmodes = nmodes;
-  int dev = 0, sms = 0;
+  lay.P = (unsigned)offsets[nseg];
+  lay.nvec = (unsigned)((offsets[nseg] + 3) / 4);
+  lay.per_row = (lay.nvec + 31) / 32;
+  const size_t smem = sizeof(int) * R;
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, corrupt_rows_kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long nvec = (offsets[nseg] + 3) / 4;
-  const long long work = (long long)R * ((nvec + kChunk - 1) / kChunk);
-  const long long cap = 8ll * sms;           // one full wave of 256-thread
-  const unsigned grid = (unsigned)(work < cap ? work : cap);   // blocks
-  corrupt_rows_kernel<<<grid, kThreads, sizeof(int) * R,
-                        (cudaStream_t)stream>>>(
+  // every block resident, and no more warps than the items of R hit rows;
+  // a warp's slice of a list's items stays under 2^31
+  const long long items = (long long)R * lay.per_row;
+  const long long useful = (items + kWarps - 1) / kWarps;
+  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const unsigned grid = (unsigned)(useful < cap ? useful : cap);
+  if (items / ((long long)grid * kWarps) >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  corrupt_rows_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (float*)X, (const int*)code, (const unsigned*)keys, R, P4, lay, scale,
       sigma);
   return (int)cudaGetLastError();

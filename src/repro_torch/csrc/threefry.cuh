@@ -3,7 +3,8 @@
 // element i of a draw under key (k0, k1) hashes the 64-bit counter (0, i)
 // and takes the two output words' xor. Shared by int8_quant.cu (the
 // stochastic rounding's uniforms), corrupt_rows.cu (the fault noise's
-// normals) and dirichlet_rows.cu (the gamma draws' keys and variates).
+// normals, through a key's Schedule), dirichlet_rows.cu (the gamma draws'
+// keys and variates), avail_rows.cu and the latency probe.
 #pragma once
 
 namespace threefry {
@@ -12,27 +13,41 @@ __device__ __forceinline__ unsigned rotl(unsigned v, int r) {
   return __funnelshift_l(v, v, r);
 }
 
-// threefry2x32 of the counter (0, i) under (k0, k1); returns the 32
-// random bits b1 ^ b2 that jax.random.bits draws for element i.
-__device__ __forceinline__ unsigned threefry_bits(unsigned k0, unsigned k1,
-                                                  unsigned i) {
-  const unsigned k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  unsigned a = k0, b = i + k1;
+// A key's three words (k2 = k0 ^ k1 ^ 0x1BD11BDA), computed once for many
+// counters under one key: bits(schedule(k0, k1), i) == threefry_bits(k0,
+// k1, i), bit for bit (each key injection an add of three operands).
+struct Schedule {
+  unsigned k0, k1, k2;
+};
+
+__device__ __forceinline__ Schedule schedule(unsigned k0, unsigned k1) {
+  return {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+}
+
+__device__ __forceinline__ unsigned bits(const Schedule& s, unsigned i) {
+  unsigned a = s.k0, b = i + s.k1;
 #define TF_MIX(r) \
   a += b;         \
   b = rotl(b, r) ^ a;
   TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  a += k1; b += k2 + 1u;
+  a += s.k1; b += s.k2 + 1u;
   TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
-  a += k2; b += k0 + 2u;
+  a += s.k2; b += s.k0 + 2u;
   TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  a += k0; b += k1 + 3u;
+  a += s.k0; b += s.k1 + 3u;
   TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
-  a += k1; b += k2 + 4u;
+  a += s.k1; b += s.k2 + 4u;
   TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
-  a += k2; b += k0 + 5u;
+  a += s.k2; b += s.k0 + 5u;
 #undef TF_MIX
   return a ^ b;
+}
+
+// threefry2x32 of the counter (0, i) under (k0, k1); returns the 32
+// random bits b1 ^ b2 that jax.random.bits draws for element i.
+__device__ __forceinline__ unsigned threefry_bits(unsigned k0, unsigned k1,
+                                                  unsigned i) {
+  return bits(schedule(k0, k1), i);
 }
 
 // Both output words of threefry2x32 of the counter (x0, x1) under
@@ -59,6 +74,45 @@ __device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1,
 #undef TF_MIX
   o0 = a;
   o1 = b;
+}
+
+// N hashes side by side, round by round (independent chains interleaved in
+// the instruction stream): (o0[i], o1[i]) = threefry2x32 of the counter
+// (0, x1[i]) under (k0[i], k1[i]), bit for bit.
+template <int N>
+__device__ __forceinline__ void threefry2x32_n(const unsigned* k0,
+                                               const unsigned* k1,
+                                               const unsigned* x1,
+                                               unsigned* o0, unsigned* o1) {
+  unsigned a[N], b[N], k2[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    k2[i] = k0[i] ^ k1[i] ^ 0x1BD11BDAu;
+    a[i] = k0[i];
+    b[i] = x1[i] + k1[i];
+  }
+#define TF_MIX(r)                            \
+  _Pragma("unroll") for (int i = 0; i < N; ++i) { \
+    a[i] += b[i];                            \
+    b[i] = rotl(b[i], r) ^ a[i];             \
+  }
+#define TF_INJECT(ka, kb, c)                 \
+  _Pragma("unroll") for (int i = 0; i < N; ++i) { \
+    a[i] += ka[i];                           \
+    b[i] += kb[i] + c;                       \
+  }
+  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6) TF_INJECT(k1, k2, 1u)
+  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24) TF_INJECT(k2, k0, 2u)
+  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6) TF_INJECT(k0, k1, 3u)
+  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24) TF_INJECT(k1, k2, 4u)
+  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6) TF_INJECT(k2, k0, 5u)
+#undef TF_MIX
+#undef TF_INJECT
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    o0[i] = a[i];
+    o1[i] = b[i];
+  }
 }
 
 // jax.random.uniform's float transform on [0, 1): 23 random mantissa bits

@@ -4,7 +4,8 @@ flat member-gradient buffer, in place.
 :func:`corrupt_rows` is the CUDA kernel ``csrc/corrupt_rows.cu`` (one
 launch whatever fired: the untouched rows cost nothing, the NaN, +Inf,
 scale, sign-flip and Gaussian-noise rows are rewritten, the noise drawn
-from threefry bits in the kernel) for CUDA tensors and
+from threefry bits in the kernel, each warp walking its share of the
+Gaussian and the other rows interleaved) for CUDA tensors and
 :func:`corrupt_rows_plain` for CPU tensors. Both take the trace as tensors
 on x's device — ``code`` (R,) (0 = untouched, else 1 + the row's index in
 ``modes``) and the noise's per-(row, leaf) keys (R, S, 2) — so the call
@@ -37,7 +38,10 @@ MAX_ROWS = 12000
 # The kernel held against its plain version (the gpu-marked test and
 # chip_smoke.py): (modes, each row's code, leaf sizes, P4). Rows all off,
 # one row per mode, mixes over leaves that are not multiples of a float4 or
-# of the kernel's 16384-coordinate chunk, rows of several chunks, P4 pads.
+# of 16384 coordinates, rows of several such chunks, P4 pads; then only
+# gauss rows hit, only byte rows hit, every row hit with mixed modes, and
+# leaf boundaries inside the float4 that starts a 128-coordinate work item
+# (the kernel's item: 32 float4 vectors, one per lane) and at one.
 SWEEP = [
     (("scale", "gauss_noise"), (0, 0, 0, 0), (75, 3, 35, 5), 120),
     (MODES, (1, 2, 3, 4, 5, 0, 5), (75, 3, 35, 5), 120),
@@ -46,6 +50,13 @@ SWEEP = [
     (("gauss_noise", "sign_flip", "inf_spike"), (1, 1, 2, 3, 0, 1),
      (1, 2, 3, 40000, 9), 40016),
     (("sign_flip",), (1,) * 5 + (0,) * 27, (33, 4096), 4132),
+    (("scale", "gauss_noise", "nan_burst"), (2, 0, 2, 2, 0, 2),
+     (1000, 3, 5000), 6004),
+    (("gauss_noise", "scale", "sign_flip", "nan_burst", "inf_spike"),
+     (2, 3, 0, 4, 5, 2, 3), (333, 4097, 11), 4444),
+    (MODES, (5, 1, 3, 5, 2, 4, 5, 5, 3, 1, 4, 5), (129, 126, 3, 20000, 1),
+     20260),
+    (("gauss_noise", "scale"), (1, 1, 2, 0, 1), (129, 255, 1, 9000), 9392),
 ]
 
 

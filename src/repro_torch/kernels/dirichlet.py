@@ -6,20 +6,20 @@ class distributions of the lazy population's resident devices (DESIGN.md
 §17), every row a draw around its factory's concentration.
 
 :func:`drift_rows` and :func:`draw_rows` are the CUDA kernel
-``csrc/dirichlet_rows.cu`` (one warp per row: each lane runs
-Marsaglia–Tsang's two rejection loops for its elements in registers,
-threefry and the normal's erfinv included, then a warp softmax) for CUDA
-tensors and :func:`drift_rows_plain` for CPU tensors. They take the trace
-as an (R, 4) int64 tensor on the rows' device — class shift, drawn flag,
-the row's two key words (``data.streaming.DriftFn.trace``; the
-population's staged words, ``data.population.LazyPopulation.stage``,
-whose key words sit in the same place) — and the concentration as one
-scalar α (the drift) or an (R, F) float32 tensor, one α per element (the
-population), so nothing is read back to the host and a CUDA graph
-captures the call. There is no Pallas kernel behind it: the JAX package
-draws the rows with ``jax.random.dirichlet`` under ``vmap`` in
-``make_drift_fn`` and ``LazyPopulation.probs_for``; the kernel is the
-port's own.
+``csrc/dirichlet_rows.cu`` (one 64-thread block per row: each thread runs
+Marsaglia–Tsang's two rejection loops for its element in registers,
+threefry and the normal's erfinv included, a step's hashes side by side,
+then the row's softmax) for CUDA tensors and :func:`drift_rows_plain` for
+CPU tensors. They take the trace as an (R, 4) int64 tensor on the rows'
+device — class shift, drawn flag, the row's two key words
+(``data.streaming.DriftFn.trace``; the population's staged words,
+``data.population.LazyPopulation.stage``, whose key words sit in the same
+place) — and the concentration as one scalar α (the drift) or an (R, F)
+float32 tensor, one α per element (the population), so nothing is read
+back to the host and a CUDA graph captures the call. There is no Pallas
+kernel behind it: the JAX package draws the rows with
+``jax.random.dirichlet`` under ``vmap`` in ``make_drift_fn`` and
+``LazyPopulation.probs_for``; the kernel is the port's own.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ REPLACES = ("none: jax.random.dirichlet in src/repro/data/streaming.py:"
             "src/repro/data/population.py:139,155 (LazyPopulation)")
 LAUNCHES = 0
 
-MAX_CLASSES = 64          # two elements per lane of the row's warp
+MAX_CLASSES = 64          # one element per thread of the row's block
 
 
 def _check(base: torch.Tensor | None, trace: torch.Tensor, alpha) -> None:

@@ -104,6 +104,55 @@ def test_loggamma_dirichlet_match_reference(alpha):
     np.testing.assert_allclose(dd.sum(-1), 1.0, atol=1e-5)
 
 
+def test_loggamma_stats_count_each_elements_passes():
+    """``loggamma_t``'s ``stats``: the batch's elements, passes and draws
+    are the sums of each element drawn alone, and ``max_passes`` their
+    maximum (the worst element's key chain, which ``chip_smoke.py`` prices
+    as ``dirichlet_rows``' latency floor); at α = 0.02 this row has
+    elements that take two and three passes."""
+    f = 62
+    keys = prng.split_t(torch.as_tensor(_keys(9, 1).astype(np.int64)),
+                        f).reshape(-1, 2)
+    alpha = torch.full((keys.shape[0],), 0.02)
+    batch, alone = {}, []
+    lg = prng.loggamma_t(keys, alpha, batch)
+    for i in range(keys.shape[0]):
+        one = {}
+        assert torch.equal(prng.loggamma_t(keys[i:i + 1], alpha[i:i + 1],
+                                           one), lg[i:i + 1])
+        alone.append(one)
+    for name in ("elements", "passes", "draws"):
+        assert batch[name] == sum(one[name] for one in alone)
+    assert batch["max_passes"] == max(one["max_passes"] for one in alone)
+    assert batch["max_passes"] > 1
+
+
+@pytest.mark.parametrize("f,alpha", [(1, 0.3), (33, 0.02), (64, 2.5)])
+def test_drift_rows_on_the_cpu_at_the_kernels_edges(f, alpha):
+    """``drift_rows`` on CPU tensors is its plain version, at the widths
+    the kernel's block treats apart (F = 1: an empty upper warp; 33: one
+    upper element; 64: a full row) and α = 0.02 (several outer passes):
+    kept rows are their base rows rolled by their shifts, drawn rows sum
+    to one, a trace with no row drawn draws nothing, and F = 65 is
+    refused."""
+    rng = np.random.default_rng(f)
+    base = torch.as_tensor(rng.dirichlet(np.ones(f), 5).astype(np.float32))
+    trace = torch.as_tensor(np.stack(
+        [rng.integers(0, 70, 5), np.array([1, 0, 1, 1, 0]),
+         rng.integers(0, 2 ** 32, 5), rng.integers(0, 2 ** 32, 5)], 1))
+    out = dirichlet.drift_rows(base, trace, alpha)
+    assert torch.equal(out, dirichlet.drift_rows_plain(base, trace, alpha))
+    kept = trace[:, 1] == 0
+    assert torch.equal(out[kept],
+                       dirichlet.roll_rows(base, trace[:, 0])[kept])
+    torch.testing.assert_close(out.sum(-1), torch.ones(5))
+    trace[:, 1] = 0
+    assert torch.equal(dirichlet.drift_rows(base, trace, alpha),
+                       dirichlet.roll_rows(base, trace[:, 0]))
+    with pytest.raises(ValueError, match="classes"):
+        dirichlet.drift_rows(torch.ones(5, 65) / 65, trace, alpha)
+
+
 def test_exponential_and_softmax_rows():
     kd = _keys(3, 40)
     ref = np.asarray(jax.vmap(lambda k: jax.random.exponential(k))(

@@ -194,18 +194,24 @@ def test_fused_avail_graph_replay_equals_eager(cuda):
         assert captured["avail_rows"] == 3
 
 
-@pytest.mark.parametrize("alpha,rows", [(0.3, 350), (2.5, 353), (0.1, 5)])
-def test_dirichlet_rows_kernel_matches_plain(cuda, alpha, rows):
+@pytest.mark.parametrize("alpha,rows,f,drawn", [
+    (0.3, 350, 62, True), (2.5, 353, 62, True), (0.1, 5, 62, True),
+    (0.02, 350, 62, True), (0.3, 40, 1, True), (0.3, 40, 33, True),
+    (0.3, 40, 64, True), (0.3, 40, 62, False)])
+def test_dirichlet_rows_kernel_matches_plain(cuda, alpha, rows, f, drawn):
     """The Dirichlet redraw against its plain version on the card: α < 1
-    (the boost) and α ≥ 1, R a multiple of the 8-row block and not, drawn
-    and rolled rows mixed (shifts 0 to F − 1). Rolled rows are bit-equal;
-    drawn rows are held to 1e-6 (the kernel's logf/expf are the library
-    calls PyTorch makes on the card, the plain softmax sums in the
-    kernel's order; the erfinv's Horner steps round through double in the
-    plain version); one launch per call."""
+    (the boost) and α ≥ 1, α = 0.02 (elements that reject several outer
+    passes), F = 1, 33, 64 (an empty upper warp, one upper element, a full
+    row), drawn and rolled rows mixed (shifts 0 to F − 1) and a trace with
+    no row drawn. Rolled rows are bit-equal; drawn rows are held to 1e-6
+    (the kernel's logf/expf are the library calls PyTorch makes on the
+    card, the plain softmax sums in the kernel's order; the erfinv's
+    Horner steps round through double in the plain version); one launch
+    per call."""
     from repro_torch.kernels import dirichlet
-    gen = torch.Generator(device=cuda).manual_seed(rows)
-    base = torch.rand(rows, 62, generator=gen, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(
+        rows if f == 62 else rows + f)
+    base = torch.rand(rows, f, generator=gen, device=cuda)
     base = base / base.sum(-1, keepdim=True)
     trace = torch.stack([
         torch.randint(0, 62, (rows,), generator=gen, device=cuda),
@@ -213,14 +219,16 @@ def test_dirichlet_rows_kernel_matches_plain(cuda, alpha, rows):
         torch.randint(0, 2 ** 32, (rows,), generator=gen, device=cuda),
         torch.randint(0, 2 ** 32, (rows,), generator=gen, device=cuda)],
         dim=1)
-    trace[0, 1] = 1
+    trace[:, 1] *= int(drawn)
+    trace[0, 1] = int(drawn)
     dispatch.reset_launch_counts()
     out = dirichlet.drift_rows(base, trace, alpha)
     assert dispatch.launch_counts()["dirichlet_rows"] == 1
     ref = dirichlet.drift_rows_plain(base, trace, alpha)
-    drawn = trace[:, 1] != 0
-    assert torch.equal(out[~drawn], ref[~drawn])
-    assert float((out[drawn] - ref[drawn]).abs().max()) <= 1e-6
+    is_drawn = trace[:, 1] != 0
+    assert torch.equal(out[~is_drawn], ref[~is_drawn])
+    if drawn:
+        assert float((out[is_drawn] - ref[is_drawn]).abs().max()) <= 1e-6
     torch.testing.assert_close(out.sum(-1), torch.ones(rows, device=cuda))
     with pytest.raises(ValueError, match="trace"):
         dirichlet.drift_rows(base, trace[:-1], alpha)
@@ -251,9 +259,9 @@ def _population_rows(cuda):
 def test_dirichlet_rows_per_element_bit_equal_plain(cuda):
     """``dirichlet_rows`` with one concentration per element equals its
     plain version bit for bit: at (350, 62) with the population's
-    concentrations, at (10, 62) with α = 1 (the table's priors); and the
-    drift's scalar path, a ``redraw`` trace at (350, 62), bit for bit too.
-    One launch per call."""
+    concentrations, at (10, 62) with α = 1 (the table's priors), at F = 1,
+    33 and 64 with concentrations from 0.02; and the drift's scalar path, a
+    ``redraw`` trace at (350, 62), bit for bit too. One launch per call."""
     import numpy as np
     from repro_torch.data import DriftConfig, make_drift_fn
     from repro_torch.kernels import dirichlet
@@ -268,6 +276,12 @@ def test_dirichlet_rows_per_element_bit_equal_plain(cuda):
     base = torch.full((350, 62), 1 / 62, device=cuda)
     assert torch.equal(dirichlet.drift_rows(base, trace, 0.3),
                        dirichlet.drift_rows_plain(base, trace, 0.3))
+    # small concentrations (several outer passes) at F = 1, 33 and 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for f in (1, 33, 64):
+        alpha = 0.02 + torch.rand(40, f, generator=gen, device=cuda)
+        assert torch.equal(dirichlet.draw_rows(trace[:40], alpha),
+                           dirichlet.drift_rows_plain(None, trace[:40], alpha))
     with pytest.raises(ValueError, match="float32"):
         dirichlet.draw_rows(trace, alpha.double())
 
