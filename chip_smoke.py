@@ -765,37 +765,85 @@ def check_topk_compress(torch, dev):
                 library_ms=lib_ms, shape=f"M={m} P4={p} k={k}")
 
 
-def check_int8(torch, dev):
-    """Stochastic int8 of the compress path's rows, a different key per
-    row: bit-equal to the plain version (threefry in PyTorch int64 ops)."""
-    from repro_torch.core import prng
+def int8_draws(torch, x) -> int:
+    """Coordinates of x (M, P) whose stochastic rounding needs its draw:
+    y − floor(y) > 0, y = x / the row's scale (``quantize_plain``'s
+    arithmetic); the others come out the same whatever the draw."""
     from repro_torch.kernels import int8_quant as kq
+    scale = torch.clamp_min(x.abs().amax(dim=1, keepdim=True) * kq.INV_127,
+                            1e-30)
+    y = x / scale
+    return int((y - torch.floor(y) > 0).sum())
+
+
+def check_int8(torch, dev, probe):
+    """Stochastic int8 of the compress path's two inputs, a different key
+    per row, (10, P4) gradient rows: the internal link's top-k rows (k at
+    1% of |θ|, ``topk_compress.select``) and the external link's dense
+    rows (row 3 half zeros). Each bit-equal to the plain version
+    (threefry in PyTorch int64 ops), timed eagerly and per launch inside a
+    CUDA graph of 50. The bound prices the draws the rows need
+    (:func:`int8_draws`) at the card's threefry rate (``hash_rate``)
+    against one read and one write, 8 bytes a coordinate; beside it the
+    two-read design's 12 bytes and the 74-op formula at ``INT32_OPS``."""
+    import numpy as np
+
+    from repro_torch.core import compress, prng
+    from repro_torch.kernels import int8_quant as kq
+    from repro_torch.kernels import topk_compress as ktop
 
     m, p = 10, CNN_P4
-    x = gradient_rows(torch, dev, 5)
-    x[3, ::2] = 0.0
-    keys = prng.split(prng.PRNGKey(7), m)
-    out_k = kq.quantize(x, keys)
-    out_p = kq.quantize_plain(x, keys)
-    torch.cuda.synchronize()
-    if not torch.equal(out_k.view(torch.int32), out_p.view(torch.int32)):
-        bad = (out_k != out_p).sum().item()
-        fail(f"int8_quant: {bad} coordinates differ from the plain version")
-    del out_p
-    ms = time_ms(lambda: kq.quantize(x, keys), reps=20)
-    plain_ms = time_ms(lambda: kq.quantize_plain(x, keys), reps=3,
+    rate = hash_rate(torch, probe, dev)
+    dense = gradient_rows(torch, dev, 5)
+    sparse = ktop.select(dense, compress.topk_count(CNN_PARAMS, 0.01))
+    dense[3, ::2] = 0.0
+    keys = torch.as_tensor(prng.split(prng.PRNGKey(7), m).astype(np.int64),
+                           device=dev)
+    res = {}
+    for link, x in (("internal", sparse), ("external", dense)):
+        out_k = kq.quantize(x, keys)
+        out_p = kq.quantize_plain(x, keys)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k.view(torch.int32), out_p.view(torch.int32)):
+            bad = (out_k != out_p).sum().item()
+            fail(f"int8_quant ({link} link's rows): {bad} coordinates differ "
+                 "from the plain version")
+        del out_k, out_p
+        call = lambda x=x: kq.quantize(x, keys)
+        draws = int8_draws(torch, x)
+        ms, g_ms = time_ms(call, reps=20), graph_ms(torch, call)
+        b_ms, b_by = bound(8 * m * p, draws, rate)
+        two_ms, two_by = bound(12 * m * p, draws, rate)
+        f_ms, f_by = bound(8 * m * p, THREEFRY_INT_OPS * draws, INT32_OPS)
+        res[link] = dict(ms=ms, graph_ms=g_ms, draws=draws, bound_ms=b_ms,
+                         bound_by=b_by, two_read_bound_ms=two_ms,
+                         formula_bound_ms=f_ms)
+        print(f"int8_quant {link} link's rows (M={m} P4={p}, {draws} "
+              f"coordinates need a draw, {100 * draws / (m * p):.2f}%): "
+              f"bit-equal to the plain version; {ms:.4f} ms kernel, "
+              f"{g_ms:.4f} per launch in a graph; bound {b_ms:.4f} ms "
+              f"({b_by}: 8 B a coordinate, the draws at the measured "
+              f"{rate:.4g} hashes/s; {100 * b_ms / ms:.1f}%, "
+              f"{100 * b_ms / g_ms:.1f}% in a graph); two reads (12 B) "
+              f"{two_ms:.4f} ms ({two_by}); formula {f_ms:.4f} ms ({f_by}, "
+              f"{THREEFRY_INT_OPS} int32 ops a draw at "
+              f"{INT32_OPS / 1e12:.1f} Tops/s); library: none", flush=True)
+    plain_ms = time_ms(lambda: kq.quantize_plain(sparse, keys), reps=3,
                        warmup=1)
-    b_ms, b_by = bound(8 * m * p, THREEFRY_INT_OPS * m * p, INT32_OPS)
-    print(f"int8_quant: M={m} P4={p}, bit-equal to the plain version; "
-          f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, bound {b_ms:.4f} "
-          f"ms ({b_by}: {THREEFRY_INT_OPS} int32 ops per coordinate at "
-          f"{INT32_OPS / 1e12:.1f} Tops/s)", flush=True)
-    del x, out_k
+    del sparse, dense
     torch.cuda.empty_cache()
+    head, ext = res["internal"], res["external"]
     return dict(name=kq.NAME, route="cuda", source=kq.SOURCE,
-                replaces=kq.REPLACES, max_abs_err=0.0, tol=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, shape=f"M={m} P4={p}")
+                replaces=kq.REPLACES, max_abs_err=0.0, tol=0.0,
+                ms=head["ms"], plain_ms=plain_ms, bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=None,
+                graph_ms=head["graph_ms"], draws=head["draws"],
+                two_read_bound_ms=head["two_read_bound_ms"],
+                formula_bound_ms=head["formula_bound_ms"],
+                **{f"external_{key}": v for key, v in ext.items()},
+                hash_rate=rate,
+                shape=f"M={m} P4={p}, the internal link's top-k rows (k at "
+                      "1%); external_*: the external link's dense rows")
 
 
 def corrupt_fills(code, modes) -> dict:
@@ -1536,7 +1584,8 @@ def baselines_phase(torch, dev) -> tuple[dict, dict, dict]:
 DEVICE_KERNEL = {"gbp_cs": "gbp_cs_warp", "conv_fused": "conv_fused_kernel",
                  "agg_weighted": "agg_weighted_kernel",
                  "robust_agg": "robust_agg_kernel",
-                 "topk_compress": "topk_hist0", "int8_quant": "int8_absmax",
+                 "topk_compress": "topk_hist0",
+                 "int8_quant": "int8_quant_rows",
                  "flash_attention": "flash_fwd", "ssd_scan": "ssd_chunk_scan",
                  "ssd_scan_bwd": "ssd_bwd_dt",
                  "corrupt_rows": "corrupt_rows_kernel",
@@ -2343,7 +2392,17 @@ AVAIL_COUNTED = ("reselections", "dark_selected", "corrupted_selected",
                  "rollbacks", "bytes_int", "bytes_ext")
 
 
-def check_avail_rows(torch, dev):
+def avail_floor(torch, probe, dev) -> float:
+    """The latency floor of one ``avail_rows`` launch in a CUDA graph: an
+    empty node plus three dependent hashes (the latency draw's fold_in(k,
+    id), fold_in(·, t) and its bits; the state's K, its key and its bits),
+    each priced as its 20 mix rounds at ``csrc/probe/latency_probe.cu``'s
+    latency, the key injections left out."""
+    return node_ms(torch, probe, dev) + chain_ms(
+        {"mix": 3 * 20}, chain_latencies(torch, probe, dev))
+
+
+def check_avail_rows(torch, dev, probe):
     """The availability trace against its plain version on the card, bit
     for bit, for the three schedules at the CLI's shape (up_prob 0.6, the
     straggler tail 0.15): the 350 dense ids and 350 shuffled ids up to
@@ -2354,12 +2413,15 @@ def check_avail_rows(torch, dev):
     Times on the dense ids at t = 5 and 4,095: per launch inside a CUDA
     graph (the device's time, as the fused round pays it; the headline)
     and eager (CUDA events over back-to-back calls, host wrapper
-    included), and the plain version's on the card. The bound counts the
-    draw's hashes (``kernels.avail.hashes``) at ~74 integer operations
-    (``THREEFRY_INT_OPS``) each against 16 bytes per id."""
+    included), and the plain version's on the card. The bound is the
+    larger of the draw's hashes (``kernels.avail.hashes``) at the card's
+    threefry rate (``hash_rate``; 16 bytes per id never bind) and the
+    latency floor (:func:`avail_floor`); the formula's bound (~74 integer
+    operations a hash at ``INT32_OPS``) is printed beside it."""
     from repro_torch.data import AvailabilityConfig, make_availability_fn
     from repro_torch.kernels import avail as ka
 
+    rate, floor = hash_rate(torch, probe, dev), avail_floor(torch, probe, dev)
     r = 350
     gen = torch.Generator(device=dev).manual_seed(0)
     id_sets = {"dense": torch.arange(r, device=dev),
@@ -2389,11 +2451,17 @@ def check_avail_rows(torch, dev):
             tt = torch.full((), t, dtype=torch.int64, device=dev)
             call = lambda: fn(tt, ids)
             ms, eager = graph_ms(torch, call), time_ms(call, reps=50)
-            b_ms, b_by = bound(16 * r + 8, THREEFRY_INT_OPS * ka.hashes(
-                kind, r, t % fn.config.horizon), INT32_OPS)
+            work = ka.hashes(kind, r, t % fn.config.horizon)
+            ops_ms, b_by = bound(16 * r + 8, work, rate)
+            if floor > ops_ms:
+                b_by = "latency"
+            f_ms, _ = bound(16 * r + 8, THREEFRY_INT_OPS * work, INT32_OPS)
             res[(kind, t)] = dict(ms=ms, eager_ms=eager,
                                   plain_ms=times[("dense", t)],
-                                  bound_ms=b_ms, bound_by=b_by)
+                                  bound_ms=max(ops_ms, floor), bound_by=b_by,
+                                  ops_ms=ops_ms, floor_ms=floor,
+                                  formula_bound_ms=f_ms,
+                                  share=100 * max(ops_ms, floor) / ms)
         up = float(fn(torch.full((), 5, dtype=torch.int64, device=dev),
                       ids)[0].mean())
         print(f"avail_rows {kind} (R={r}, dense and shuffled ids, t = 0, 5, "
@@ -2403,7 +2471,12 @@ def check_avail_rows(torch, dev):
                           f"{res[(kind, t)]['eager_ms']:.4f} eager, "
                           f"{res[(kind, t)]['plain_ms']:.3f} ms plain, bound "
                           f"{res[(kind, t)]['bound_ms']:.5f} ms "
-                          f"({res[(kind, t)]['bound_by']})"
+                          f"({res[(kind, t)]['bound_by']}; hashes at the "
+                          f"measured rate {res[(kind, t)]['ops_ms']:.5f}, "
+                          f"latency floor {floor:.5f}; "
+                          f"{res[(kind, t)]['share']:.1f}% in a graph), "
+                          "formula bound "
+                          f"{res[(kind, t)]['formula_bound_ms']:.5f}"
                           for t in (5, 4095))
               + "; library: none (no PyTorch call draws JAX's threefry "
               "bernoulli)", flush=True)
@@ -2413,7 +2486,11 @@ def check_avail_rows(torch, dev):
                 ms=worst["ms"], eager_ms=worst["eager_ms"],
                 plain_ms=worst["plain_ms"], bound_ms=worst["bound_ms"],
                 bound_by=worst["bound_by"], library_ms=None,
+                formula_bound_ms=worst["formula_bound_ms"], floor_ms=floor,
+                hash_rate=rate,
                 ms_t5={k: v["ms"] for (k, t), v in res.items() if t == 5},
+                ms_t4095={k: v["ms"] for (k, t), v in res.items()
+                          if t == 4095},
                 shape=f"R={r}, markov at t = 4095, per launch in a CUDA "
                       "graph (the headline); each schedule at t = 5 in "
                       "ms_t5")
@@ -2471,7 +2548,7 @@ def avail_host_vs_fused(torch, dev, extra: dict, avail) -> None:
                                           for rec in host), flush=True)
 
 
-def avail_phase(torch, dev) -> tuple[dict, dict]:
+def avail_phase(torch, dev, probe) -> tuple[dict, dict]:
     """The availability layer at full width and the paper's traffic:
     ``avail_rows`` against its plain version (:func:`check_avail_rows`);
     ``--avail markov --avail-up-prob 0.6 --sync bounded_async`` driven on
@@ -2486,7 +2563,7 @@ def avail_phase(torch, dev) -> tuple[dict, dict]:
     from repro_torch.data import AvailabilityConfig
 
     t0 = time.perf_counter()
-    entry = check_avail_rows(torch, dev)
+    entry = check_avail_rows(torch, dev, probe)
     rounds, iters, every = 2, 3, 2
     markov = AvailabilityConfig(schedule="markov", up_prob=0.6)
     # the library runs select blind, so that dark members are seated and
@@ -4538,7 +4615,7 @@ def main() -> None:
 
     kernels = [check_gbp_cs(torch, dev, probe), check_conv(torch, dev),
                check_agg(torch, dev), check_robust_agg(torch, dev),
-               check_topk_compress(torch, dev), check_int8(torch, dev),
+               check_topk_compress(torch, dev), check_int8(torch, dev, probe),
                check_corrupt_rows(torch, dev, probe),
                check_dirichlet_rows(torch, dev, probe)]
     torch.cuda.synchronize()
@@ -4658,7 +4735,7 @@ def main() -> None:
     # the availability layer (DESIGN.md §14): the trace through avail_rows,
     # markov churn under bounded-async sync on both engines, composed with
     # the robust and compressed paths in the smoke configurations
-    avail_counts, avail_entry = avail_phase(torch, dev)
+    avail_counts, avail_entry = avail_phase(torch, dev, probe)
     kernels.append(avail_entry)
 
     # the lazy population (DESIGN.md §17): a million devices on both

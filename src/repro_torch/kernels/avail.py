@@ -3,16 +3,17 @@ ids at internal iteration t, each device's effective up-mask (the latency
 deadline folded in) and its latency draw, under the ``bernoulli``,
 ``markov`` or ``straggler_tail`` schedule (``data.streaming.AvailFn``).
 
-:func:`avail_rows` is the CUDA kernel ``csrc/avail_rows.cu`` (one warp per
-id; the markov chain's steps split over the lanes, each step a map of the
-state bit, the lanes' maps composed by a warp reduction) for CUDA tensors
-and :func:`avail_rows_plain` for CPU tensors. Both read t from an int64
-tensor on the ids' device (a Python int is put there first), so a CUDA
-graph captures the call with t staged in its input buffer and one graph
-serves every iteration. Every draw is ``jax.random``'s, bit for bit: a
-device's key is ``fold_in(fold_in(k, id), t)`` (markov: ``fold_in(
-fold_in(k, id), s)`` for s = 0, the initial state, and s = 1 … t mod
-horizon), its number one threefry hash of the counter (0, 0).
+:func:`avail_rows` is the CUDA kernel ``csrc/avail_rows.cu`` (one block
+per id; the markov chain's steps split over 128 threads, each step a map
+of the state bit, the maps composed in step order: :func:`step_chunks`)
+for CUDA tensors and :func:`avail_rows_plain` for CPU tensors. Both read
+t from an int64 tensor on the ids' device (a Python int is put there
+first), so a CUDA graph captures the call with t staged in its input
+buffer and one graph serves every iteration. Every draw is
+``jax.random``'s, bit for bit: a device's key is ``fold_in(fold_in(k,
+id), t)`` (markov: ``fold_in(fold_in(k, id), s)`` for s = 0, the initial
+state, and s = 1 … t mod horizon), its number one threefry hash of the
+counter (0, 0).
 There is no Pallas kernel behind it: the JAX package draws the trace with
 ``jax.random.bernoulli``/``uniform`` under ``vmap`` in
 ``make_availability_fn``; the kernel is the port's own.
@@ -60,6 +61,25 @@ def _unit(keys: torch.Tensor, lo: float = 0.0, hi: float = 1.0
     """``jax.random.uniform(key, (), lo, hi)`` for each key of an int64
     key tensor (..., 2)."""
     return prng._uniform_from_bits(prng.random_bits_t(keys, ()), lo, hi)
+
+
+STEP_THREADS = 128        # markov: threads of steps an id (4 warps)
+STEP_GROUP = 2            # steps a thread hashes side by side
+
+
+def step_chunks(tm: int) -> list[tuple[int, int]]:
+    """The kernel's markov step plan at t mod horizon = ``tm``, in the order
+    the threads' maps compose (each chunk [s0, s1], none where s0 > s1): a
+    chain of tm < 32 steps on the writer's warp, lane s taking step s (lane
+    0 none); a longer one on the ``STEP_THREADS``, per = ceil(tm /
+    STEP_THREADS) steps each, ``STEP_GROUP`` at a time where per >=
+    STEP_GROUP. Each 32 chunks are one warp's."""
+    if tm < 32:
+        return [(lane, lane if 1 <= lane <= tm else lane - 1)
+                for lane in range(32)]
+    per = -(-tm // STEP_THREADS)
+    return [(1 + k * per, min(tm, (k + 1) * per))
+            for k in range(STEP_THREADS)]
 
 
 def hashes(kind: str, n: int, tm: int) -> int:

@@ -1,9 +1,10 @@
 """Stochastic int8 quantization of the rows of a flat (M, P) buffer, each
 row under its own threefry key (DESIGN.md §18.1).
 
-:func:`quantize` is the CUDA kernel ``csrc/int8_quant.cu`` (the row's
-NaN-propagating max-abs scale, then one pass that hashes each coordinate's
-counter with threefry-2x32 and rounds stochastically) for CUDA tensors and
+:func:`quantize` is the CUDA kernel ``csrc/int8_quant.cu`` (one launch
+that reads x once: each row's NaN-propagating max-abs scale behind a grid
+barrier, then threefry-2x32 of the counters of the coordinates whose draw
+can change their output, and the stochastic rounding) for CUDA tensors and
 :func:`quantize_plain` for CPU tensors. Both give, bit for bit, what the
 JAX package's ``core.compress.int8_quantize(row, key)`` computes on each
 row under ``jit``, as every JAX path calls it: XLA turns its division by
@@ -48,11 +49,18 @@ def quantize_plain(x: torch.Tensor, keys) -> torch.Tensor:
     (u < x/s − floor(x/s)), −127, 127)·s per row, s = max(max|x|·(1/127),
     1e-30), u the row key's ``uniform`` draw."""
     keys = _key_tensor(keys, x.shape[0], x.device)
+    return round_rows(x, prng.uniform_t(keys, (x.shape[1],)))
+
+
+def round_rows(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`quantize_plain`'s arithmetic on given uniforms u (M, P) in
+    [0, 1). A coordinate with ``!(y − floor(y) > 0)`` (a zero, an integer
+    y, a NaN y) comes out the same whatever its u: the kernel skips its
+    hash."""
     scale = torch.clamp_min(x.abs().amax(dim=1, keepdim=True) * INV_127,
                             1e-30)
     y = x / scale
     lo = torch.floor(y)
-    u = prng.uniform_t(keys, (x.shape[1],))
     q = lo + (u < y - lo).float()
     return torch.clamp(q, -127.0, 127.0) * scale
 
@@ -74,7 +82,8 @@ def quantize(x: torch.Tensor, keys) -> torch.Tensor:
     build.require(x, "x", (m, p), torch.float32, align=16)
     kt = keys.to(torch.int32).contiguous()   # the words' bits, wrapped
     out = torch.empty_like(x)
-    rowmax = torch.empty(m, dtype=torch.int32, device=x.device)
+    # each row's max bits, then the kernel's row barrier (zeroed there)
+    rowmax = torch.empty(m + 1, dtype=torch.int32, device=x.device)
     err = lib.int8_quant_f32(x.data_ptr(), kt.data_ptr(), out.data_ptr(),
                              rowmax.data_ptr(), m, p, build.stream(x))
     build.check(err, NAME)

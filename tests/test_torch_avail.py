@@ -122,6 +122,62 @@ def test_schedule_matches_reference(schedule):
     np.testing.assert_array_equal(lat.numpy(), np.asarray(jl))
 
 
+def _compose(f, g):
+    """The map g after the map f, each (f(0), f(1)) as bool tensors."""
+    return (torch.where(f[0], g[1], g[0]), torch.where(f[1], g[1], g[0]))
+
+
+def _compose_by_masks(maps):
+    """The kernel's composition of a warp's (or the block's) maps in
+    order: each is the identity, a flip or a constant; the last constant
+    sets the state and the flips after it toggle it."""
+    has = value = parity = torch.zeros_like(maps[0][0])
+    for f0, f1 in maps:
+        const = f0 == f1
+        has, value = has | const, torch.where(const, f0, value)
+        parity = torch.where(const, False, parity ^ (f0 & ~f1))
+    return (torch.where(has, value ^ parity, parity),
+            torch.where(has, value ^ parity, ~parity))
+
+
+@pytest.mark.parametrize("t", [0, 1, 31, 32, 33, 257, 300])
+def test_markov_step_partition_composes_to_the_chain(t):
+    """The kernel's markov plan emulated on the CPU: each thread's steps
+    (``avail.step_chunks``: the writer's warp below 32 steps, the step
+    warps above) composed in order, the 32 lanes' maps of each warp and
+    then the warps' maps by the kernel's rule (the last constant map, then
+    the parity of the flips after it), applied to the initial state: equal
+    to the plain version's serial chain, mask and latency bit for bit; the
+    rule equals composing map by map."""
+    fn = make_availability_fn(AvailabilityConfig(**AVAIL, schedule="markov"),
+                              3)
+    sched = fn.schedule
+    ids = torch.tensor([0, 5, 77, 2 ** 31 - 1])
+    base = avail.prng.fold_in_t(sched.key, ids)
+    ident = (torch.zeros(4, dtype=torch.bool), torch.ones(4, dtype=torch.bool))
+    us = avail._unit(avail.prng.fold_in_t(base, torch.arange(t + 1)[:, None]))
+    maps = []
+    for s0, s1 in avail.step_chunks(t):
+        f = ident
+        for u in us[s0:s1 + 1]:
+            f = _compose(f, (u < float(sched.p_du), u >= float(sched.p_ud)))
+        maps.append(f)
+    assert sum(max(0, s1 - s0 + 1) for s0, s1 in avail.step_chunks(t)) == t
+    warps = [_compose_by_masks(maps[w:w + 32])
+             for w in range(0, len(maps), 32)]
+    f = _compose_by_masks(warps)
+    serial = ident
+    for g in maps:
+        serial = _compose(serial, g)
+    assert all(torch.equal(a, b) for a, b in zip(f, serial))
+    up = torch.where(us[0] < float(sched.prob), f[1], f[0])
+    lat = avail._unit(avail.prng.fold_in_t(avail.prng.fold_in_t(
+        sched.k_lat, ids), t), 0.5, 1.5)
+    mask, ref_lat = avail.avail_rows_plain(ids, t, sched)
+    assert torch.equal((up & (lat <= float(sched.deadline))).float(), mask)
+    assert torch.equal(lat, ref_lat)
+
+
 def test_availability_config_validates():
     for bad, word in ((dict(schedule="flaky"), "schedule"),
                       (dict(up_prob=0.0), "up_prob"),

@@ -239,6 +239,45 @@ def test_int8_plain_propagates_nan_and_keeps_other_rows():
         x[1:], keys[1:])[0], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("density", [0.01, 0.001])
+def test_int8_draws_skipped_where_they_cannot_change_the_output(density):
+    """The kernel's skip rule on top-k rows with −0.0, exact integers after
+    scaling (a row whose max is 127, so its scale is 1), an inf row (all
+    NaN) and a NaN row: the plain arithmetic with every draw replaced
+    where !(y − floor(y) > 0), and with y = +0 at every zero (the
+    kernel's skipped division), gives the plain version's bits; only the
+    rows' fractional coordinates keep a draw."""
+    rng = np.random.default_rng(int(1 / density))
+    m, p = 5, 8_000
+    x = torch.from_numpy((rng.normal(size=(m, p)) ** 3).astype(np.float32))
+    x = topk_compress.select_plain(x, max(1, int(density * p)))
+    x[0, :64] = torch.from_numpy(rng.integers(-127, 128, 64).astype(
+        np.float32))
+    x[0, 0], x[0, 64:96] = 127.0, -0.0
+    x[1, 3], x[1, 5:9] = float("inf"), -0.0
+    x[2, 7] = float("nan")
+    x[3, ::5] = -0.0
+    keys = np.asarray(jax.random.split(jax.random.PRNGKey(p), m))
+    ref = int8_quant.quantize_plain(x, keys)
+    scale = torch.clamp_min(x.abs().amax(dim=1, keepdim=True)
+                            * int8_quant.INV_127, 1e-30)
+    y = x / scale
+    drawn = y - torch.floor(y) > 0
+    u = torch.from_numpy(rng.random((m, p), dtype=np.float32))
+    u = torch.where(drawn, int8_quant.prng.uniform_t(
+        torch.as_tensor(keys.astype(np.int64)), (p,)), u)
+    out = int8_quant.round_rows(x, u)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(scale[0], torch.ones(1))
+    y0 = torch.where(x == 0, torch.zeros(()), y)      # the skipped division
+    lo = torch.floor(y0)
+    q = torch.clamp(lo + (u < y0 - lo).float(), -127.0, 127.0) * scale
+    assert torch.equal(q[[0, 3, 4]].view(torch.int32),
+                       ref[[0, 3, 4]].view(torch.int32))
+    assert torch.isnan(q[1:3]).all() and torch.isnan(ref[1:3]).all()
+    assert int(drawn.sum()) < 3 * density * m * p + 64
+
+
 # ---------------------------------------------------------------- EF tree
 
 SHAPES = {"conv1": {"w": (5, 5, 1, 3), "b": (3,)},

@@ -172,6 +172,28 @@ def test_avail_rows_kernel_matches_plain(cuda, schedule):
         fn(0, big.reshape(1, -1))
 
 
+@pytest.mark.parametrize("r,horizon", [(1, 4096), (8, 7), (350, 4096),
+                                       (1000, 4096)])
+def test_avail_rows_kernel_steps_and_sizes(cuda, r, horizon):
+    """Every schedule bit for bit at t ∈ {0, 1, 31, 32, 33, 4,095, 4,096}
+    (the markov steps on one thread, one warp, and on every thread), a
+    horizon of 7, R = 1, 8, 350 and 1,000 ids up to 2³¹ − 1."""
+    from repro_torch.data import AvailabilityConfig, make_availability_fn
+    from repro_torch.kernels import avail
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    ids = torch.randint(0, 2 ** 31 - 1, (r,), generator=gen, device=cuda)
+    ids[0] = 2 ** 31 - 1
+    for schedule in avail.SCHEDULES:
+        fn = make_availability_fn(AvailabilityConfig(
+            schedule=schedule, up_prob=0.6, straggler_frac=0.3,
+            horizon=horizon), 0)
+        for t in (0, 1, 31, 32, 33, 4095, 4096):
+            mask, lat = fn(torch.tensor(t, device=cuda), ids)
+            ref = avail.avail_rows_plain(ids.cpu(), t, fn.schedule)
+            assert torch.equal(mask.cpu(), ref[0])
+            assert torch.equal(lat.cpu(), ref[1])
+
+
 def test_fused_avail_graph_replay_equals_eager(cuda):
     """Markov churn under ``bounded_async`` with the robust layer and
     compression, cadence 2 (two patterns): the graphs replay the eager
@@ -633,6 +655,62 @@ def test_int8_kernel_bit_equal_plain(cuda):
     with pytest.raises(ValueError):
         int8_quant.quantize(torch.ones(2, 6, device=cuda),
                             np.zeros((2, 2), np.uint32))
+
+
+def _int8_bits_equal(x, keys, nan_rows=()):
+    from repro_torch.kernels import int8_quant
+    dispatch.reset_launch_counts()
+    out = int8_quant.quantize(x, keys)
+    assert dispatch.launch_counts()["int8_quant"] == 1
+    ref = int8_quant.quantize_plain(x, keys)
+    rows = [r for r in range(x.shape[0]) if r not in nan_rows]
+    assert torch.equal(out[rows].view(torch.int32),
+                       ref[rows].view(torch.int32))
+    for r in nan_rows:                   # the card's NaN bits are its own
+        assert torch.isnan(out[r]).all() and torch.isnan(ref[r]).all()
+    return out
+
+
+@pytest.mark.parametrize("density", [0.01, 0.001])
+def test_int8_kernel_on_topk_rows(cuda, density):
+    """The internal link's input: top-k rows of the CNN's (10, 6,603,712)
+    gradient buffer at 1% and 0.1% density, bit for bit, twice (the row
+    barrier's scratch is zeroed by each call)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import topk_compress
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(10, 6_603_712, generator=gen, device=cuda) ** 3
+    x = topk_compress.select(x, int(density * 6_603_710))
+    keys = prng.split(prng.PRNGKey(5), 10)
+    assert torch.equal(_int8_bits_equal(x, keys), _int8_bits_equal(x, keys))
+
+
+@pytest.mark.parametrize("m,p", [(1, 4), (3, 4 * 1237), (2, 4 * 2_000_003),
+                                 (2, 8_000_000)])
+def test_int8_kernel_edges_and_shapes(cuda, m, p):
+    """Rows with −0.0, exact integers after scaling (max 127: scale 1),
+    an inf (the whole row NaN) and a NaN, at M = 1, P = 4, a P that leaves
+    a partial tile, and P past the blocks' shared memory (8,000,000: each
+    slice's tail is read from device memory twice); a dense row beside
+    them takes the in-place path. Bit-equal to the plain version, the NaN
+    rows NaN."""
+    from repro_torch.core import prng
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    x = torch.randn(m, p, generator=gen, device=cuda)
+    nan_rows = ()
+    if p >= 4 * 1237:
+        x[0, :300] = torch.randint(-127, 128, (300,), generator=gen,
+                                   device=cuda).float()
+        x[0, 0], x[0, 300:700] = 127.0, -0.0
+        x[0, 700:1100] = 0.0
+        x[1, 5], x[1, 7:40], x[1, 50:60] = float("inf"), 0.0, -0.0
+        nan_rows = (1,)
+        if m > 2:
+            x[2, 9], x[2, 100:200] = float("nan"), -0.0
+            nan_rows = (1, 2)
+    else:
+        x[0, :2] = torch.tensor([-0.0, 127.0])
+    _int8_bits_equal(x, prng.split(prng.PRNGKey(m), m), nan_rows)
 
 
 def test_compress_wrappers_count_launches(cuda):
