@@ -188,16 +188,22 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W); the int32
-# rate is the Hopper white paper's 64 INT32 lanes per SM x 132 SMs x the
-# 1.98 GHz boost clock that the FP32 peak assumes.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-INT32_OPS = 132 * 64 * 1.98e9
-# 32-bit integer operations of one threefry draw in csrc/int8_quant.cu:
-# counter add 1, 20 x (add, rotate, xor), 5 x 2 key-injection adds, the
-# output xor, the uniform's shift and or
-THREEFRY_INT_OPS = 1 + 20 * 3 + 5 * 2 + 1 + 2
+# The H100 SXM peaks: one table for the package and this script
+# (``repro_torch.launch.roofline_model.H100_SXM``, each entry with its
+# source). Without the package (the script alone) main() stops at its
+# first import of it.
+try:
+    from repro_torch.launch.roofline_model import H100_SXM, THREEFRY_INT_OPS
+    HBM_BYTES_PER_S = H100_SXM["hbm_bytes_per_s"]
+    FP32_FLOPS = H100_SXM["fp32_flops"]
+    INT32_OPS = H100_SXM["int32_ops"]
+except ImportError:
+    pass
+
+
+# times this run measured, by path (ms, best of the run's repeats), read
+# back by roofline_phase: it adds no run of its own
+MEASURED: dict[str, float] = {}
 
 
 def main_flags(rounds: int, iters: int, eval_every: int) -> list[str]:
@@ -279,9 +285,11 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_: float, ops: float, rate: float = FP32_FLOPS
+def bound(bytes_: float, ops: float, rate: float | None = None
           ) -> tuple[float, str]:
-    """Least time in ms: bytes over HBM's rate or ops over ``rate``."""
+    """Least time in ms: bytes over HBM's rate or ops over ``rate`` (the
+    FP32 peak by default)."""
+    rate = FP32_FLOPS if rate is None else rate
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
@@ -1869,16 +1877,22 @@ def sharded_rounds(torch, dev, mesh, rounds: int) -> tuple[dict, list]:
     from repro_torch import tree
     from repro_torch.core import dispatch
 
-    times = []
+    from repro_torch.launch.hlo_analysis import CollectiveTrace
+
+    times, ops = [], []
     all_reduce = dist.all_reduce
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def timed(tensor, *args, **kw):
+        # an eager break between graph segments, never inside a capture:
+        # the trace is on around the collective alone
         sync()
         t0 = time.perf_counter()
-        out = all_reduce(tensor, *args, **kw)
+        with CollectiveTrace() as trace:
+            out = all_reduce(tensor, *args, **kw)
         sync()
         times.append(time.perf_counter() - t0)
+        ops.extend([op["reduce"], op["bytes"]] for op in trace.ops)
         return out
 
     dist.all_reduce = timed
@@ -1887,8 +1901,9 @@ def sharded_rounds(torch, dev, mesh, rounds: int) -> tuple[dict, list]:
         exp, _ = fused_setup(torch, dev, {}, rounds, dev.type == "cuda",
                              mesh=mesh)
         state, secs, mets, coll_ms, coll_n = exp.init_state, [], [], [], []
+        coll_ops = []
         for r in range(rounds):
-            n0 = len(times)
+            n0, k0 = len(times), len(ops)
             sync()
             t0 = time.perf_counter()
             state, m = exp.round_fn(state, r)
@@ -1896,6 +1911,7 @@ def sharded_rounds(torch, dev, mesh, rounds: int) -> tuple[dict, list]:
             secs.append(time.perf_counter() - t0)
             coll_ms.append(1e3 * sum(times[n0:]))
             coll_n.append(len(times) - n0)
+            coll_ops.append(ops[k0:])
             mets.append({k: float(v) for k, v in m.items()})
         counts = dispatch.launch_counts()
     finally:
@@ -1903,7 +1919,7 @@ def sharded_rounds(torch, dev, mesh, rounds: int) -> tuple[dict, list]:
     segs = exp.round_fn.segments          # None in an eager run
     params = [leaf.cpu().numpy() for leaf in tree.leaves(exp.params_fn(state))]
     return dict(records=mets, secs=secs, coll_ms=coll_ms, coll_n=coll_n,
-                segments=len(segs.graphs) if segs else 0,
+                coll_ops=coll_ops, segments=len(segs.graphs) if segs else 0,
                 breaks=len(segs.breaks) if segs else 0,
                 captured=exp.round_fn.captured, counts=counts), params
 
@@ -1978,6 +1994,25 @@ def sharded_two_ranks(device: str = "cuda") -> list[tuple[dict, list]]:
     return out
 
 
+def check_sharded_collectives(rank: int, coll_ops: list, iters: int
+                              ) -> None:
+    """A rank's traced all_reduces per round against the formula: per
+    round one SUM of Eq. 5's flat buffer (``CNN_P4`` floats) and one SUM
+    of the packed metrics (T floats per metric); no MAX (the re-trigger's,
+    which only a GBP-CS cadence issues); round 0 also the eager warm-up
+    round's pair."""
+    for r, ops in enumerate(coll_ops):
+        pairs = 2 if r == 0 else 1
+        eq5 = [b for op, b in ops if op == "sum" and b == 4 * CNN_P4]
+        packed = [b for op, b in ops if op == "sum" and b != 4 * CNN_P4]
+        if len(ops) != 2 * pairs or len(eq5) != pairs or \
+                len(packed) != pairs or len(set(packed)) != 1 or \
+                packed[0] % (4 * iters) or any(op != "sum" for op, _ in ops):
+            fail(f"sharded path: rank {rank} round {r}: traced all_reduces "
+                 f"{ops}; want {pairs} x (SUM of {4 * CNN_P4} bytes, SUM "
+                 f"of the packed metrics), no MAX")
+
+
 def sharded_phase(torch, dev, host_expect) -> dict:
     """The group-sharded engine (DESIGN.md §8) at the paper's traffic and
     full width: the CLI with ``--engine sharded`` at world 1 (no process
@@ -2036,6 +2071,7 @@ def sharded_phase(torch, dev, host_expect) -> dict:
                 summary["coll_n"] != [4] + [2] * (SHARDED_ROUNDS - 1):
             fail(f"sharded path: rank {rank}: {summary['breaks']} graph "
                  f"breaks, collectives per round {summary['coll_n']}")
+        check_sharded_collectives(rank, summary["coll_ops"], iters)
         for a, b in zip(one["records"], summary["records"], strict=True):
             for k, v in a.items():
                 rec_worst = max(rec_worst, abs(b[k] - v) / max(1.0, abs(v)))
@@ -2061,6 +2097,16 @@ def sharded_phase(torch, dev, host_expect) -> dict:
           f"{[round(t, 2) for t in r0['coll_ms']]}, rank 1 "
           f"{[round(t, 2) for t in r1['coll_ms']]}; wrapper counts rank 0 "
           f"{r0['counts']}, rank 1 {r1['counts']}", flush=True)
+    if any(one["coll_ops"]):
+        fail(f"sharded path: world 1 issued collectives {one['coll_ops']}")
+    metrics = r0["coll_ops"][1][0][1]
+    print(f"sharded path: all_reduce a round on each rank, traced by "
+          f"hlo_analysis.CollectiveTrace around the eager breaks: 2 SUMs, "
+          f"Eq. 5's P4 x 4 = {4 * CNN_P4:,} bytes and the packed metrics' "
+          f"{metrics} bytes ({metrics // (4 * iters)} metrics x T = "
+          f"{iters} floats), no MAX (no re-trigger without a cadence); "
+          f"round 0 twice that (the warm-up round's and the capture's)",
+          flush=True)
     smoke_card_vs_cpu("sharded path", ["--engine", "sharded"])
     print(f"sharded phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"sharded": run, "sharded_rank0": r0["counts"],
@@ -3496,6 +3542,7 @@ def prefill(torch, label, cfg, fns, params, toks, launches: dict,
         forward()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
+    MEASURED[f"{label} prefill"] = min(walls)
     n_pos = sum(math.prod(x.shape[:2]) for x in batch.values())
     inputs = ", ".join(f"{name} {tuple(x.shape)}"
                        for name, x in batch.items())
@@ -4239,6 +4286,7 @@ TRAIN_PODS, TRAIN_ACCUM, TRAIN_LR = 2, 2, 0.1
 TRAIN_ITERS, TRAIN_ROUNDS = 2, 2  # T internal steps a round, R rounds
 TRAIN_CUT_LAYERS = 4              # the full-width comparisons, depth cut
 TRAIN_SMOKE_SHAPE = (4, 256)      # the smoke configs' card-vs-CPU step
+DRYRUN_TIMEOUT = 300              # seconds the dry run's child may take
 
 
 def ssd_bwd_work(bt, s, h, p, n) -> tuple[int, int]:
@@ -4465,6 +4513,7 @@ def train_path(torch, dev) -> dict:
     if counts != expect:
         fail(f"train {TRAIN_ARCH}: launch counts {counts} != {expect}")
     peak_gb = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+    MEASURED["train step"] = min(step_ms)
     if not losses[-1] < losses[0]:
         fail(f"train {TRAIN_ARCH}: the loss on the fixed batches did not "
              f"fall: {losses}")
@@ -4575,6 +4624,217 @@ def train_smoke_card_vs_cpu(torch, dev) -> None:
         fail("train: flash_attention under grad did not raise on the card")
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spmd_phase(torch, dev) -> dict:
+    """``train_path``'s step (mamba2-780m at full width and depth, two pods
+    x ``TRAIN_SHAPE``, ``grad_accum`` 2, remat) with every SPMD knob on
+    (``grad_pspecs`` + ``mesh``, ``act_sharding`` batch over 'data',
+    ``spmd_pod``) on DTensors laid out by ``launch.sharding`` over a
+    (pod, data, model) = (1, 1, 1) mesh of a world-1 NCCL group, against
+    the same step unsharded from the same weights and batches: params and
+    loss within 1e-6 of max(1, max |leaf|), the ``ssd_scan`` and
+    ``ssd_scan_bwd`` launch counts equal (the kernels run on the local
+    shards), ms of each step. Returns the sharded step's launch counts."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs, tree
+    from repro_torch.core import dispatch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import CollectiveTrace
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    one = build_params(torch, cfg, dev)
+    stacked = tree.map(lambda leaf: torch.stack([leaf] * TRAIN_PODS), one)
+    batch = pod_batch(torch, cfg, TRAIN_SHAPE, TRAIN_PODS, dev)
+    kw = dict(lr=TRAIN_LR, grad_accum=TRAIN_ACCUM, remat=True)
+    dispatch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref, ref_loss = steps.make_train_step(cfg, **kw)(stacked, batch)
+    torch.cuda.synchronize()
+    ref_ms = 1e3 * (time.perf_counter() - t1)
+    ref_counts = dispatch.launch_counts()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        pspecs = sh.param_pspecs(one, mesh)
+        del one
+        spec = configs.InputShape("train", TRAIN_SHAPE[1],
+                                  TRAIN_PODS * TRAIN_SHAPE[0], "train")
+        params = sh.distribute(stacked, sh.stack_pspecs_for_pods(pspecs,
+                                                                 mesh), mesh)
+        del stacked
+        dbatch = sh.distribute(batch, sh.batch_pspecs(cfg, spec, mesh), mesh)
+        step = steps.make_train_step(
+            cfg, **kw, grad_pspecs=pspecs, mesh=mesh,
+            act_sharding=sh.NamedSharding(mesh, ("data", None, None)),
+            spmd_pod=True)
+        dispatch.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with CollectiveTrace() as trace:
+            new, loss = step(params, dbatch)
+        torch.cuda.synchronize()
+        spmd_ms = 1e3 * (time.perf_counter() - t1)
+        counts = dispatch.launch_counts()
+        err = max([leaf_err(a.to_local(), b) for a, b in zip(
+            tree.leaves(new), tree.leaves(ref))]
+            + [leaf_err(loss, ref_loss)])
+    finally:
+        dist.destroy_process_group()
+    L = cfg.num_layers
+    expect = expect_only(ssd_scan=2 * L * TRAIN_ACCUM * TRAIN_PODS,
+                         ssd_scan_bwd=L * TRAIN_ACCUM * TRAIN_PODS)
+    if counts != ref_counts or counts != expect:
+        fail(f"spmd: launch counts {counts}, unsharded {ref_counts}, "
+             f"formula {expect}")
+    if not err <= 1e-6:
+        fail(f"spmd: the sharded step differs from the unsharded one by "
+             f"{err} of max(1, max |leaf|) (tol 1e-6)")
+    print(f"spmd {TRAIN_ARCH}: one train step (full width and depth, "
+          f"{TRAIN_PODS} pods x {TRAIN_SHAPE}, ga {TRAIN_ACCUM}, remat) with "
+          f"grad_pspecs + mesh, act_sharding and spmd_pod on a (1, 1, 1) "
+          f"NCCL mesh of DTensors: params and loss within {err:.3g} of the "
+          f"unsharded step's (tol 1e-6); launches ssd_scan "
+          f"{counts['ssd_scan']}, ssd_scan_bwd {counts['ssd_scan_bwd']} = "
+          f"the unsharded step's; {len(trace.ops)} collectives traced; "
+          f"{spmd_ms:.1f} ms (unsharded {ref_ms:.1f} ms, host clock, "
+          "synchronised)", flush=True)
+    del params, dbatch, new, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def build_params(torch, cfg, dev):
+    """``cfg``'s params from a CUDA ``torch.Generator`` seeded 0 (the
+    weights ``train_path`` trains)."""
+    from repro_torch.models import build
+    return build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def roofline_phase() -> dict:
+    """The analytic FLOPs and bytes (``launch.roofline_model``) of the LM
+    runs this script timed, at the card's shapes: the granite-3-2b and
+    mamba2-780m prefills and the mamba2-780m train step (its two pods'
+    batches as one global batch, ``grad_accum`` 2, remat). Bytes at the
+    port's f32 weights and activations; t_compute at the FP32 peak (the
+    port's strict f32), t_memory at HBM's rate, and the measured time's
+    share of the larger. No run of its own: it reads ``MEASURED``."""
+    from repro_torch import configs
+    from repro_torch.launch import roofline_model as rm
+
+    rows = (("lm prefill", LM_ARCH, configs.InputShape(
+                "prefill", PREFILL_LEN, PREFILL_BATCH, "prefill"), 1),
+            (f"{SSM_ARCH} prefill", SSM_ARCH, configs.InputShape(
+                "prefill", SSM_PREFILL[1], SSM_PREFILL[0], "prefill"), 1),
+            ("train step", TRAIN_ARCH, configs.InputShape(
+                "train", TRAIN_SHAPE[1], TRAIN_PODS * TRAIN_SHAPE[0],
+                "train"), TRAIN_ACCUM))
+    out = {}
+    for label, arch, shape, ga in rows:
+        cfg = configs.get_config(arch)
+        flops = rm.step_flops(cfg, shape)
+        hbm = rm.step_bytes(cfg, shape, grad_accum=ga,
+                            act_bytes=rm.FP32)["total"]
+        t_c = flops["ideal"] / rm.peak_flops("fp32") * 1e3
+        t_m = hbm / rm.H100_SXM["hbm_bytes_per_s"] * 1e3
+        ms = MEASURED[label]
+        out[label] = dict(flops=flops["ideal"], flops_xla=flops[
+            "xla_fallback"], hbm_bytes=hbm, t_compute_ms=t_c,
+            t_memory_ms=t_m, measured_ms=ms, share=max(t_c, t_m) / ms)
+        print(f"roofline {label} ({arch}, {shape.global_batch} x "
+              f"{shape.seq_len}{', ga %d, remat' % ga if ga > 1 else ''}): "
+              f"{flops['ideal']:.4g} FLOP (masked {flops['xla_fallback']:.4g}"
+              f"), {hbm:.4g} bytes at f32; t_compute {t_c:.2f} ms at 67 "
+              f"TFLOP/s FP32, t_memory {t_m:.2f} ms at 3.35 TB/s; measured "
+              f"{ms:.1f} ms = {100 * max(t_c, t_m) / ms:.1f}% of the "
+              "roofline", flush=True)
+    return out
+
+
+DRYRUN_COMBOS = (("granite-8b", "train_4k", False),
+                 ("mamba2-780m", "train_4k", True),
+                 ("granite-3-2b", "decode_32k", False))
+
+
+def dryrun_child(out: str) -> None:
+    """The child process of :func:`dryrun_phase`: ``DRYRUN_COMBOS`` on the
+    meta device in fake worlds of 256 and 512 ranks; their artifacts to
+    ``out`` as one JSON object."""
+    import torch
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    res = {}
+    for arch, shape, multi in DRYRUN_COMBOS:
+        res[f"{arch} {shape} {'2x16x16' if multi else '16x16'}"] = \
+            dryrun.lower_combo(arch, shape, multi_pod=multi, verbose=False)
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def start_dryrun():
+    """:func:`dryrun_child` in a child process (its fake process group
+    never meets this process's NCCL one), on the CPU, after the timed
+    phases: (process, output path)."""
+    out = os.path.join(ROOT, "build", "dryrun_phase.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--dryrun-child", out],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out
+
+
+def dryrun_phase(proc, out: str) -> dict:
+    """The dry run's results (:func:`start_dryrun`): each combo's
+    collective bytes by type and count, Eq. 5's, and this rank's argument
+    and output bytes; the child's wall seconds."""
+    try:
+        log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"dryrun: the child outlasted {DRYRUN_TIMEOUT} s")
+    if proc.returncode != 0 or not os.path.exists(out):
+        fail(f"dryrun: the child failed:\n{log[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    for tag, r in res.items():
+        coll = r["roofline"]["collective_bytes"]
+        if coll["count"] <= 0 or coll["all-gather"] <= 0:
+            fail(f"dryrun {tag}: no collective recorded: {coll}")
+        ext = r.get("external_sync_collective_bytes")
+        print(f"dryrun {tag} (meta device, fake world of {r['chips']}): "
+              f"{coll['count']} collectives on rank 0, bytes "
+              + ", ".join(f"{k} {v:.4g}" for k, v in coll.items()
+                          if k != "count" and v)
+              + (f"; Eq. 5 {ext['all-reduce']:.4g} bytes in "
+                 f"{ext['count']} all-reduce" if ext else "")
+              + f"; per rank: arguments "
+              f"{r['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f} "
+              f"GB, outputs "
+              f"{r['memory_analysis']['output_size_in_bytes'] / 1e9:.3f} GB;"
+              f" t_compute {r['roofline']['t_compute_s'] * 1e3:.2f} ms, "
+              f"t_memory {r['roofline']['t_memory_s'] * 1e3:.2f} ms, "
+              f"t_collective {r['roofline']['t_collective_s'] * 1e3:.2f} ms "
+              f"at the H100 peaks ({r['roofline']['bottleneck']}); run "
+              f"{r['lower_s']} s", flush=True)
+    return res
+
+
 def train_phase(torch, dev) -> tuple[dict, dict]:
     """LM training (the FEDGS pod train step): the ssd_scan backward
     against its plain version, mamba2-780m trained at full width and
@@ -4582,6 +4842,7 @@ def train_phase(torch, dev) -> tuple[dict, dict]:
     t_phase = time.perf_counter()
     entry = check_ssd_scan_bwd(torch, dev)
     counts = train_path(torch, dev)
+    counts = {"train": counts, "train_spmd": spmd_phase(torch, dev)}
     train_cut_checks(torch, dev)
     train_smoke_card_vs_cpu(torch, dev)
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -4828,6 +5089,14 @@ def main() -> None:
     kernels.append(bwd_entry)
     print(f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
 
+    # the roofline shares of the LM runs timed above, and the meta-device
+    # dry run's collectives: its child starts after the last timed phase,
+    # so that its CPU load overlaps no timed run
+    dryrun_proc = start_dryrun()
+    roofline_phase()
+    dryrun_phase(*dryrun_proc)
+    print(f"{time.perf_counter() - t0:.1f} s since the start", flush=True)
+
     for k in kernels:
         by_path = {"main": main_counts[k["name"]],
                    "robust": robust_counts[k["name"]],
@@ -4854,7 +5123,8 @@ def main() -> None:
         by_path.update({"vlm": vlm_counts[k["name"]],
                         "encdec": encdec_counts[k["name"]],
                         "encdec_cross": encdec_cross_counts[k["name"]],
-                        "train": train_counts[k["name"]]})
+                        "train": train_counts["train"][k["name"]],
+                        "train_spmd": train_counts["train_spmd"][k["name"]]})
         k["launches"] = next((v for v in by_path.values() if v), 0)
         k["launches_by_path"] = by_path
         if k["name"] in base_kernels:
@@ -4868,4 +5138,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        dryrun_child(sys.argv[2])
+    else:
+        main()

@@ -3,7 +3,9 @@ JAX package's ``core.dispatch`` / ``op_modes()``).
 
 The tensor's device decides: a CPU tensor runs the op's plain PyTorch
 version, a CUDA tensor runs the hand-written kernel (or the wrapper raises).
-There is no backend switch and no fallback.
+A meta tensor (the dry run's) takes the plain version's shape arithmetic
+in the wrappers that a model or the train step reaches. There is no
+backend switch and no fallback.
 
 | op | kernel (CUDA tensors) | plain version (CPU tensors) |
 |---|---|---|

@@ -31,10 +31,16 @@ def agg_plain(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 
 def agg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Σ_k w_k X_k: kernel on the card (P % 4 == 0), plain on CPU."""
+    """Σ_k w_k X_k: kernel on the card (P % 4 == 0), plain on CPU; on
+    meta tensors the plain version's shape arithmetic (the dry run's
+    Eq. 5)."""
     build.refuse_grad(NAME, stacked, weights)
-    if stacked.device.type == "cpu":
+    if stacked.device.type in ("cpu", "meta"):
         return agg_plain(stacked, weights)
+    if stacked.device.type != "cuda":
+        raise ValueError(f"agg_weighted: tensors on {stacked.device}; the "
+                         "kernel takes CUDA tensors, the plain version CPU "
+                         "ones")
     lib = build.library()
     k, p = stacked.shape
     if p % 4 or p == 0:

@@ -11,7 +11,10 @@ launches ``csrc/flash_attention.cu`` (one CTA per (q tile of 64 rows, or
 128 at D = 112, q head, batch); the kv loop runs inside the CTA over the
 64-key tiles the masks reach, double-buffered by cp.async);
 for CPU tensors it runs :func:`attention_plain`, the plain version of the
-JAX package's ``kernels/flash_attention/ref.py``. Query head h reads kv
+JAX package's ``kernels/flash_attention/ref.py``, and for meta tensors
+that plain version's shape arithmetic (the dry run's route; a meta tensor
+has no data; ``models.attention.attend`` hands it the local shards of
+DTensors, ``kernels.shards.attention``). Query head h reads kv
 head ``h // (H / KV)``. Masked scores are ``NEG_INF = -1e30`` (not −inf),
 as in the Pallas kernel, so a row whose keys are all masked in one tile
 takes ``exp(0)`` there and the first unmasked key wipes those terms out.
@@ -93,11 +96,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq != sk and (causal or window is not None):
         raise ValueError(f"flash_attention: Sq={sq} != Sk={sk} takes no "
                          "mask (causal=False, window=None)")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         out = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window)
         return out.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: tensors on {q.device}; the "
+                         "kernel takes CUDA tensors, the plain version CPU "
+                         "ones")
     return _launch(q, k, v, causal, window)
 
 

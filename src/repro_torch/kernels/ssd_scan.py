@@ -25,9 +25,11 @@ counted again.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from . import build, ssd_scan_bwd
+from . import build, shards, ssd_scan_bwd
 
 NAME = "ssd_scan"
 SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
@@ -82,14 +84,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
              ) -> torch.Tensor:
     """y (Bt, S, H, P) of the SSD scan from a zero state: the kernel for
-    CUDA tensors, :func:`ssd_scan_plain` for CPU tensors."""
+    CUDA tensors, :func:`ssd_scan_plain` for CPU tensors, and for meta
+    tensors the plain version's shape arithmetic (a meta tensor has no
+    data; the dry run's route). DTensors run shard by shard where the
+    batch or the heads are sharded (``kernels.shards.call``), the backward
+    too."""
+    if shards.is_dtensor(x):
+        return shards.call(NAME, functools.partial(ssd_scan, chunk=chunk),
+                           (x, dt, A, B, C), ((0, 2), (0, 2), (None, 0),
+                                              (0, None), (0, None)), (0, 2))
     s = x.shape[1]
     chunk = min(chunk, s)
     if chunk < 1 or s % chunk:
         raise ValueError(f"ssd_scan: S={s} must be a multiple of "
                          f"chunk={chunk}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: tensors on {x.device}; the kernel "
+                         "takes CUDA tensors, the plain version CPU ones")
     return Scan.apply(x, dt, A, B, C, chunk)
 
 

@@ -22,9 +22,12 @@ is the same dict.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels import flash_attention as fa
+from ..kernels import shards
 from .layers import (apply_rope, init_linear, init_rmsnorm, linear,
                      rmsnorm, split, sqrt_f32)
 
@@ -180,7 +183,14 @@ def attend(q, k, v, *, causal=True, window=None, impl="auto",
     """Dispatch: 'naive' | 'blockwise' | 'local' | 'pallas' | 'auto' (the
     JAX package's rule: ``local`` for a window shorter than Sq = Sk, a
     multiple of ``block_q``; else ``blockwise`` past 2048 tokens when both
-    lengths are multiples of the blocks; else ``naive``)."""
+    lengths are multiples of the blocks; else ``naive``). DTensor operands
+    are attended shard by shard over the batch and the heads
+    (``kernels.shards.attention``), as SPMD partitions the attention."""
+    if shards.is_dtensor(q):
+        return shards.attention("attend", functools.partial(
+            attend, causal=causal, window=window, impl=impl,
+            block_q=block_q, block_k=block_k), shards.settle(q, (0, 2)),
+            k, v)
     if impl == "auto":
         s = max(q.shape[1], k.shape[1])
         if window is not None and q.shape[1] == k.shape[1] \
@@ -210,16 +220,16 @@ def gqa_forward(p: dict, x, positions, cfg, *, causal=True, window=None,
     used as they are, and q is not rotated (as in the JAX package)."""
     b, s, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(b, s, H, hd)
+    q = shards.split_heads(linear(p["wq"], x), H, hd)
     if kv_override is None:
-        k = linear(p["wk"], x).reshape(b, s, KV, hd)
-        v = linear(p["wv"], x).reshape(b, s, KV, hd)
+        k = shards.split_heads(linear(p["wk"], x), KV, hd)
+        v = shards.split_heads(linear(p["wv"], x), KV, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     else:
         k, v = kv_override
     out = attend(q, k, v, causal=causal, window=window, impl=impl)
-    return linear(p["wo"], out.reshape(b, s, H * hd))
+    return linear(p["wo"], shards.merge_heads(out))
 
 
 def mla_forward(p: dict, x, positions, cfg, *, causal=True, window=None,
@@ -228,17 +238,17 @@ def mla_forward(p: dict, x, positions, cfg, *, causal=True, window=None,
     hd + dr (the rope part of k one head, broadcast), v of hd."""
     b, s, _ = x.shape
     H, hd, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
-    q = linear(p["wq"], x).reshape(b, s, H, hd + dr)
+    q = shards.split_heads(linear(p["wq"], x), H, hd + dr)
     qn, qr = q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta)
     c = rmsnorm(p["kv_norm"], linear(p["w_dkv"], x))             # (B,S,r)
-    kr = apply_rope(linear(p["w_kr"], x).reshape(b, s, 1, dr),
+    kr = apply_rope(shards.split_heads(linear(p["w_kr"], x), 1, dr),
                     positions, cfg.rope_theta)                   # one head
-    kn = linear(p["w_uk"], c).reshape(b, s, H, hd)
-    v = linear(p["w_uv"], c).reshape(b, s, H, hd)
+    kn = shards.split_heads(linear(p["w_uk"], c), H, hd)
+    v = shards.split_heads(linear(p["w_uv"], c), H, hd)
     qf = torch.cat([qn, qr], dim=-1)
     kf = torch.cat([kn, kr.expand(b, s, H, dr)], dim=-1)
     out = attend(qf, kf, v, causal=causal, window=window, impl=impl)
-    return linear(p["wo"], out.reshape(b, s, H * hd))
+    return linear(p["wo"], shards.merge_heads(out))
 
 
 def attention_forward(p, x, positions, cfg, **kw):
@@ -274,9 +284,9 @@ def gqa_decode(p: dict, x, cache: dict, pos: int, cfg, *,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pos = int(pos)
     cap = cache["k"].shape[1]
-    q = linear(p["wq"], x).reshape(b, 1, H, hd)
-    k = linear(p["wk"], x).reshape(b, 1, KV, hd)
-    v = linear(p["wv"], x).reshape(b, 1, KV, hd)
+    q = shards.split_heads(linear(p["wq"], x), H, hd)
+    k = shards.split_heads(linear(p["wk"], x), KV, hd)
+    v = shards.split_heads(linear(p["wv"], x), KV, hd)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -284,16 +294,29 @@ def gqa_decode(p: dict, x, cache: dict, pos: int, cfg, *,
     start = min(max(slot, 0), cap - 1)
     cache["k"][:, start] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, start] = v[:, 0].to(cache["v"].dtype)
-    kc, vc = cache["k"], cache["v"]
-    qg = _group_heads(q, KV)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kc.float()) \
-        / sqrt_f32(hd, x.device)
-    s = torch.where(_valid_slots(cap, slot, pos, windowed, x.device), s,
-                    NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", pr, vc.float())
+    core = functools.partial(
+        _decode_core, valid=_valid_slots(cap, slot, pos, windowed, x.device))
+    if shards.is_dtensor(q):
+        out = shards.attention("gqa_decode", core, shards.settle(q, (0, 2)),
+                               cache["k"], cache["v"])
+    else:
+        out = core(q, cache["k"], cache["v"])
     out = out.reshape(b, 1, H * hd).to(x.dtype)
     return linear(p["wo"], out), cache
+
+
+def _decode_core(q, kc, vc, *, valid):
+    """One query token (B, 1, H, hd) over the cache (B, C, KV, hd): f32
+    scores over √hd, the slots outside ``valid`` masked, softmax, the
+    values' f32 average, (B, 1, H, hd). DTensor operands run it shard by
+    shard over the batch and the heads (``kernels.shards.attention``)."""
+    b, _, h, hd = q.shape
+    qg = _group_heads(q, kc.shape[2])
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kc.float()) \
+        / sqrt_f32(hd, q.device)
+    pr = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", pr, vc.float()).reshape(
+        b, 1, h, hd)
 
 
 def _valid_slots(cap: int, slot: int, pos: int, windowed: bool, device):
@@ -319,11 +342,11 @@ def mla_decode(p: dict, x, cache: dict, pos: int, cfg, *,
     r = cfg.kv_lora_rank
     pos = int(pos)
     cap = cache["c"].shape[1]
-    q = linear(p["wq"], x).reshape(b, 1, H, hd + dr)
+    q = shards.split_heads(linear(p["wq"], x), H, hd + dr)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     qn, qr = q[..., :hd], apply_rope(q[..., hd:], posv, cfg.rope_theta)
     c_new = rmsnorm(p["kv_norm"], linear(p["w_dkv"], x))         # (B,1,r)
-    kr_new = apply_rope(linear(p["w_kr"], x).reshape(b, 1, 1, dr), posv,
+    kr_new = apply_rope(shards.split_heads(linear(p["w_kr"], x), 1, dr), posv,
                         cfg.rope_theta).reshape(b, 1, dr)
     slot = pos % cap if windowed else pos
     start = min(max(slot, 0), cap - 1)

@@ -24,11 +24,11 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import shards
 from . import attention as attn
 from .layers import (cross_entropy_loss, embed, init_embedding, init_mlp,
                      init_rmsnorm, linear, mlp, rmsnorm, split, unembed)
-from .transformer import (_index, _init_stack, layer_call, refuse_sharding,
-                          unstack)
+from .transformer import _index, _init_stack, layer_call, pinner, unstack
 
 
 def init_encdec(cfg, key, device="cuda") -> dict:
@@ -80,20 +80,23 @@ def encode(cfg, params: dict, frames: torch.Tensor, *,
            act_sharding=None) -> torch.Tensor:
     """Bidirectional encoder over precomputed frame embeddings (B, S_enc,
     d) -> the normed encoder output (B, S_enc, d). ``remat``: each layer
-    under a checkpoint."""
-    refuse_sharding(act_sharding=act_sharding)
-    x = frames.to(cfg.compute_dtype)
-    positions = _positions(x)
+    under a checkpoint; ``act_sharding`` pins the residual stream at every
+    layer boundary (``transformer.pinner``)."""
+    pin = pinner(act_sharding)
+    with shards.replicate_constants(params, frames):
+        x = pin(frames.to(cfg.compute_dtype))
+        positions = _positions(x)
 
-    def layer(p, h):
-        h = h + attn.attention_forward(
-            p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), positions, cfg,
-            causal=False, impl=attn_impl)
-        return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+        def layer(p, h):
+            h = pin(h)
+            h = h + attn.attention_forward(
+                p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), positions,
+                cfg, causal=False, impl=attn_impl)
+            return pin(h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps)))
 
-    for p in unstack(params["encoder"], cfg.num_layers):
-        x = layer_call(remat, layer, p, x)
-    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+        for p in unstack(params["encoder"], cfg.num_layers):
+            x = layer_call(remat, layer, p, x)
+        return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _cross_kv(cfg, p: dict, enc_out: torch.Tensor):
@@ -101,8 +104,8 @@ def _cross_kv(cfg, p: dict, enc_out: torch.Tensor):
     output, unrotated."""
     b, s, _ = enc_out.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    return (linear(p["wk"], enc_out).reshape(b, s, KV, hd),
-            linear(p["wv"], enc_out).reshape(b, s, KV, hd))
+    return (shards.split_heads(linear(p["wk"], enc_out), KV, hd),
+            shards.split_heads(linear(p["wv"], enc_out), KV, hd))
 
 
 def decode_train(cfg, params: dict, tokens: torch.Tensor,
@@ -111,25 +114,28 @@ def decode_train(cfg, params: dict, tokens: torch.Tensor,
                  act_sharding=None) -> torch.Tensor:
     """Teacher-forced decoder forward: tokens (B, S_dec) over the encoder
     output -> logits (B, S_dec, padded_vocab). ``remat``: each layer under
-    a checkpoint."""
-    refuse_sharding(act_sharding=act_sharding)
-    x = embed(params["embed"], tokens, cfg.compute_dtype)
-    positions = _positions(x)
+    a checkpoint; ``act_sharding`` pins the residual stream at every layer
+    boundary (``transformer.pinner``)."""
+    pin = pinner(act_sharding)
+    with shards.replicate_constants(params, tokens, enc_out):
+        x = pin(embed(params["embed"], tokens, cfg.compute_dtype))
+        positions = _positions(x)
 
-    def layer(p, h):
-        h = h + attn.attention_forward(
-            p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), positions, cfg,
-            causal=True, window=window, impl=attn_impl)
-        h = h + attn.gqa_forward(
-            p["xattn"], rmsnorm(p["ln_x"], h, cfg.norm_eps), positions, cfg,
-            causal=False, impl=attn_impl,
-            kv_override=_cross_kv(cfg, p["xattn"], enc_out))
-        return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps))
+        def layer(p, h):
+            h = pin(h)
+            h = h + attn.attention_forward(
+                p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps), positions,
+                cfg, causal=True, window=window, impl=attn_impl)
+            h = h + attn.gqa_forward(
+                p["xattn"], rmsnorm(p["ln_x"], h, cfg.norm_eps), positions,
+                cfg, causal=False, impl=attn_impl,
+                kv_override=_cross_kv(cfg, p["xattn"], enc_out))
+            return pin(h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps)))
 
-    for p in unstack(params["decoder"], cfg.num_layers):
-        x = layer_call(remat, layer, p, x)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["lm_head"], x)
+        for p in unstack(params["decoder"], cfg.num_layers):
+            x = layer_call(remat, layer, p, x)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(params["lm_head"], x)
 
 
 def forward(cfg, params: dict, batch: dict, *, window: int | None = None,
@@ -148,9 +154,10 @@ def forward(cfg, params: dict, batch: dict, *, window: int | None = None,
 def encdec_loss(cfg, params: dict, batch: dict, **kw) -> torch.Tensor:
     """Mean next-token cross-entropy of the decoder's logits (positions
     :-1 against ``batch["labels"]`` at 1:, the padded vocab masked)."""
-    logits = forward(cfg, params, batch, **kw)
-    return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
-                              valid_vocab=cfg.vocab_size)
+    with shards.replicate_constants(params, batch):
+        logits = forward(cfg, params, batch, **kw)
+        return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                                  valid_vocab=cfg.vocab_size)
 
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *,
@@ -192,6 +199,11 @@ def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,
     """One-token decode: tokens (B, 1) at position ``pos`` -> (logits
     (B, 1, padded_vocab), the cache, its self-attention K/V updated in
     place)."""
+    with shards.replicate_constants(params, cache, tokens):
+        return _decode_step(cfg, params, cache, tokens, pos, windowed)
+
+
+def _decode_step(cfg, params, cache, tokens, pos, windowed):
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     b = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
@@ -203,9 +215,10 @@ def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,
         x = x + a_out
         # cross attention: one unrotated query over the cached encoder K/V
         q = linear(p["xattn"]["wq"],
-                   rmsnorm(p["ln_x"], x, cfg.norm_eps)).reshape(b, 1, H, hd)
-        out = attn.naive_attention(q, cache["cross_k"][i],
-                                   cache["cross_v"][i], causal=False)
+                   rmsnorm(p["ln_x"], x, cfg.norm_eps))
+        q = shards.split_heads(q, H, hd)
+        out = attn.attend(q, cache["cross_k"][i], cache["cross_v"][i],
+                          causal=False, impl="naive")
         x = x + linear(p["xattn"]["wo"], out.reshape(b, 1, H * hd))
         x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

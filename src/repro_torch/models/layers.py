@@ -17,12 +17,17 @@ import torch
 import torch.nn.functional as F
 
 from ..core import prng
+from ..kernels import shards
 
 
 def normal(key, shape: tuple, device) -> torch.Tensor:
     """A standard normal draw of ``shape`` on ``device``: ``key`` is a
     threefry key (``core.prng.PRNGKey``; the JAX package's exact numbers)
-    or a ``torch.Generator`` (drawn on the generator's device)."""
+    or a ``torch.Generator`` (drawn on the generator's device). On the
+    meta device it draws nothing: an empty meta tensor of ``shape`` (the
+    dry run's parameters, shapes without data)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), device="meta")
     if isinstance(key, torch.Generator):
         return torch.randn(shape, generator=key,
                            device=key.device).to(device)
@@ -121,10 +126,14 @@ def init_embedding(key, vocab: int, d: int, device,
 
 
 def embed(p: dict, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The table's rows at ``tokens``. ``F.embedding`` rather than an index:
+    on DTensors torch 2.11's rule for the index's backward builds an
+    unnormalised shard dim; a vocab-sharded table gives masked partial rows,
+    summed here."""
     t = p["table"]
     if dtype is not None:
         t = t.to(dtype)
-    return t[tokens.long()]
+    return shards.reduce_partial(F.embedding(tokens.long(), t))
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import shards
 from .layers import he_init, init_mlp, mlp, split
 
 
@@ -58,7 +59,8 @@ def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
     """Switch aux loss: E · Σ_e (share of slots to e)·(mean prob of e)."""
     me = probs.mean(dim=0)                                       # (E,)
     flat = expert_idx.reshape(-1)
-    counts = torch.zeros(n_experts, device=probs.device).index_add_(
+    # out of place: a DTensor ``flat`` cannot scatter into a plain buffer
+    counts = torch.zeros(n_experts, device=probs.device).index_add(
         0, flat, torch.ones(flat.shape, device=probs.device))
     ce = counts / counts.sum().clamp(min=1.0)
     return n_experts * (me * ce).sum()
@@ -140,8 +142,17 @@ def moe_dense(p: dict, x: torch.Tensor, cfg
 
 def moe_forward(p: dict, x: torch.Tensor, cfg, *, decode: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dense form for decode or fewer than 4·E tokens, else dispatch."""
+    """The dense form for decode or fewer than 4·E tokens, else dispatch.
+    On DTensors the dense form runs; the dispatch raises: its scatter and
+    combine (``aten.index_add_``) address the global token ids, which a
+    token-sharded batch splits over the ranks (ROADMAP item 19.5)."""
     n_tokens = x.numel() // cfg.d_model
     if decode or n_tokens < 4 * cfg.n_experts:
         return moe_dense(p, x, cfg)
+    if shards.is_dtensor(x):
+        raise NotImplementedError(
+            "moe_dispatch on DTensors: aten.index_add_ (the capacity "
+            "dispatch's scatter into the (E·cap, d) buffer and its combine) "
+            "addresses global token ids that a token-sharded batch splits "
+            "over the ranks; not ported to DTensors (ROADMAP item 19.5)")
     return moe_dispatch(p, x, cfg)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import shards
 from ..kernels import ssd_scan as kssd
 from .layers import he_init, init_rmsnorm, normal, rmsnorm, split
 
@@ -60,9 +61,12 @@ def init_mamba_block(key, cfg, device, *, dtype=None) -> dict:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. x (B,S,C), w (W,C)."""
+    """Depthwise causal conv1d. x (B,S,C), w (W,C). The zeros in front go
+    by a cat, not ``F.pad``: torch 2.11's DTensor pad rule returns one
+    placement for a 2-axis mesh."""
     W = w.shape[0]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = torch.cat([torch.zeros(x.shape[0], W - 1, x.shape[2],
+                                dtype=x.dtype, device=x.device), x], 1)
     out = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
               for i in range(W))
     return out + b[None, None, :]
@@ -117,8 +121,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # per-chunk new-state contribution: Σ_j exp(cum_Q − cum_j) B_j ⊗ dt_j x_j
     decay_state = torch.exp(cum[..., -1:] - cum)          # (bt,nc,H,Q)
-    states = torch.einsum("bchj,bcjn,bcjhp->bchnp",
-                          decay_state, Br, xd)            # (bt,nc,H,N,P)
+    # jnp.einsum promotes its operands (bf16 B beside f32 factors)
+    states = torch.einsum("bchj,bcjn,bcjhp->bchnp", decay_state,
+                          Br.to(torch.promote_types(Br.dtype, xd.dtype)),
+                          xd)                             # (bt,nc,H,N,P)
     chunk_decay = torch.exp(cum[..., -1])                 # (bt,nc,H)
 
     st = init_state if init_state is not None else \
@@ -166,10 +172,11 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg, *, init_state=None,
     dt = softplus(torch.matmul(x, p["dt_proj"]["w"].to(x.dtype)).float()
                   + p["dt_proj"]["bias"])                 # (bt,S,H)
     A = -torch.exp(p["A_log"])                            # (H,)
-    xh = xi.reshape(bt, s, H, P)
+    xh = shards.split_heads(xi, H, P)
     chunk = min(cfg.ssm_chunk, s)          # short sequences: single chunk
     if init_state is None and not return_state:
-        y, state = kssd.ssd_scan(xh, dt, A, Bv, Cv, chunk=chunk), None
+        y, state = kssd.ssd_scan(shards.settle(xh, (0, 2)), dt, A, Bv, Cv,
+                                 chunk=chunk), None
     else:
         y, state = ssd_chunked(xh, dt, A, Bv, Cv, chunk,
                                init_state=init_state)
@@ -212,7 +219,7 @@ def mamba_decode(p: dict, x: torch.Tensor, state: dict, cfg
     dt = softplus(torch.matmul(x, p["dt_proj"]["w"].to(x.dtype)).float()
                   + p["dt_proj"]["bias"])[:, 0]           # (B,H)
     A = -torch.exp(p["A_log"])
-    xh = xi.reshape(bt, H, P)
+    xh = shards.split_heads(xi[:, 0], H, P)
     Bv, Cv = Bv[:, 0], Cv[:, 0]                           # (B,N)
     h = state["h"].float()
     decay = torch.exp(dt * A[None, :])                    # (B,H)

@@ -25,15 +25,21 @@ prefix, as in the JAX package.
 whose shared attention block runs as it is, as in the JAX package) under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
 and recomputed in the backward, the same numbers as without remat.
-``act_sharding`` pins activations to a device mesh, an SPMD knob of
-ROADMAP item 19: only its default (None) is taken. :func:`lm_loss` is the
-training loss (next-token cross-entropy plus the MoE aux loss).
+The forward runs on DTensor params and batches too (the SPMD layout of
+``launch.sharding``): plain constants (positions, masks, zeros) meet the
+DTensors as replicated ones (``kernels.shards.replicate_constants``), and
+the attention core and the SSD scan run shard by shard.
+``act_sharding`` (a ``launch.sharding.NamedSharding``) pins the residual
+stream at every layer boundary (:func:`pinner`), where the JAX package
+calls ``with_sharding_constraint``. :func:`lm_loss` is the training loss
+(next-token cross-entropy plus the MoE aux loss).
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import shards
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -41,15 +47,25 @@ from .layers import (cross_entropy_loss, embed, init_embedding, init_mlp,
                      init_rmsnorm, mlp, rmsnorm, split, unembed)
 
 
-def refuse_sharding(**knobs) -> None:
-    """Raise ``NotImplementedError`` for an SPMD knob (a mesh, a sharding,
-    ``spmd_pod``) set to anything but its default: they are ROADMAP item
-    19, not ported yet."""
-    for name, value in knobs.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}={value!r}: the SPMD knobs are not ported yet "
-                "(ROADMAP item 19); the port takes only the default")
+def pinner(act_sharding):
+    """The layout constraint of the residual stream: ``h`` redistributed
+    to ``act_sharding`` (a ``launch.sharding.NamedSharding``; its spec read
+    on ``h``'s own mesh, where an axis that mesh lacks is dropped), where
+    the JAX package calls ``with_sharding_constraint``; the identity
+    without one. Redistribution moves shards and changes no number."""
+    if act_sharding is None:
+        return lambda h: h
+
+    def pin(h):
+        from ..launch.sharding import placements
+        if not shards.is_dtensor(h):
+            raise ValueError(
+                "act_sharding pins a DTensor activation; lay the params "
+                "and the batch out on the mesh first "
+                "(launch.sharding.distribute)")
+        return h.redistribute(h.device_mesh,
+                              placements(act_sharding.spec, h.device_mesh))
+    return pin
 
 
 def layer_call(remat: bool, fn, *args):
@@ -196,23 +212,31 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *,
     the compute dtype and put in front) -> (logits (B, S, padded_vocab)
     of the token positions only, aux_loss): the MoE layers' load-balance
     losses summed in f32 (0 for the others). ``remat``: each layer under a
-    checkpoint."""
-    refuse_sharding(act_sharding=act_sharding)
-    x = embed(params["embed"], tokens, cfg.compute_dtype)
+    checkpoint. ``act_sharding``: the residual stream pinned at every
+    layer boundary (:func:`pinner`)."""
+    with shards.replicate_constants(params, tokens):
+        return _forward(cfg, params, tokens, prefix_embeds, window,
+                        attn_impl, remat, pinner(act_sharding))
+
+
+def _forward(cfg, params, tokens, prefix_embeds, window, attn_impl, remat,
+             pin):
+    x = pin(embed(params["embed"], tokens, cfg.compute_dtype))
     n_prefix = 0
     if prefix_embeds is not None:
         n_prefix = prefix_embeds.shape[1]
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        x = pin(torch.cat([prefix_embeds.to(x.dtype), x], dim=1))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
 
     def attn_layer(p, h):
-        return _attn_layer_fwd(cfg, p, h, positions, window=window,
+        h, a = _attn_layer_fwd(cfg, p, pin(h), positions, window=window,
                                impl=attn_impl)
+        return pin(h), a
 
     def mamba_layer(p, h):
-        return _mamba_layer_fwd(cfg, p, h)
+        return pin(_mamba_layer_fwd(cfg, p, pin(h)))
 
     layers = unstack(params["layers"], cfg.num_layers)
     if cfg.arch_type in ATTN_TYPES:
@@ -226,8 +250,7 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *,
         for seg in _segments(cfg):
             for i in seg:
                 x = layer_call(remat, mamba_layer, layers[i], x)
-            x, a = _attn_layer_fwd(cfg, params["shared_attn"], x,
-                                   positions, window=window, impl=attn_impl)
+            x, a = attn_layer(params["shared_attn"], x)
             aux = aux + a
     else:
         raise ValueError(cfg.arch_type)
@@ -245,6 +268,13 @@ def lm_loss(cfg, params: dict, batch: dict, *, window=None,
     positions :-1 against ``batch["labels"]`` at 1:, the padded vocab
     masked; a VLM's logits cover its text only) plus ``aux_weight`` times
     the MoE load-balance loss."""
+    with shards.replicate_constants(params, batch):
+        return _lm_loss(cfg, params, batch, window, attn_impl, remat,
+                        aux_weight, act_sharding)
+
+
+def _lm_loss(cfg, params, batch, window, attn_impl, remat, aux_weight,
+             act_sharding):
     logits, aux = forward(cfg, params, batch["tokens"],
                           prefix_embeds=batch.get("vision_embeds"),
                           window=window, attn_impl=attn_impl, remat=remat,
@@ -306,6 +336,11 @@ def decode_step(cfg, params: dict, cache: dict, tokens: torch.Tensor,
                 ) -> tuple[torch.Tensor, dict]:
     """One-token decode. tokens (B, 1); pos the current position. The
     cache is updated in place and returned."""
+    with shards.replicate_constants(params, cache, tokens):
+        return _decode_step(cfg, params, cache, tokens, pos, windowed)
+
+
+def _decode_step(cfg, params, cache, tokens, pos, windowed):
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     if cfg.arch_type in ATTN_TYPES:
         for i in range(cfg.num_layers):

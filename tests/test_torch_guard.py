@@ -50,7 +50,11 @@ def test_entry_point_turns_tf32_off(monkeypatch):
 
 def test_wrappers_raise_without_a_library(monkeypatch, tmp_path):
     """A non-CPU tensor goes to the kernel or raises — never to the plain
-    version."""
+    version. ``agg_weighted``, which the train step's Eq. 5 reaches, takes
+    a CUDA tensor (a fake one here) to the kernel and a meta tensor (the
+    dry run's) by the plain version's shape arithmetic alone."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     def no_nvcc():
         raise RuntimeError("no nvcc")
 
@@ -62,10 +66,16 @@ def test_wrappers_raise_without_a_library(monkeypatch, tmp_path):
         lambda: gbp_cs.minimize(meta(2, 6, 5), meta(2, 6), meta(2, 5), 8),
         lambda: conv_fused.fused(meta(1, 32, 25), meta(1, 25, 4),
                                  meta(1, 4), 4),
-        lambda: agg_weighted.agg(meta(3, 8), meta(3)),
         lambda: robust_agg.aggregate(meta(2, 3, 8), meta(2, 3),
                                      "trimmed_mean", 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no nvcc"):
             call()
+    with FakeTensorMode(), pytest.raises(RuntimeError, match="no nvcc"):
+        agg_weighted.agg(torch.empty(3, 8, device="cuda"),
+                         torch.empty(3, device="cuda"))
+    before = agg_weighted.LAUNCHES
+    out = agg_weighted.agg(meta(3, 8), meta(3))
+    assert out.device.type == "meta" and tuple(out.shape) == (8,)
+    assert agg_weighted.LAUNCHES == before

@@ -260,17 +260,26 @@ def test_flash_attention_refuses_untaken_head_dims(d, dv):
 
 
 def test_flash_wrapper_never_falls_back(monkeypatch, tmp_path):
-    """A non-CPU tensor goes to the kernel or raises: here there is no
-    nvcc, so it raises."""
+    """A CUDA tensor goes to the kernel or raises: here there is no nvcc,
+    so it raises (fake CUDA tensors stand in for a card's). A meta tensor
+    takes the explicit shape route, the plain version's shape arithmetic,
+    and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     def no_nvcc():
         raise RuntimeError("no nvcc")
 
     monkeypatch.setattr(kbuild, "_LIB", None)
     monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(kbuild, "find_nvcc", no_nvcc)
+    with FakeTensorMode(), pytest.raises(RuntimeError, match="no nvcc"):
+        q = torch.empty(1, 128, 2, 64, device="cuda")
+        fa.flash_attention(q, q, q)
+    before = fa.LAUNCHES
     meta = torch.empty(1, 128, 2, 64, device="meta")
-    with pytest.raises(RuntimeError, match="no nvcc"):
-        fa.flash_attention(meta, meta, meta)
+    out = fa.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 128, 2, 64)
+    assert fa.LAUNCHES == before
     assert "flash_attention" in dispatch.launch_counts()
 
 

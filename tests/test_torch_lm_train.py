@@ -1,7 +1,7 @@
 """The LM training losses of the port against the JAX package: the masked
 cross-entropy, ``build(cfg).loss`` and its gradient for every arch's smoke
 config, remat, and the refusals (kernels without a backward under grad, the
-SPMD knobs of ROADMAP item 19)."""
+SPMD knobs on plain tensors)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -191,13 +191,31 @@ def test_kernel_wrappers_refuse_under_grad(name):
                                         ("act_sharding", object()),
                                         ("spmd_pod", True)])
 def test_spmd_knobs_are_refused(knob, value):
-    cfg = configs.get_smoke_config("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        steps.make_train_step(cfg, **{knob: value})
+    """The SPMD knobs need DTensor params and batches
+    (``launch.sharding.distribute``): on plain tensors the step raises a
+    ValueError naming the knob. A mesh without ``grad_pspecs`` is no knob
+    (the JAX step ignores it too): the step runs as without it."""
+    _, tcfg, _, tp = _model("granite-3-2b", 1)
+    kw = {knob: value, **({"mesh": object()} if knob == "grad_pspecs"
+                          else {})}
+    stacked = tree.map(lambda leaf: leaf[None], tp)
+    batch = {k: torch.tensor(v)[None]
+             for k, v in _batch(tcfg, 2, 8, 0).items()}
+    step = steps.make_train_step(tcfg, lr=0.1, **kw)
+    if knob == "mesh":
+        new, loss = step(stacked, batch)
+        ref, ref_loss = steps.make_train_step(tcfg, lr=0.1)(stacked, batch)
+        assert torch.equal(loss, ref_loss)
+        for a, b in zip(tree.leaves(new), tree.leaves(ref)):
+            assert torch.equal(a, b)
+        return
+    with pytest.raises(ValueError, match=knob):
+        step(stacked, batch)
 
 
 def test_forward_refuses_act_sharding():
+    """``act_sharding`` pins DTensor activations; a plain forward raises."""
     _, tcfg, _, tp = _model("granite-3-2b", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+    with pytest.raises(ValueError, match="act_sharding pins a DTensor"):
         transformer.forward(tcfg, tp, torch.zeros(1, 8, dtype=torch.int32),
                             act_sharding=object())

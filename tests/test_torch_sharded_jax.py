@@ -39,21 +39,27 @@ def one_thread():
 
 def sharded_runs(tmp_path_factory, arms):
     """The JAX 4-shard runs of ``arms`` and the port's at world 4, side by
-    side: {arm: (reference, [rank 0..3])}."""
+    side: {arm: (reference, [rank 0..3])}. Each arm's reference runs in a
+    process of its own, all beside the port's ranks: an arm's run is one
+    XLA compile of ~15 s that no other arm can share, so in one process
+    they would queue."""
     jax_out = tmp_path_factory.mktemp("jax4")
     port_out = tmp_path_factory.mktemp("port4")
-    ref = subprocess.Popen(
+    refs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "jax_sharded_reference.py"),
-         str(jax_out), ",".join(arms)],
+         str(jax_out), arm],
         env={**os.environ, "PYTHONPATH": "src" + os.pathsep
              + os.environ.get("PYTHONPATH", "")},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arm in arms]
     try:
         ranks.spawn(4, [(arm, ranks.M) for arm in arms], str(port_out))
-        _, err = ref.communicate(timeout=600)
+        errs = [ref.communicate(timeout=600)[1] for ref in refs]
     finally:
-        ref.kill()
-    assert ref.returncode == 0, err[-3000:]
+        for ref in refs:
+            ref.kill()
+    for ref, err in zip(refs, errs):
+        assert ref.returncode == 0, err[-3000:]
     return {arm: (ranks.load(str(jax_out / arm)),
                   ranks.load_world(str(port_out), arm, ranks.M, 4))
             for arm in arms}

@@ -148,18 +148,26 @@ def test_ssd_chunked_masks_before_exp():
 
 
 def test_ssd_wrapper_never_falls_back(monkeypatch, tmp_path):
-    """A non-CPU tensor goes to the kernel or raises: here there is no
-    nvcc, so it raises."""
+    """A CUDA tensor goes to the kernel or raises: here there is no nvcc,
+    so it raises (fake CUDA tensors stand in for a card's). A meta tensor
+    takes the explicit shape route, the plain version's shape arithmetic,
+    and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     def no_nvcc():
         raise RuntimeError("no nvcc")
 
     monkeypatch.setattr(kbuild, "_LIB", None)
     monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(kbuild, "find_nvcc", no_nvcc)
-    meta = lambda *shape: torch.empty(*shape, device="meta")
-    with pytest.raises(RuntimeError, match="no nvcc"):
-        kssd.ssd_scan(meta(1, 128, 2, 32), meta(1, 128, 2), meta(2),
-                      meta(1, 128, 16), meta(1, 128, 16))
+    shapes = ((1, 128, 2, 32), (1, 128, 2), (2,), (1, 128, 16),
+              (1, 128, 16))
+    with FakeTensorMode(), pytest.raises(RuntimeError, match="no nvcc"):
+        kssd.ssd_scan(*(torch.empty(s, device="cuda") for s in shapes))
+    before = kssd.LAUNCHES
+    y = kssd.ssd_scan(*(torch.empty(s, device="meta") for s in shapes))
+    assert y.device.type == "meta" and tuple(y.shape) == shapes[0]
+    assert kssd.LAUNCHES == before
     assert "ssd_scan" in dispatch.launch_counts()
     assert "ssd_scan_f32" in kbuild.SIGNATURES
 
@@ -344,6 +352,47 @@ def test_mamba_forward_matches_reference(s):
     np.testing.assert_allclose(_np(ssm.mamba_forward(p, torch.tensor(x),
                                                      cfg)),
                                np.asarray(ref), **TOL)
+
+
+def test_mamba_forward_bf16_matches_reference():
+    """A bf16 compute dtype end to end, over two chunks. Tolerance 2^-6 · max(1, max |ref|)
+    (two to four bf16 ulps at the output's largest magnitude): the block's
+    bf16 GEMMs and norm round in another order than XLA's (1 ulp apart on
+    ~70% of the outputs); the scan alone is held tighter below."""
+    jcfg, cfg, jp, p = _block()
+    jcfg, cfg = jcfg.with_(compute_dtype=jnp.bfloat16), \
+        cfg.with_(compute_dtype=torch.bfloat16)
+    x = np.random.default_rng(8).normal(size=(2, 256, cfg.d_model)
+                                        ).astype(np.float32)
+    ref = jssm.mamba_forward(jp, jnp.asarray(x, jnp.bfloat16), jcfg)
+    got = ssm.mamba_forward(p, torch.tensor(x).to(torch.bfloat16), cfg)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    _close(got, np.asarray(ref.astype(jnp.float32)), tol=2 ** -6)
+
+
+def test_ssd_chunked_bf16_matches_reference():
+    """bf16 x, B, C beside f32 dt and A, as ``mamba_forward`` passes them
+    at a bf16 compute dtype, at the sweep's largest shape: ``jnp.einsum``
+    promotes B to f32 beside the f32 factors, and the port's einsum must
+    take the same dtypes. Each y
+    within one bf16 ulp of JAX's (2^-7 · |ref|) plus the f32 scan's
+    tolerance (1e-5 · max(1, max |ref|), as ``_close``: where the f32 sums
+    cancel near zero, their rounding shows), the state to 1e-3 · max(1,
+    max |ref|)."""
+    bt, s, h, p, n, chunk = SSD_SHAPES[-1]
+    x, dt, A, B, C = _ssd_inputs(9, bt, s, h, p, n)
+    y, st = ssm.ssd_chunked(*[torch.tensor(a).to(torch.bfloat16)
+                              if a is x or a is B or a is C
+                              else torch.tensor(a) for a in (x, dt, A, B, C)],
+                            chunk)
+    ry, rst = jssm.ssd_chunked(jnp.asarray(x, jnp.bfloat16), dt, A,
+                               jnp.asarray(B, jnp.bfloat16),
+                               jnp.asarray(C, jnp.bfloat16), chunk)
+    assert y.dtype == torch.bfloat16 and ry.dtype == jnp.bfloat16
+    ry = np.asarray(ry.astype(jnp.float32))
+    assert (np.abs(_np(y) - ry) <= 2 ** -7 * np.abs(ry)
+            + 1e-5 * max(1.0, float(np.abs(ry).max()))).all()
+    _close(st, np.asarray(rst.astype(jnp.float32)), tol=1e-3)
 
 
 def test_mamba_forward_with_state_matches_reference():

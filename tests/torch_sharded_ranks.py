@@ -11,7 +11,6 @@ import time
 import traceback
 
 import numpy as np
-import torch
 
 # test_fedgs_fused.py's multi-device config: M=4, K=8, L=4, L_rnd=1, T=5,
 # R=2, n=8, the smoke CNN
@@ -149,6 +148,7 @@ def _collectives(rank: int, world: int, out: str) -> None:
     from repro_torch.core import fedgs, sync
     from repro_torch.launch import mesh as lmesh
     params, weight, group_params = collective_inputs(rank)
+    import torch
     t = lambda tr: {k: torch.as_tensor(v) for k, v in tr.items()}
     res = {
         "internal": sync.internal_sync_collective(t(params), weight),
@@ -181,6 +181,7 @@ def _rank_main(rank: int, world: int, store: str, jobs: list, out: str
                ) -> None:
     """One gloo rank: each job's results, and each composition's local
     re-trigger predicates (before the OR over the shards), to ``out``."""
+    import torch
     import torch.distributed as dist
     try:
         torch.set_num_threads(1)
@@ -221,6 +222,7 @@ def spawn(world: int, jobs: list, out: str) -> None:
     gloo ranks, a file store under ``out``; each rank saves its results
     there (:func:`load`). Raises with a rank's traceback if one fails or
     the world outlasts :data:`TIMEOUT`."""
+    import torch.multiprocessing
     ctx = torch.multiprocessing.get_context("spawn")
     store = os.path.join(out, "store")
     procs = [ctx.Process(target=_rank_main,
